@@ -1,0 +1,18 @@
+from efficientat_tpu_torch.models.mn import MN, MNConfig, init_weights, mn_block_table
+from efficientat_tpu_torch.models.registry import (
+    REGISTRY,
+    ModelSpec,
+    build_model,
+    get_model_config,
+)
+
+__all__ = [
+    "MN",
+    "MNConfig",
+    "ModelSpec",
+    "REGISTRY",
+    "build_model",
+    "get_model_config",
+    "init_weights",
+    "mn_block_table",
+]

@@ -1,0 +1,212 @@
+"""MobileNetV3 building blocks in NCHW (port of efficientat_tpu/models/layers.py).
+
+Module trees and attribute names follow the upstream checkpoints
+(torchvision ``ConvNormActivation`` as ``<prefix>.0`` conv / ``<prefix>.1``
+BN; ``InvertedResidual.block``; ``ConcurrentSEBlock.conc_se_layers.k.fc1/fc2``;
+``MultiHeadAttentionPooling.subspace_proj`` / ``head_weight``), so a release
+``.pt`` loads with ``load_state_dict(strict=True)``.
+
+BatchNorm: eps 1e-3, momentum 0.01 in the backbone (upstream
+models/mn/model.py:114-115); the fully-convolutional head keeps torch's
+defaults, eps 1e-5 and momentum 0.1 (models/mn/model.py:183).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+from torch import nn
+
+from efficientat_tpu.utils.common import cnn_out_size, make_divisible
+
+BN_EPS = 1e-3
+BN_MOMENTUM = 0.01
+
+ACTIVATIONS = {"RE": nn.ReLU, "HS": nn.Hardswish}
+
+# axis of (B, C, F, T) each SE dimension letter gates
+_SE_AXES = {"c": 1, "f": 2, "t": 3}
+
+
+class ConvNormAct(nn.Sequential):
+    """Conv2d (no bias, torch-style symmetric padding) -> BatchNorm -> activation."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel: int = 3,
+                 stride: int = 1, dilation: int = 1, groups: int = 1,
+                 act: Optional[type] = nn.Hardswish):
+        layers = [
+            nn.Conv2d(in_channels, out_channels, kernel, stride,
+                      padding=(kernel - 1) // 2 * dilation, dilation=dilation,
+                      groups=groups, bias=False),
+            nn.BatchNorm2d(out_channels, eps=BN_EPS, momentum=BN_MOMENTUM),
+        ]
+        if act is not None:
+            layers.append(act())
+        super().__init__(*layers)
+
+
+class SqueezeExcitation(nn.Module):
+    """SE over one of {channel, frequency, time}: mean over the other two
+    axes, fc1 -> ReLU -> fc2 -> sigmoid, gate broadcast along ``se_axis``
+    (upstream models/mn/block_types.py:45-83)."""
+
+    def __init__(self, input_dim: int, squeeze_dim: int, se_axis: int):
+        super().__init__()
+        self.se_axis = se_axis
+        self.fc1 = nn.Linear(input_dim, squeeze_dim)
+        self.fc2 = nn.Linear(squeeze_dim, input_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        reduce = tuple(a for a in (1, 2, 3) if a != self.se_axis)
+        scale = x.mean(dim=reduce)
+        scale = torch.sigmoid(self.fc2(torch.relu(self.fc1(scale))))
+        shape = [x.shape[0], 1, 1, 1]
+        shape[self.se_axis] = scale.shape[1]
+        return x * scale.reshape(shape)
+
+
+class ConcurrentSEBlock(nn.Module):
+    """SE concurrently on a subset of {c, f, t}, fused by max/avg/add/min
+    (upstream models/mn/block_types.py:10-42)."""
+
+    def __init__(self, c_dim: int, f_dim: int, t_dim: int, se_dims: str = "c",
+                 se_agg: str = "max", se_r: int = 4):
+        super().__init__()
+        if se_agg not in ("max", "avg", "add", "min"):
+            raise ValueError(f"se_agg must be max, avg, add or min, got {se_agg!r}")
+        dims = {"c": c_dim, "f": f_dim, "t": t_dim}
+        self.se_agg = se_agg
+        self.conc_se_layers = nn.ModuleList(
+            SqueezeExcitation(dims[d], make_divisible(dims[d] // se_r, 8),
+                              _SE_AXES[d]) for d in se_dims)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        outs = [se(x) for se in self.conc_se_layers]
+        if len(outs) == 1:
+            return outs[0]
+        stacked = torch.stack(outs, dim=0)
+        if self.se_agg == "max":
+            return stacked.max(dim=0).values
+        if self.se_agg == "avg":
+            return stacked.mean(dim=0)
+        if self.se_agg == "add":
+            return stacked.sum(dim=0)
+        return stacked.min(dim=0).values
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockConfig:
+    """One inverted-residual block row (already width-adjusted)."""
+
+    input_channels: int
+    kernel: int
+    expanded_channels: int
+    out_channels: int
+    use_se: bool
+    activation: str  # "RE" | "HS"
+    stride: int
+    dilation: int
+
+    @staticmethod
+    def make(input_channels, kernel, expanded_channels, out_channels, use_se,
+             activation, stride, dilation, width_mult):
+        adj = lambda c: make_divisible(c * width_mult, 8)
+        return BlockConfig(adj(input_channels), kernel, adj(expanded_channels),
+                           adj(out_channels), use_se, activation, stride, dilation)
+
+    def out_size(self, in_size: int) -> int:
+        padding = (self.kernel - 1) // 2 * self.dilation
+        return cnn_out_size(in_size, padding, self.dilation, self.kernel, self.stride)
+
+    @property
+    def use_res(self) -> bool:
+        return self.stride == 1 and self.input_channels == self.out_channels
+
+
+class InvertedResidual(nn.Module):
+    """expand 1x1 -> depthwise kxk -> [SE] -> project 1x1, residual iff
+    stride 1 and C_in == C_out (upstream models/mn/block_types.py:120-181).
+    A dilated block runs its depthwise conv at stride 1."""
+
+    def __init__(self, cnf: BlockConfig, se_dims: Optional[str] = "c",
+                 se_agg: str = "max", se_r: int = 4, f_dim: int = 0,
+                 t_dim: int = 0):
+        super().__init__()
+        self.use_res = cnf.use_res
+        act = ACTIVATIONS[cnf.activation]
+        layers = []
+        if cnf.expanded_channels != cnf.input_channels:
+            layers.append(ConvNormAct(cnf.input_channels, cnf.expanded_channels,
+                                      1, act=act))
+        stride = 1 if cnf.dilation > 1 else cnf.stride
+        layers.append(ConvNormAct(cnf.expanded_channels, cnf.expanded_channels,
+                                  cnf.kernel, stride, cnf.dilation,
+                                  groups=cnf.expanded_channels, act=act))
+        if cnf.use_se and se_dims:
+            layers.append(ConcurrentSEBlock(cnf.expanded_channels, f_dim, t_dim,
+                                            se_dims, se_agg, se_r))
+        layers.append(ConvNormAct(cnf.expanded_channels, cnf.out_channels, 1,
+                                  act=None))
+        self.block = nn.Sequential(*layers)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.block(x)
+        return out + x if self.use_res else out
+
+
+class MlpHead(nn.Sequential):
+    """Global avg-pool -> Linear -> Hardswish -> Dropout -> Linear, laid out
+    as upstream's ``classifier`` (indices 2 and 5 hold the Linears)."""
+
+    def __init__(self, in_channels: int, last_channel: int, num_classes: int,
+                 dropout: float = 0.2):
+        super().__init__(
+            nn.AdaptiveAvgPool2d(1),
+            nn.Flatten(1),
+            nn.Linear(in_channels, last_channel),
+            nn.Hardswish(),
+            nn.Dropout(dropout),
+            nn.Linear(last_channel, num_classes),
+        )
+
+
+class FullyConvHead(nn.Sequential):
+    """1x1 conv (no bias) -> BatchNorm (torch defaults) -> global avg-pool."""
+
+    def __init__(self, in_channels: int, num_classes: int):
+        super().__init__(
+            nn.Conv2d(in_channels, num_classes, 1, bias=False),
+            nn.BatchNorm2d(num_classes, eps=1e-5, momentum=0.1),
+            nn.AdaptiveAvgPool2d(1),
+            nn.Flatten(1),
+        )
+
+
+class MultiHeadAttentionPooling(nn.Module):
+    """PSLA-style attention pooling (upstream models/mn/attention_pooling.py:9-56):
+    frequency mean-pooled, one projection gives per-head attention and value
+    over time, attention sigmoid-clamped and normalized over time, heads
+    combined by a learnable weight initialized to 1/heads."""
+
+    def __init__(self, in_dim: int, out_dim: int, num_heads: int = 4,
+                 epsilon: float = 1e-7):
+        super().__init__()
+        self.out_dim = out_dim
+        self.num_heads = num_heads
+        self.epsilon = epsilon
+        self.subspace_proj = nn.Linear(in_dim, out_dim * 2 * num_heads)
+        self.head_weight = nn.Parameter(
+            torch.full((1, num_heads, 1), 1.0 / num_heads))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.mean(dim=2).transpose(1, 2)  # (B, T, C)
+        b, n, _ = x.shape
+        proj = self.subspace_proj(x).reshape(b, n, 2, self.num_heads, self.out_dim)
+        att = proj[:, :, 0].transpose(1, 2)  # (B, heads, T, out)
+        val = proj[:, :, 1].transpose(1, 2)
+        att = torch.clamp(torch.sigmoid(att), self.epsilon, 1.0 - self.epsilon)
+        att = att / att.sum(dim=2, keepdim=True)
+        out = (att * val).sum(dim=2)  # (B, heads, out)
+        return (out * self.head_weight).sum(dim=1)

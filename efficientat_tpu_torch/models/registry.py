@@ -1,0 +1,104 @@
+"""Checkpoint hub: name -> (MN config, mel config, release file)
+(port of efficientat_tpu/models/registry.py).
+
+Every MN name of the JAX registry is here with its own ``MelConfig``. DyMN
+names are not ported yet and raise ``KeyError`` saying so.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+from efficientat_tpu.utils.common import NAME_TO_WIDTH
+from efficientat_tpu_torch.models.mn import MN, MNConfig
+from efficientat_tpu_torch.ops.melspec import MelConfig
+
+RELEASE_URL = "https://github.com/fschmid56/EfficientAT/releases/download/v0.0.1/"
+MODEL_DIR = "resources"
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelSpec:
+    name: str
+    file: str  # filename on the release page
+    model_cfg: MNConfig
+    mel_cfg: MelConfig = MelConfig()
+
+    @property
+    def url(self) -> str:
+        return RELEASE_URL + self.file
+
+
+def _mn(name, file, *, head="mlp", strides=(2, 2, 2, 2), mel=None):
+    return ModelSpec(name, file,
+                     MNConfig(width_mult=NAME_TO_WIDTH(name), head_type=head,
+                              strides=tuple(strides)),
+                     mel or MelConfig())
+
+
+_SPECS = [
+    # ImageNet-pretrained MN (1 input channel, AudioSet-ready head shapes)
+    _mn("mn10_im_pytorch", "mn10_im_pytorch.pt"),
+    _mn("mn01_im", "mn01_im.pt"),
+    _mn("mn02_im", "mn02_im.pt"),
+    _mn("mn04_im", "mn04_im.pt"),
+    _mn("mn05_im", "mn05_im.pt"),
+    _mn("mn10_im", "mn10_im.pt"),
+    _mn("mn20_im", "mn20_im.pt"),
+    _mn("mn30_im", "mn30_im.pt"),
+    _mn("mn40_im", "mn40_im.pt"),
+    # AudioSet-trained MN
+    _mn("mn01_as", "mn01_as_mAP_298.pt"),
+    _mn("mn02_as", "mn02_as_mAP_378.pt"),
+    _mn("mn04_as", "mn04_as_mAP_432.pt"),
+    _mn("mn05_as", "mn05_as_mAP_443.pt"),
+    _mn("mn10_as", "mn10_as_mAP_471.pt"),
+    _mn("mn20_as", "mn20_as_mAP_478.pt"),
+    _mn("mn30_as", "mn30_as_mAP_482.pt"),
+    _mn("mn40_as", "mn40_as_mAP_484.pt"),
+    _mn("mn40_as(2)", "mn40_as_mAP_483.pt"),
+    _mn("mn40_as(3)", "mn40_as_mAP_483(2).pt"),
+    _mn("mn40_as_no_im_pre", "mn40_as_no_im_pre_mAP_483.pt"),
+    _mn("mn40_as_no_im_pre(2)", "mn40_as_no_im_pre_mAP_483(2).pt"),
+    _mn("mn40_as_no_im_pre(3)", "mn40_as_no_im_pre_mAP_482.pt"),
+    _mn("mn40_as_ext", "mn40_as_ext_mAP_487.pt"),
+    _mn("mn40_as_ext(2)", "mn40_as_ext_mAP_486.pt"),
+    _mn("mn40_as_ext(3)", "mn40_as_ext_mAP_485.pt"),
+    # hop-size variants (hop in ms at 32 kHz)
+    _mn("mn10_as_hop_5", "mn10_as_hop_5_mAP_475.pt", mel=MelConfig(hopsize=160)),
+    _mn("mn10_as_hop_15", "mn10_as_hop_15_mAP_463.pt", mel=MelConfig(hopsize=480)),
+    _mn("mn10_as_hop_20", "mn10_as_hop_20_mAP_456.pt", mel=MelConfig(hopsize=640)),
+    _mn("mn10_as_hop_25", "mn10_as_hop_25_mAP_447.pt", mel=MelConfig(hopsize=800)),
+    # mel-band variants
+    _mn("mn10_as_mels_40", "mn10_as_mels_40_mAP_453.pt", mel=MelConfig(n_mels=40)),
+    _mn("mn10_as_mels_64", "mn10_as_mels_64_mAP_461.pt", mel=MelConfig(n_mels=64)),
+    _mn("mn10_as_mels_256", "mn10_as_mels_256_mAP_474.pt", mel=MelConfig(n_mels=256)),
+    # fully-convolutional heads (and stride variants)
+    _mn("mn10_as_fc", "mn10_as_fc_mAP_465.pt", head="fully_convolutional"),
+    _mn("mn10_as_fc_s2221", "mn10_as_fc_s2221_mAP_466.pt",
+        head="fully_convolutional", strides=(2, 2, 2, 1)),
+    _mn("mn10_as_fc_s2211", "mn10_as_fc_s2211_mAP_466.pt",
+        head="fully_convolutional", strides=(2, 2, 1, 1)),
+]
+
+REGISTRY = {s.name: s for s in _SPECS}
+
+
+def get_model_config(name: str) -> ModelSpec:
+    if name not in REGISTRY:
+        if name.startswith("dymn"):
+            raise KeyError(f"'{name}' is a DyMN model; DyMN is not ported to "
+                           "efficientat_tpu_torch yet")
+        raise KeyError(f"Model name '{name}' unknown. Known: {sorted(REGISTRY)}")
+    return REGISTRY[name]
+
+
+def build_model(name_or_cfg, num_classes: Optional[int] = None) -> MN:
+    """An MN module (CPU, torch's default init) for a registry name or an
+    ``MNConfig``; ``num_classes`` overrides the config's class count."""
+    cfg = (get_model_config(name_or_cfg).model_cfg
+           if isinstance(name_or_cfg, str) else name_or_cfg)
+    if num_classes is not None and num_classes != cfg.num_classes:
+        cfg = dataclasses.replace(cfg, num_classes=num_classes)
+    return MN(cfg)

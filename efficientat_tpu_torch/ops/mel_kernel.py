@@ -1,0 +1,234 @@
+"""Fused log-mel front end: host side of K1 (port of efficientat_tpu/ops/mel_pallas.py).
+
+K1 (``csrc/mel_kernel.cu``) computes, for each clip and each 64-frame tile,
+frames of the raw wave x the pre-emphasis-folded windowed rDFT basis (no
+Nyquist bin) -> power -> x banks^T -> ``(log(x + 1e-5) + 4.5) / 5``, written
+as (B, n_mels, n_frames). The frames whose window reaches the reflect pad (at
+most 4 a clip) are recomputed here in plain PyTorch with the exact reference
+math and patched in, as the JAX wrapper does.
+
+``stft_log_mel`` launches K1 for a CUDA tensor and runs its plain PyTorch
+version, ``stft_log_mel_plain``, for a CPU tensor; nothing else chooses
+between them. ``log_mel_spectrogram_fused`` picks K1 or the plain melspec
+path (``ops.melspec``) from the config and the device only.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from efficientat_tpu_torch.ops.filterbank import kaldi_mel_banks
+from efficientat_tpu_torch.ops.melspec import (
+    PREEMPH,
+    MelConfig,
+    _edge_power,
+    _folded_dft_basis,
+    device_const,
+    edge_frames,
+    frame_signal,
+    log_mel_spectrogram,
+    true_fp32,
+)
+
+DFT_PRECISIONS = ("fp32", "bf16x3")
+# the edge patch reads 2 * n_fft-sample slivers from both ends of the clip
+MIN_SAMPLES = 4096
+
+# K1 launches in this process; a run resets it to 0 and reads it after
+LAUNCHES = 0
+
+
+def kernel_supported(cfg: MelConfig) -> bool:
+    """Configs K1 computes: n_fft 1024 and hop 320 or 640."""
+    return cfg.n_fft == 1024 and cfg.hopsize in (320, 640)
+
+
+@lru_cache(maxsize=8)
+def _folded_basis_no_nyquist(n_fft: int, win_length: int,
+                             coef: float = PREEMPH) -> np.ndarray:
+    """Pre-emphasis-folded windowed rDFT basis, Nyquist bin dropped:
+    (n_fft, n_fft), cos columns then sin columns, fp32 from float64."""
+    full = _folded_dft_basis(n_fft, win_length, coef)
+    n_freq = n_fft // 2 + 1
+    return np.ascontiguousarray(np.concatenate(
+        [full[:, :n_freq - 1], full[:, n_freq:2 * n_freq - 1]], axis=1))
+
+
+@lru_cache(maxsize=8)
+def _folded_basis_split(n_fft: int, win_length: int, part: int) -> np.ndarray:
+    """The bf16 hi (``part`` 0) or lo (1) part of the folded basis, as fp32
+    numpy holding bf16 values: hi + lo carries about 16 mantissa bits."""
+    basis = torch.from_numpy(_folded_basis_no_nyquist(n_fft, win_length))
+    hi = basis.to(torch.bfloat16).to(torch.float32)
+    out = hi if part == 0 else (basis - hi).to(torch.bfloat16).to(torch.float32)
+    return out.numpy()
+
+
+def _edge_frames_logmel(wave: torch.Tensor, banks: torch.Tensor,
+                        cfg: MelConfig, left_f, right_f) -> torch.Tensor:
+    """Exact fp32 log-mel rows (B, n_edge, n_mels) for the frames whose
+    window touches the reflect-pad region — the one place where the
+    folded-basis kernel, which sees a zero pad, differs from the reference
+    math. Computed on 2048-sample slivers; at most 4 frames a clip."""
+    power = _edge_power(wave, cfg.n_fft, cfg.hopsize, cfg.win_length,
+                        left_f, right_f)
+    with true_fp32():
+        mel = power @ banks.t()
+    return (torch.log(mel + 1e-5) + 4.5) / 5.0
+
+
+def _patch_edges(out: torch.Tensor, wave: torch.Tensor, banks: torch.Tensor,
+                 cfg: MelConfig) -> torch.Tensor:
+    """Overwrite the reflect-pad edge frames of ``out`` (B, n_mels, frames)."""
+    n_frames = out.shape[2]
+    left_f, right_f = edge_frames(n_frames, cfg.hopsize, cfg.n_fft,
+                                  wave.shape[1] - 1)
+    if left_f or right_f:
+        edge = _edge_frames_logmel(wave, banks, cfg, left_f, right_f)
+        edge = edge.transpose(1, 2)
+        nl = len(left_f)
+        out[:, :, :nl] = edge[:, :, :nl]
+        if right_f:
+            out[:, :, right_f[0]:right_f[-1] + 1] = edge[:, :, nl:]
+    return out
+
+
+def _check_args(wave: torch.Tensor, banks: torch.Tensor, cfg: MelConfig,
+                dft_precision: str) -> None:
+    if dft_precision not in DFT_PRECISIONS:
+        raise ValueError(f"dft_precision must be one of {DFT_PRECISIONS}, "
+                         f"got {dft_precision!r}")
+    if not kernel_supported(cfg):
+        raise ValueError(f"K1 supports n_fft 1024 and hop 320/640, got {cfg}")
+    if wave.dim() != 2 or wave.shape[1] < MIN_SAMPLES:
+        raise ValueError(f"K1 takes (B, S >= {MIN_SAMPLES}) waves, got "
+                         f"{tuple(wave.shape)}")
+    if banks.shape != (cfg.n_mels, cfg.n_freqs):
+        raise ValueError(f"banks must be {(cfg.n_mels, cfg.n_freqs)}, got "
+                         f"{tuple(banks.shape)}")
+
+
+def stft_log_mel_plain(wave: torch.Tensor, banks: torch.Tensor, cfg: MelConfig,
+                       dft_precision: str = "bf16x3") -> torch.Tensor:
+    """K1's function in plain PyTorch: (B, S) f32 -> (B, n_mels, n_frames).
+
+    The same math as the kernel, on any device: frames of the raw wave with
+    a zero pad, the folded basis (split into bf16 hi/lo for ``"bf16x3"``,
+    with the frames split the same way and hi*hi + (hi*lo + lo*hi) summed in
+    fp32), power, fp32 mel GEMM, log, normalisation, edge patch."""
+    _check_args(wave, banks, cfg, dft_precision)
+    n_fft, hop = cfg.n_fft, cfg.hopsize
+    n_bins = n_fft // 2
+    n_frames = cfg.num_frames(wave.shape[1])
+    device = str(wave.device)
+    frames = frame_signal(wave, n_fft, hop, n_frames, pad_mode="constant")
+    banks_t = banks[:, :n_bins].t()
+    with true_fp32():
+        if dft_precision == "bf16x3":
+            bhi, blo = (device_const(_folded_basis_split,
+                                     (n_fft, cfg.win_length, p), device)
+                        for p in (0, 1))
+            fh = frames.to(torch.bfloat16).to(torch.float32)
+            fl = (frames - fh).to(torch.bfloat16).to(torch.float32)
+            proj = fh @ bhi + (fh @ blo + fl @ bhi)
+        else:
+            proj = frames @ device_const(_folded_basis_no_nyquist,
+                                         (n_fft, cfg.win_length), device)
+        power = proj[..., :n_bins] ** 2 + proj[..., n_bins:] ** 2
+        mel = power @ banks_t
+    out = ((torch.log(mel + 1e-5) + 4.5) / 5.0).transpose(1, 2).contiguous()
+    return _patch_edges(out, wave, banks, cfg)
+
+
+def stft_log_mel(wave: torch.Tensor, banks: torch.Tensor, cfg: MelConfig,
+                 dft_precision: str = "bf16x3") -> torch.Tensor:
+    """Raw waveform (B, S) f32 -> normalized log-mel (B, n_mels, n_frames).
+
+    On a CUDA tensor this launches K1 or raises; on a CPU tensor it runs
+    ``stft_log_mel_plain``. ``banks`` is the (n_mels, n_fft//2+1) Kaldi
+    bank; its zero Nyquist column is dropped inside."""
+    global LAUNCHES
+    if wave.device.type == "cpu":
+        return stft_log_mel_plain(wave, banks, cfg, dft_precision)
+    _check_args(wave, banks, cfg, dft_precision)
+    if wave.device.type != "cuda":
+        raise ValueError(f"K1 runs on CUDA tensors, got {wave.device}")
+    if wave.dtype != torch.float32 or not wave.is_contiguous():
+        raise ValueError("K1 takes a contiguous float32 wave, got "
+                         f"{wave.dtype}, contiguous={wave.is_contiguous()}")
+    if banks.device != wave.device or banks.dtype != torch.float32:
+        raise ValueError("banks must be float32 on the wave's device")
+    from efficientat_tpu_torch.ops._build import load_library
+
+    lib = _bind(load_library("mel_kernel"))
+    n_fft, hop = cfg.n_fft, cfg.hopsize
+    n_bins = n_fft // 2
+    batch, n_samples = wave.shape
+    n_frames = cfg.num_frames(n_samples)
+    device = str(wave.device)
+    banks_t = banks[:, :n_bins].t().contiguous()
+    bf16x3 = dft_precision == "bf16x3"
+    if bf16x3:
+        bhi, blo = (device_const(_folded_basis_split, (n_fft, cfg.win_length, p),
+                                 device, torch.bfloat16) for p in (0, 1))
+        basis = bhi  # unused by the bf16x3 instantiation
+    else:
+        basis = device_const(_folded_basis_no_nyquist, (n_fft, cfg.win_length),
+                             device)
+        bhi = blo = basis  # unused by the fp32 instantiation
+    out = torch.empty((batch, cfg.n_mels, n_frames), device=wave.device,
+                      dtype=torch.float32)
+    stream = torch.cuda.current_stream(wave.device).cuda_stream
+    err = lib.eat_mel_log(wave.data_ptr(), batch, n_samples, hop, n_frames,
+                          basis.data_ptr(), bhi.data_ptr(), blo.data_ptr(),
+                          int(bf16x3), banks_t.data_ptr(), cfg.n_mels,
+                          out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError("K1 launch failed: "
+                           + lib.eat_error_string(err).decode())
+    LAUNCHES += 1
+    return _patch_edges(out, wave, banks, cfg)
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.eat_mel_log.argtypes = [p, i, i, i, i, p, p, p, i, p, i, p, p]
+    lib.eat_mel_log.restype = i
+    lib.eat_error_string.argtypes = [i]
+    lib.eat_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def log_mel_spectrogram_fused(waveform: torch.Tensor,
+                              cfg: MelConfig = MelConfig(), *,
+                              training: bool = False, backend: str = "auto",
+                              dft_precision: str | None = None) -> torch.Tensor:
+    """Drop-in for ``ops.melspec.log_mel_spectrogram`` with a K1 path.
+
+    backend: ``"kernel"`` (``stft_log_mel``: K1 on CUDA, its plain version
+    on CPU), ``"plain"`` (the melspec path), or ``"auto"``: K1 when the wave
+    is on CUDA, the config is one K1 computes and the clip has at least
+    4096 samples, the melspec path otherwise. The choice depends on the
+    config and the device only.
+
+    dft_precision defaults to ``"bf16x3"``, the serving default of the JAX
+    package; ``"fp32"`` is exact fp32. The melspec path is always fp32.
+    """
+    if training:
+        raise NotImplementedError(
+            "training-mode mel (SpecAugment, fmin/fmax jitter) is not ported yet")
+    if backend not in ("auto", "kernel", "plain"):
+        raise ValueError(f"backend must be auto, kernel or plain, got {backend!r}")
+    use_kernel = backend == "kernel" or (
+        backend == "auto" and waveform.device.type == "cuda"
+        and kernel_supported(cfg) and waveform.shape[-1] >= MIN_SAMPLES)
+    if not use_kernel:
+        return log_mel_spectrogram(waveform, cfg)
+    banks = kaldi_mel_banks(cfg.n_mels, cfg.n_fft, cfg.sr, cfg.fmin,
+                            cfg.effective_fmax, device=waveform.device)
+    return stft_log_mel(waveform.to(torch.float32).contiguous(), banks, cfg,
+                        dft_precision or "bf16x3")

@@ -1,0 +1,271 @@
+"""Log-mel spectrogram, plain PyTorch path (port of efficientat_tpu/ops/melspec.py).
+
+Reference behaviour (upstream models/preprocess.py:6-67, ``AugmentMelSTFT``),
+eval mode:
+
+1. pre-emphasis ``x[t+1] - 0.97 * x[t]``;
+2. STFT with n_fft=1024, hop=320, win=800, a symmetric (periodic=False) Hann
+   window, center=True with reflect pad, power re^2 + im^2;
+3. Kaldi mel bank (``ops.filterbank``), fp32 mel GEMM, ``log(mel + 1e-5)``;
+4. fixed normalisation ``(x + 4.5) / 5``.
+
+As in the JAX package, the STFT is a GEMM against a windowed rDFT basis built
+in float64, and clips of at least ``2 * n_fft`` samples multiply frames of the
+RAW wave by a basis with the pre-emphasis folded in (``stft_power_folded``),
+which keeps the cancellation of the difference signal out of fp32. Every
+GEMM here runs in IEEE fp32 (``true_fp32``).
+
+SpecAugment and the fmin/fmax jitter come with the train step;
+``training=True`` raises until then.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+from functools import lru_cache
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from efficientat_tpu_torch.ops.filterbank import kaldi_mel_banks
+
+PREEMPH = 0.97
+
+
+@dataclasses.dataclass(frozen=True)
+class MelConfig:
+    """Front-end configuration (defaults mirror models/preprocess.py:7)."""
+
+    n_mels: int = 128
+    sr: int = 32000
+    win_length: int = 800
+    hopsize: int = 320
+    n_fft: int = 1024
+    freqm: int = 48
+    timem: int = 192
+    fmin: float = 0.0
+    fmax: Optional[float] = None
+    fmin_aug_range: int = 10
+    fmax_aug_range: int = 2000
+
+    def __post_init__(self):
+        if self.fmin_aug_range < 1 or self.fmax_aug_range < 1:
+            raise ValueError("fmin_aug_range and fmax_aug_range must be >= 1 "
+                             "(1 == no augmentation)")
+
+    @property
+    def effective_fmax(self) -> float:
+        # models/preprocess.py:17-19 — None means "Nyquist minus half the jitter range".
+        if self.fmax is None:
+            return float(self.sr // 2 - self.fmax_aug_range // 2)
+        return float(self.fmax)
+
+    @property
+    def n_freqs(self) -> int:
+        return self.n_fft // 2 + 1
+
+    def num_frames(self, num_samples: int) -> int:
+        """Frames for ``num_samples`` samples: pre-emphasis shortens by 1 and
+        the centered STFT yields ``1 + L // hop`` frames."""
+        return (num_samples - 1) // self.hopsize + 1
+
+
+@contextlib.contextmanager
+def true_fp32():
+    """Run the GEMMs inside in IEEE fp32 on the card.
+
+    TF32 keeps about three decimal digits, and the log near the 1e-5 mel
+    floor turns that into visible error (the JAX package pins
+    ``Precision.HIGHEST`` for the same reason). The previous setting is
+    restored on exit."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def hann_window(win_length: int) -> np.ndarray:
+    """Symmetric (periodic=False) Hann window, float64."""
+    n = np.arange(win_length, dtype=np.float64)
+    return 0.5 * (1.0 - np.cos(2.0 * np.pi * n / (win_length - 1)))
+
+
+def _windowed_basis_f64(n_fft: int, win_length: int) -> np.ndarray:
+    """(n_fft, 2*(n_fft//2+1)) float64: cos columns, then sin columns, times
+    the window zero-padded to the centre of the n_fft frame (torch.stft's
+    handling of win < n_fft)."""
+    n_freq = n_fft // 2 + 1
+    w = np.zeros(n_fft, dtype=np.float64)
+    left = (n_fft - win_length) // 2
+    w[left:left + win_length] = hann_window(win_length)
+    n = np.arange(n_fft, dtype=np.float64)[:, None]
+    k = np.arange(n_freq, dtype=np.float64)[None, :]
+    ang = 2.0 * np.pi * k * n / n_fft
+    return np.concatenate([np.cos(ang) * w[:, None], np.sin(ang) * w[:, None]],
+                          axis=1)
+
+
+@lru_cache(maxsize=8)
+def _dft_basis(n_fft: int, win_length: int) -> np.ndarray:
+    """Windowed rDFT basis (n_fft, 2*(n_fft//2+1)), built in float64, fp32."""
+    return _windowed_basis_f64(n_fft, win_length).astype(np.float32)
+
+
+@lru_cache(maxsize=8)
+def _folded_dft_basis(n_fft: int, win_length: int,
+                      coef: float = PREEMPH) -> np.ndarray:
+    """Pre-emphasis-folded windowed rDFT basis (n_fft, 2*(n_fft//2+1)).
+
+    For xe[t] = x[t+1] - coef*x[t] and a windowed basis b whose centered
+    window is zero at the frame edges (win_length < n_fft),
+    ``sum_m b[m,k]*xe[s+m] == sum_j B'[j,k]*x[s+j]`` with
+    ``B'[j,k] = b[j-1,k] - coef*b[j,k]`` (b[-1] := 0). Built in float64."""
+    basis = _windowed_basis_f64(n_fft, win_length)
+    shifted = np.vstack([np.zeros((1, basis.shape[1])), basis[:-1]])
+    return (shifted - coef * basis).astype(np.float32)
+
+
+@lru_cache(maxsize=32)
+def device_const(make, args: tuple, device: str,
+                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``make(*args)`` (a cached numpy constant) as a ``dtype`` tensor on
+    ``device``, copied there once per process."""
+    return torch.from_numpy(np.ascontiguousarray(make(*args))).to(
+        device=device, dtype=dtype)
+
+
+def frame_signal(x: torch.Tensor, n_fft: int, hop: int, n_frames: int,
+                 pad_mode: str = "reflect") -> torch.Tensor:
+    """Centered frames: (B, L) -> (B, n_frames, n_fft), a strided view of
+    the padded signal. ``"reflect"`` matches torch.stft(center=True); the
+    folded-basis path uses ``"constant"`` and patches the edge frames."""
+    pad = n_fft // 2
+    x = F.pad(x, (pad, pad), mode=pad_mode)
+    return x.unfold(1, n_fft, hop)[:, :n_frames]
+
+
+def preemphasis(x: torch.Tensor, coef: float = PREEMPH) -> torch.Tensor:
+    """Valid-mode pre-emphasis filter: y[t] = x[t+1] - coef * x[t]."""
+    return x[:, 1:] - coef * x[:, :-1]
+
+
+def stft_power(x: torch.Tensor, n_fft: int, hop: int,
+               win_length: int) -> torch.Tensor:
+    """Power spectrogram |STFT|^2: (B, L) -> (B, L//hop + 1, n_fft//2+1)."""
+    n_frames = x.shape[1] // hop + 1
+    frames = frame_signal(x, n_fft, hop, n_frames)
+    basis = device_const(_dft_basis, (n_fft, win_length), str(x.device))
+    with true_fp32():
+        proj = frames @ basis
+    n_freq = n_fft // 2 + 1
+    return proj[..., :n_freq] ** 2 + proj[..., n_freq:] ** 2
+
+
+def _edge_power(x_raw: torch.Tensor, n_fft: int, hop: int, win_length: int,
+                left_f, right_f, coef: float = PREEMPH) -> torch.Tensor:
+    """Exact reference-math power rows for the frames whose window overlaps
+    the reflect-pad region (the one place where the folded-basis frames,
+    which see a zero pad, differ): pre-emphasis, reflect pad and the
+    unfolded basis on ``2 * n_fft``-sample slivers. (B, n_edge, n_freq)."""
+    pad = n_fft // 2
+    seg = 2 * n_fft
+    frames = []
+    if left_f:
+        s = x_raw[:, :seg]
+        xep = F.pad(s[:, 1:] - coef * s[:, :-1], (pad, 0), mode="reflect")
+        for f in left_f:
+            frames.append(xep[:, f * hop: f * hop + n_fft])
+    if right_f:
+        s = x_raw[:, -seg:]
+        xep = F.pad(s[:, 1:] - coef * s[:, :-1], (0, pad), mode="reflect")
+        base = x_raw.shape[1] - seg  # xe here starts at global xe index base
+        for f in right_f:
+            off = f * hop - pad - base
+            frames.append(xep[:, off: off + n_fft])
+    fr = torch.stack(frames, dim=1)
+    basis = device_const(_dft_basis, (n_fft, win_length), str(x_raw.device))
+    with true_fp32():
+        proj = fr @ basis
+    n_freq = n_fft // 2 + 1
+    return proj[..., :n_freq] ** 2 + proj[..., n_freq:] ** 2
+
+
+def edge_frames(n_frames: int, hop: int, n_fft: int, len_xe: int):
+    """Frames whose window reaches into the reflect pad, left and right."""
+    pad = n_fft // 2
+    left_f = [f for f in range(n_frames) if f * hop < pad]
+    right_f = [f for f in range(n_frames) if f * hop + pad > len_xe]
+    return left_f, right_f
+
+
+def stft_power_folded(x_raw: torch.Tensor, n_fft: int, hop: int,
+                      win_length: int, coef: float = PREEMPH) -> torch.Tensor:
+    """Power spectrogram of ``preemphasis(x_raw)`` from frames of the RAW
+    wave against the folded basis, with the reflect-pad edge frames patched
+    by the exact reference math. (B, L) -> (B, (L-1)//hop + 1, n_fft//2+1)."""
+    len_xe = x_raw.shape[1] - 1
+    n_frames = len_xe // hop + 1
+    frames = frame_signal(x_raw, n_fft, hop, n_frames, pad_mode="constant")
+    basis = device_const(_folded_dft_basis, (n_fft, win_length, coef),
+                         str(x_raw.device))
+    with true_fp32():
+        proj = frames @ basis
+    n_freq = n_fft // 2 + 1
+    power = proj[..., :n_freq] ** 2 + proj[..., n_freq:] ** 2
+
+    left_f, right_f = edge_frames(n_frames, hop, n_fft, len_xe)
+    if left_f or right_f:
+        edge = _edge_power(x_raw, n_fft, hop, win_length, left_f, right_f,
+                           coef)
+        nl = len(left_f)
+        power[:, :nl] = edge[:, :nl]
+        if right_f:
+            power[:, right_f[0]:right_f[-1] + 1] = edge[:, nl:]
+    return power
+
+
+def log_mel_spectrogram(waveform: torch.Tensor, cfg: MelConfig = MelConfig(),
+                        *, training: bool = False) -> torch.Tensor:
+    """Waveform (B, num_samples) -> normalized log-mel (B, n_mels, n_frames)."""
+    if training:
+        raise NotImplementedError(
+            "training-mode mel (SpecAugment, fmin/fmax jitter) is not ported yet")
+    x32 = waveform.to(torch.float32)
+    if x32.shape[1] >= 2 * cfg.n_fft:
+        spec = stft_power_folded(x32, cfg.n_fft, cfg.hopsize, cfg.win_length)
+    else:
+        # clips shorter than the edge-patch slivers: reference-order math
+        spec = stft_power(preemphasis(x32), cfg.n_fft, cfg.hopsize,
+                          cfg.win_length)
+    banks = kaldi_mel_banks(cfg.n_mels, cfg.n_fft, cfg.sr, cfg.fmin,
+                            cfg.effective_fmax, device=x32.device)
+    with true_fp32():
+        mel = torch.einsum("mf,btf->bmt", banks, spec)
+    return (torch.log(mel + 1e-5) + 4.5) / 5.0
+
+
+def mel_oracle_f64(waves: np.ndarray, cfg: MelConfig,
+                   banks32: np.ndarray) -> np.ndarray:
+    """Float64 host oracle of the reference mel math: pre-emphasis, reflect
+    pad, Hann window, rfft power, the fp32-valued banks applied in float64,
+    log, (x+4.5)/5. The banks enter as the same fp32 values the device
+    paths use, so the oracle isolates arithmetic error, not bank
+    construction. (B, S) -> (B, n_mels, n_frames)."""
+    x = waves.astype(np.float64)
+    x = x[:, 1:] - PREEMPH * x[:, :-1]
+    pad = cfg.n_fft // 2
+    xp = np.pad(x, ((0, 0), (pad, pad)), mode="reflect")
+    n_frames = x.shape[1] // cfg.hopsize + 1
+    frames = np.lib.stride_tricks.sliding_window_view(
+        xp, cfg.n_fft, axis=1)[:, ::cfg.hopsize][:, :n_frames]
+    w = np.zeros(cfg.n_fft, np.float64)
+    left = (cfg.n_fft - cfg.win_length) // 2
+    w[left:left + cfg.win_length] = hann_window(cfg.win_length)
+    spec = np.abs(np.fft.rfft(frames * w, axis=-1)) ** 2
+    mel = np.einsum("mf,btf->bmt", banks32.astype(np.float64), spec)
+    return (np.log(mel + 1e-5) + 4.5) / 5.0

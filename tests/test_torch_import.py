@@ -1,0 +1,54 @@
+"""The PyTorch port imports without JAX or flax, and never names them."""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "efficientat_tpu_torch"
+
+SLICE_MODULES = [
+    "efficientat_tpu_torch",
+    "efficientat_tpu_torch.cli",
+    "efficientat_tpu_torch.data.wavecodec",
+    "efficientat_tpu_torch.infer.tag",
+    "efficientat_tpu_torch.models",
+    "efficientat_tpu_torch.models.convert",
+    "efficientat_tpu_torch.models.layers",
+    "efficientat_tpu_torch.models.mn",
+    "efficientat_tpu_torch.models.registry",
+    "efficientat_tpu_torch.ops",
+    "efficientat_tpu_torch.ops._build",
+    "efficientat_tpu_torch.ops.filterbank",
+    "efficientat_tpu_torch.ops.mel_kernel",
+    "efficientat_tpu_torch.ops.melspec",
+]
+
+
+def test_imports_with_jax_and_flax_blocked():
+    code = (
+        "import sys, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['flax'] = None\n"
+        f"for name in {SLICE_MODULES!r}:\n"
+        "    importlib.import_module(name)\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', 'flax'))\n"
+        "               for m, v in sys.modules.items() if v is not None)\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_import_in_port(path):
+    src = path.read_text()
+    assert not re.search(r"^\s*(import|from)\s+(jax|flax)\b", src, re.M), path

@@ -1,0 +1,215 @@
+"""K1's host side and plain version against the JAX fused kernel.
+
+The Pallas kernel runs in TPU interpret mode on the CPU, as
+tests/test_mel_pallas.py runs it. JAX is imported inside the tests that use
+it, so that the ``cuda``-marked tests, which hold the CUDA kernel against
+its plain version on the card, run where JAX is not installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_mel_kernel.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from efficientat_tpu_torch.ops import mel_kernel
+from efficientat_tpu_torch.ops.filterbank import kaldi_mel_banks
+from efficientat_tpu_torch.ops.melspec import (
+    MelConfig,
+    log_mel_spectrogram,
+    mel_oracle_f64,
+)
+
+# plain version against the Pallas kernel: fp32 sums in another order
+# (measured 2-3e-6); bf16x3 adds the rounding of the split on both sides
+ATOL_VS_PALLAS = {"fp32": 5e-5, "bf16x3": 2e-3}
+# against the float64 oracle: the bounds of the JAX package's bench selftest
+ATOL_VS_ORACLE = {"fp32": 1e-4, "bf16x3": 2e-2}
+# K1 against its plain version on the card (measured 2.4e-7 / 4.8e-7)
+ATOL_KERNEL_VS_PLAIN = {"fp32": 1e-4, "bf16x3": 2e-3}
+
+
+@pytest.fixture(autouse=True)
+def _skip_cuda_without_card(request):
+    if request.node.get_closest_marker("cuda") and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K1 is CUDA C++ and has no CPU mode")
+
+
+def _banks(cfg, device="cpu"):
+    return kaldi_mel_banks(cfg.n_mels, cfg.n_fft, cfg.sr, cfg.fmin,
+                           cfg.effective_fmax, device=device)
+
+
+def _wave(batch, n_samples, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(batch, n_samples)) * 0.1).astype(np.float32)
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16x3"])
+@pytest.mark.parametrize("n_samples,hop", [(32000, 320), (64000, 640)])
+def test_plain_matches_pallas_interpret(n_samples, hop, precision):
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+
+    from efficientat_tpu.ops import filterbank as jfb
+    from efficientat_tpu.ops import mel_pallas
+    from efficientat_tpu.ops import melspec as jmel
+
+    wave = _wave(1, n_samples, seed=hop)
+    jcfg = jmel.MelConfig(hopsize=hop)
+    jbanks = jfb.kaldi_mel_banks(jcfg.n_mels, jcfg.n_fft, jcfg.sr, jcfg.fmin,
+                                 jcfg.effective_fmax)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(mel_pallas.stft_log_mel_pallas(
+            jnp.asarray(wave), jbanks, jcfg,
+            "bf16x3" if precision == "bf16x3" else None))
+    cfg = MelConfig(hopsize=hop)
+    banks = _banks(cfg)
+    got = mel_kernel.stft_log_mel(torch.from_numpy(wave), banks, cfg,
+                                  precision).numpy()
+    assert got.shape == want.shape == (1, cfg.n_mels, cfg.num_frames(n_samples))
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL_VS_PALLAS[precision])
+    oracle = mel_oracle_f64(wave, cfg, banks.numpy())
+    assert np.abs(got - oracle).max() < ATOL_VS_ORACLE[precision]
+    assert np.abs(want - oracle).max() < ATOL_VS_ORACLE[precision]
+
+
+def test_kernel_supported_matches_pallas_supported():
+    from efficientat_tpu.ops import mel_pallas
+    from efficientat_tpu.ops import melspec as jmel
+
+    for kw in ({}, {"hopsize": 640}, {"hopsize": 800}, {"hopsize": 160},
+               {"n_fft": 2048}):
+        assert (mel_kernel.kernel_supported(MelConfig(**kw))
+                == mel_pallas.pallas_supported(jmel.MelConfig(**kw))), kw
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16x3"])
+def test_cpu_tensor_runs_plain_version(precision):
+    cfg = MelConfig()
+    wave = torch.from_numpy(_wave(2, 16000, seed=1))
+    before = mel_kernel.LAUNCHES
+    got = mel_kernel.stft_log_mel(wave, _banks(cfg), cfg, precision)
+    want = mel_kernel.stft_log_mel_plain(wave, _banks(cfg), cfg, precision)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert mel_kernel.LAUNCHES == before
+
+
+@pytest.mark.parametrize("hop", [320, 640])
+def test_plain_version_matches_melspec_path(hop):
+    # the folded-basis kernel math equals the melspec path: fp32, same edges
+    cfg = MelConfig(hopsize=hop)
+    wave = torch.from_numpy(_wave(2, 32100, seed=2))
+    got = mel_kernel.stft_log_mel_plain(wave, _banks(cfg), cfg, "fp32")
+    want = log_mel_spectrogram(wave, cfg)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("backend", ["auto", "kernel", "plain"])
+def test_fused_backends_on_cpu(backend):
+    cfg = MelConfig()
+    wave = torch.from_numpy(_wave(2, 32000, seed=3))
+    got = mel_kernel.log_mel_spectrogram_fused(wave, cfg, backend=backend,
+                                               dft_precision="fp32")
+    # on a CPU tensor auto takes the melspec path, as the JAX auto does
+    # off the TPU; kernel runs K1's plain version
+    want = (mel_kernel.stft_log_mel_plain(wave, _banks(cfg), cfg, "fp32")
+            if backend == "kernel" else log_mel_spectrogram(wave, cfg))
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_fused_unsupported_hop_takes_melspec_path():
+    cfg = MelConfig(hopsize=800)
+    wave = torch.from_numpy(_wave(1, 32000, seed=4))
+    got = mel_kernel.log_mel_spectrogram_fused(wave, cfg)
+    torch.testing.assert_close(got, log_mel_spectrogram(wave, cfg), rtol=0, atol=0)
+
+
+def test_rejects_what_k1_does_not_take():
+    cfg = MelConfig()
+    banks = _banks(cfg)
+    wave = torch.from_numpy(_wave(1, 32000))
+    with pytest.raises(ValueError):
+        mel_kernel.stft_log_mel(wave, banks, cfg, "fp16")
+    with pytest.raises(ValueError):
+        mel_kernel.stft_log_mel(wave, banks, MelConfig(hopsize=800), "fp32")
+    with pytest.raises(ValueError):
+        mel_kernel.stft_log_mel(wave[:, :4000], banks, cfg, "fp32")
+    with pytest.raises(ValueError):
+        mel_kernel.stft_log_mel(wave, banks[:64], cfg, "fp32")
+    with pytest.raises(ValueError):
+        mel_kernel.log_mel_spectrogram_fused(wave, cfg, backend="pallas")
+    with pytest.raises(NotImplementedError):
+        mel_kernel.log_mel_spectrogram_fused(wave, cfg, training=True)
+
+
+def test_bases_match_jax():
+    import jax.numpy as jnp
+
+    from efficientat_tpu.ops import mel_pallas
+
+    basis = mel_pallas._folded_basis_no_nyquist(1024, 800)
+    np.testing.assert_array_equal(mel_kernel._folded_basis_no_nyquist(1024, 800),
+                                  basis)
+    # the bf16 hi/lo split, as the JAX wrapper makes it (mel_pallas.py:297-301)
+    hi = np.asarray(basis.astype(jnp.bfloat16), np.float32)
+    lo = np.asarray((basis - hi).astype(jnp.bfloat16), np.float32)
+    np.testing.assert_array_equal(mel_kernel._folded_basis_split(1024, 800, 0), hi)
+    np.testing.assert_array_equal(mel_kernel._folded_basis_split(1024, 800, 1), lo)
+
+
+@pytest.mark.parametrize("hop", [320, 640])
+def test_edge_frames_match_jax(hop):
+    import jax.numpy as jnp
+
+    from efficientat_tpu.ops import filterbank as jfb
+    from efficientat_tpu.ops import mel_pallas
+    from efficientat_tpu.ops import melspec as jmel
+
+    wave = _wave(2, 32100, seed=6)
+    cfg = MelConfig(hopsize=hop)
+    n_frames = cfg.num_frames(wave.shape[1])
+    left = [f for f in range(n_frames) if f * hop < 512]
+    right = [f for f in range(n_frames) if f * hop + 512 > wave.shape[1] - 1]
+    jcfg = jmel.MelConfig(hopsize=hop)
+    jbanks = jfb.kaldi_mel_banks(jcfg.n_mels, jcfg.n_fft, jcfg.sr, jcfg.fmin,
+                                 jcfg.effective_fmax)
+    want = np.asarray(mel_pallas._edge_frames_logmel(
+        jnp.asarray(wave), jnp.transpose(jbanks[:, :512]), jcfg, left, right))
+    got = mel_kernel._edge_frames_logmel(torch.from_numpy(wave), _banks(cfg),
+                                         cfg, left, right).numpy()
+    assert got.shape == want.shape == (2, len(left) + len(right), cfg.n_mels)
+    np.testing.assert_allclose(got, want, rtol=0, atol=5e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["fp32", "bf16x3"])
+@pytest.mark.parametrize("hop,n_mels", [(320, 128), (640, 128), (320, 256),
+                                        (320, 40)])
+def test_kernel_matches_plain_on_card(hop, n_mels, precision):
+    cfg = MelConfig(hopsize=hop, n_mels=n_mels)
+    wave = torch.from_numpy(_wave(3, 320000 + 123, seed=5)).cuda()
+    banks = _banks(cfg, device="cuda")
+    before = mel_kernel.LAUNCHES
+    got = mel_kernel.stft_log_mel(wave, banks, cfg, precision)
+    torch.cuda.synchronize()
+    assert mel_kernel.LAUNCHES == before + 1
+    want = mel_kernel.stft_log_mel_plain(wave, banks, cfg, precision)
+    assert got.shape == want.shape == (3, n_mels, cfg.num_frames(wave.shape[1]))
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=ATOL_KERNEL_VS_PLAIN[precision])
+    oracle = mel_oracle_f64(wave.cpu().numpy(), cfg, banks.cpu().numpy())
+    assert np.abs(got.cpu().numpy() - oracle).max() < ATOL_VS_ORACLE[precision]
+
+
+@pytest.mark.cuda
+def test_kernel_raises_on_wrong_input_on_card():
+    cfg = MelConfig()
+    banks = _banks(cfg, device="cuda")
+    wave = torch.from_numpy(_wave(2, 32000)).cuda()
+    with pytest.raises(ValueError):
+        mel_kernel.stft_log_mel(wave.double(), banks, cfg, "fp32")
+    with pytest.raises(ValueError):
+        mel_kernel.stft_log_mel(wave[:, ::2], banks, cfg, "fp32")
+    with pytest.raises(ValueError):
+        mel_kernel.stft_log_mel(wave, banks.cpu(), cfg, "fp32")

@@ -1,0 +1,103 @@
+"""Port's Tagger and CLI against the JAX Tagger on one checkpoint file."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+from torch_oracle import make_mn_state_dict
+
+from efficientat_tpu.data.wavecodec import encode
+from efficientat_tpu.infer.tag import Tagger as JaxTagger
+from efficientat_tpu_torch.infer.tag import Tagger
+from efficientat_tpu_torch.models.convert import load_pretrained
+from efficientat_tpu_torch.models.registry import get_model_config
+
+ROOT = Path(__file__).resolve().parents[1]
+DEMO = str(ROOT / "assets" / "demo_scene.wav")
+NAME = "mn04_as"
+# mel and MN both in fp32 on the CPU, summed in another order on each side,
+# then the sigmoid; measured gaps are ~1e-6
+ATOL_PROBS = 5e-5
+
+
+@pytest.fixture(scope="module")
+def ckpt_dir(tmp_path_factory):
+    d = tmp_path_factory.mktemp("resources")
+    sd = make_mn_state_dict(get_model_config(NAME).model_cfg, seed=0)
+    torch.save(sd, d / get_model_config(NAME).file)
+    return str(d)
+
+
+@pytest.fixture(scope="module")
+def taggers(ckpt_dir):
+    return (JaxTagger(NAME, model_dir=ckpt_dir),
+            Tagger(NAME, model_dir=ckpt_dir, device="cpu"))
+
+
+@pytest.mark.parametrize("codec", ["f32", "i16", "mulaw8"])
+def test_predict_matches_jax(taggers, codec):
+    jax_tagger, tagger = taggers
+    rng = np.random.default_rng(0)
+    waves = np.clip(rng.normal(size=(2, 32000)) * 0.2, -1, 1).astype(np.float32)
+    coded = encode(waves, codec)
+    want = jax_tagger.predict(coded)
+    got = tagger.predict(coded)
+    assert got.shape == want.shape == (2, 527)
+    assert got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL_PROBS)
+
+
+def test_tag_demo_clip_matches_jax(taggers):
+    jax_tagger, tagger = taggers
+    want = jax_tagger.tag(DEMO, top_k=5)
+    got = tagger.tag(DEMO, top_k=5)
+    assert [label for label, _ in got] == [label for label, _ in want]
+    np.testing.assert_allclose([p for _, p in got], [p for _, p in want],
+                               rtol=0, atol=ATOL_PROBS)
+
+
+def test_ensemble_averages_logits(ckpt_dir):
+    one = Tagger(NAME, model_dir=ckpt_dir, device="cpu")
+    two = Tagger([NAME, NAME], model_dir=ckpt_dir, device="cpu")
+    waves = np.random.default_rng(1).normal(size=(1, 32000)).astype(np.float32) * 0.1
+    np.testing.assert_allclose(two.predict(waves), one.predict(waves), rtol=0, atol=1e-6)
+
+
+def test_random_weights_are_seeded():
+    waves = np.random.default_rng(2).normal(size=(1, 16000)).astype(np.float32) * 0.1
+    with pytest.warns(UserWarning, match="random weights"):
+        a, b, c = (Tagger(NAME, pretrained=False, device="cpu", seed=s)
+                   for s in (3, 3, 4))
+    sa, sb, sc = (t.members[0].state_dict() for t in (a, b, c))
+    assert all(torch.equal(sa[k], sb[k]) for k in sa)
+    assert not torch.equal(sa["features.0.0.weight"], sc["features.0.0.weight"])
+    probs = a.predict(waves)
+    assert probs.shape == (1, 527) and np.isfinite(probs).all()
+
+
+def test_missing_checkpoint_raises(tmp_path):
+    with pytest.raises(FileNotFoundError):
+        load_pretrained(NAME, str(tmp_path))
+    with pytest.raises(FileNotFoundError):
+        Tagger(NAME, model_dir=str(tmp_path), device="cpu")
+
+
+def test_dymn_not_ported():
+    with pytest.raises(KeyError, match="DyMN"):
+        Tagger("dymn10_as", pretrained=False, device="cpu")
+
+
+def test_cli_tag_runs():
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run(
+        [sys.executable, "-m", "efficientat_tpu_torch.cli", "tag",
+         "--no-pretrained", "--device", "cpu", "--model_name", NAME,
+         "--audio_path", DEMO],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    lines = [ln for ln in proc.stdout.splitlines() if ": " in ln and "*" not in ln]
+    assert len(lines) == 10
