@@ -16,15 +16,33 @@ seeded random weights, in phases that each print a line:
 5. times at B=64: K1 against its plain version, the model alone, and the
    whole pipeline in clips/s.
 
-Then one JSON line on the kernels, the card's ``nvidia-smi`` line and, last,
-``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
-nothing falls back to the CPU.
+and the training path, ``train audioset`` (KD, mixup, fmin/fmax jitter):
+
+6. training-mode K1 at B=120, 10 s clips, with jittered banks and masks,
+   against its plain version on the same draws, and its time;
+7. ``run_train("audioset", ...)`` at full width, B=120, fp32 and --bf16:
+   finite losses, K1 at every step, the export loads into the Tagger; then
+   one step on the card against the same step on the CPU;
+8. K1-dp and data parallelism: two ranks on this card over gloo, each
+   running K1 on its rows and one DDP step, against one process; then
+   ``train audioset`` on the two ranks as ``torchrun --nproc_per_node 2``
+   starts it, K1-dp at every step;
+9. the train step's time at B=120 and its split into mel, forward+backward
+   and optimizer.
+
+Then one JSON line on the kernels, per path (tag, train, train_dp), the
+card's ``nvidia-smi`` line and, last, ``{"ok": true, "device": {...}}``. Any
+failure raises and exits non-zero; nothing falls back to the CPU.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import multiprocessing
 import os
+import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -32,18 +50,41 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch import nn
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
 from efficientat_tpu_torch.data import encode, load_waveform  # noqa: E402
 from efficientat_tpu_torch.infer.tag import Tagger  # noqa: E402
+from efficientat_tpu_torch.models.mn import MN  # noqa: E402
+from efficientat_tpu_torch.models.registry import (  # noqa: E402
+    build_model,
+    get_model_config,
+)
 from efficientat_tpu_torch.ops import _build, mel_kernel  # noqa: E402
 from efficientat_tpu_torch.ops.filterbank import kaldi_mel_banks  # noqa: E402
 from efficientat_tpu_torch.ops.melspec import (  # noqa: E402
     MelConfig,
+    apply_masks,
+    draw_mel_augment,
+    jittered_fmin_fmax,
     log_mel_spectrogram,
     mel_oracle_f64,
+)
+from efficientat_tpu_torch.parallel.ddp import (  # noqa: E402
+    DataParallel,
+    convert_global_bn,
+)
+from efficientat_tpu_torch.train.augment import apply_mixup  # noqa: E402
+from efficientat_tpu_torch.train.cli import run_train  # noqa: E402
+from efficientat_tpu_torch.train.loop import (  # noqa: E402
+    LossConfig,
+    StepRandom,
+    make_optimizer,
+    task_loss,
+    train_step,
 )
 
 SR = 32000
@@ -60,6 +101,30 @@ TOL_MELSPEC_VS_ORACLE = 2e-4
 # card against CPU, whole pipeline in fp32: convs in another order through
 # 17 layers, then the sigmoid
 TOL_CARD_VS_CPU = 1e-3
+
+TRAIN_BATCH = 120  # train audioset's global batch
+STEP_CLIPS, STEP_SAMPLES = 8, 2 * SR  # the step comparisons: 8 clips of 2 s
+DP_WORLD, DP_MEL_BATCH = 2, 16
+DP_TRAIN_STEPS = 2  # steps of train audioset on the DP_WORLD ranks
+# one train step against another (card and CPU, or DDP and one process):
+# the loss and the new BatchNorm statistics, fp32 sums in another order
+# through 17 layers
+TOL_STEP_LOSS_REL = 1e-4
+TOL_STEP_BN_REL = 1e-4
+# the model inputs of the card's step (K1, DFT in fp32) and the CPU's
+# (the plain melspec path)
+TOL_STEP_X = TOL_KERNEL_VS_PLAIN["fp32"]
+# the gradients of the two at ONE model input, relative L2 of the whole and
+# of the worst tensor: fp32 convs summed in another order, and rounding moves
+# an activation across a ReLU or hardswish kink now and then, which moves a
+# few entries of a tensor (tests/torch_train_parity.py measured up to 3e-3
+# relative L2 between the port and the JAX step on the CPU); a wrong
+# gradient gives gaps of order 1
+TOL_GRAD_L2 = 1e-2
+TOL_GRAD_TENSOR = 5e-2
+# K1-dp's rows against K1 on the whole batch: K1 computes every row alone;
+# the edge patch's GEMMs may block 8 and 16 rows differently
+TOL_DP_VS_WHOLE = 1e-5
 
 
 def phase(tag, /, **fields):
@@ -114,15 +179,20 @@ def slice_batch():
 
 
 def synth_checkpoint(model_dir, name="mn10_as", seed=0):
-    """Write a seeded checkpoint for ``name`` whose activations keep their
-    scale through the network (fan-in normal convs, BN stats near identity,
+    """Write ``seeded_weights(name, seed)`` as ``name``'s checkpoint file."""
+    os.makedirs(model_dir, exist_ok=True)
+    torch.save(seeded_weights(name, seed),
+               os.path.join(model_dir, get_model_config(name).file))
+
+
+def seeded_weights(name="mn10_as", seed=0):
+    """A seeded state dict for ``name`` whose activations keep their scale
+    through the network (fan-in normal convs, BN stats near identity,
     Linears scaled so the logits stay near 1), so its probs spread over
     (0, 1) without saturating. Upstream's own init,
     which ``Tagger(pretrained=False)`` uses, draws depthwise convs by fan-out
     and gives every prob 0.5 at this depth: a card-versus-CPU comparison on
     it would prove little."""
-    from efficientat_tpu_torch.models.registry import build_model, get_model_config
-
     g = torch.Generator().manual_seed(seed)
     sd = build_model(name).state_dict()
     for key, v in sd.items():
@@ -136,8 +206,400 @@ def synth_checkpoint(model_dir, name="mn10_as", seed=0):
         else:  # conv (O, I/g, kh, kw): kaiming fan-in; Linear (O, I): small
             gain = 2.0 if v.dim() == 4 else 0.1
             sd[key] = torch.randn(v.shape, generator=g) * (gain / v[0].numel()) ** 0.5
-    os.makedirs(model_dir, exist_ok=True)
-    torch.save(sd, os.path.join(model_dir, get_model_config(name).file))
+    return sd
+
+
+# ------------------------------------------------------------------ training
+
+def train_waves(clips, seed, samples=CLIP):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(clips, samples)) * 0.1).astype(np.float32)
+
+
+def audioset_configs():
+    """``train audioset``'s front end and loss (train/tasks.py): fmin/fmax
+    jitter on, no SpecAugment masks; KD lambda 0.1, mixup 0.3."""
+    return (MelConfig(freqm=0, timem=0),
+            LossConfig(kind="bce", mixup_alpha=0.3, kd_lambda=0.1))
+
+
+def step_inputs(seed):
+    """Weights, a batch of STEP_CLIPS clips and the step's draws, all from
+    ``seed``: every process that asks gets the same."""
+    rng = np.random.default_rng(seed)
+    batch = {"wave": train_waves(STEP_CLIPS, seed, STEP_SAMPLES),
+             "target": (rng.random((STEP_CLIPS, 527)) > 0.9).astype(np.float32),
+             "teacher": rng.random((STEP_CLIPS, 527)).astype(np.float32),
+             "teacher_valid": np.ones(STEP_CLIPS, np.float32)}
+    mel_cfg, loss_cfg = audioset_configs()
+    draws = StepRandom(seed).draw(mel_cfg, loss_cfg, STEP_CLIPS, STEP_SAMPLES)
+    return seeded_weights("mn10_as", seed), batch, draws
+
+
+def _step_model(sd, device):
+    """Full-width mn10_as with dropout 0 (two devices cannot draw the same
+    dropout bits), loaded from ``sd``."""
+    cfg = dataclasses.replace(get_model_config("mn10_as").model_cfg, dropout=0.0)
+    model = MN(cfg)
+    model.load_state_dict(sd, strict=True)
+    return model
+
+
+def run_step(sd, batch, draws, device, dp=None, dft_precision=None):
+    """One ``train_step`` (Adam, the audioset preset's loss) from ``sd`` on
+    ``batch`` (this rank's rows under ``dp``). Returns the loss, the model
+    input, the gradients and buffers (on the CPU) and the K1 launches."""
+    mel_cfg, loss_cfg = audioset_configs()
+    model = _step_model(sd, device)
+    if dp is not None:
+        convert_global_bn(model)
+    model.to(device)
+    seen = {}
+    model.register_forward_pre_hook(
+        lambda m, inp: seen.update(x=inp[0].detach().cpu()))
+    net = model if dp is None else nn.parallel.DistributedDataParallel(
+        model, device_ids=[device] if device.type == "cuda" else None)
+    opt = make_optimizer(net.parameters(), 8e-4)
+    tensors = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    mel_kernel.LAUNCHES = 0
+    metrics = train_step(net, opt, None, mel_cfg, loss_cfg, tensors, draws,
+                         dp=dp, dft_precision=dft_precision)
+    launches = mel_kernel.LAUNCHES
+    return {"loss": float(metrics["train_loss"]), "x": seen["x"],
+            "launches": launches,
+            "grads": {n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+            "buffers": {n: b.detach().cpu() for n, b in model.named_buffers()
+                        if not n.endswith("num_batches_tracked")}}
+
+
+def grads_at(sd, x, batch, mixup, device):
+    """Gradients of mn10_as in train mode and the KD loss at the model
+    input ``x``, as ``train_step`` takes them after the mel."""
+    _, loss_cfg = audioset_configs()
+    model = _step_model(sd, device).to(device).train()
+    t = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    perm, lam = (torch.from_numpy(np.array(a)).to(device) for a in mixup)
+    partner = {k: t[k][perm] for k in ("target", "teacher")}
+    logits, _ = model(x.to(device))
+    loss, _ = task_loss(loss_cfg, logits.float(), t, (lam, partner))
+    loss.backward()
+    return {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+
+
+def grad_gaps(got, want):
+    """(relative L2 gap of the whole gradient, (the worst tensor's relative
+    L2 gap, its name)). A tensor's gap is over its own norm plus a floor of
+    1e-4 of the largest tensor norm: BN biases that feed a BatchNorm have
+    gradients that are zero but for rounding."""
+    got = {n: g.double() for n, g in got.items()}
+    want = {n: want[n].double() for n in got}
+    num = sum(float(((got[n] - w) ** 2).sum()) for n, w in want.items())
+    l2 = (num / sum(float((w ** 2).sum()) for w in want.values())) ** 0.5
+    floor = 1e-4 * max(float(w.norm()) for w in want.values())
+    worst = max((float((got[n] - w).norm()) / (float(w.norm()) + floor), n)
+                for n, w in want.items())
+    return l2, worst
+
+
+def bn_gap(got, want):
+    """Worst BatchNorm running statistic's max gap over its largest entry."""
+    return max(float((got[n] - w).abs().max()) / (float(w.abs().max()) + 1e-6)
+               for n, w in want.items())
+
+
+def step_checks(tag, got, want, grads_want, **fields):
+    """Print and hold one step against another: loss, BN statistics, and
+    the gradients at one model input."""
+    loss_rel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+    bn = bn_gap(got["buffers"], want["buffers"])
+    l2, (worst, worst_name) = grad_gaps(got["grads"], grads_want)
+    phase(tag, loss=got["loss"], loss_other=want["loss"], loss_rel=loss_rel,
+          bound_loss=TOL_STEP_LOSS_REL, bn_rel=bn, bound_bn=TOL_STEP_BN_REL,
+          grad_l2=l2, bound_l2=TOL_GRAD_L2, grad_worst=worst,
+          grad_worst_tensor=worst_name, bound_worst=TOL_GRAD_TENSOR, **fields)
+    check(np.isfinite(got["loss"]), f"{tag}: non-finite loss")
+    check(loss_rel <= TOL_STEP_LOSS_REL, f"{tag}: loss")
+    check(bn <= TOL_STEP_BN_REL, f"{tag}: BatchNorm statistics")
+    check(l2 <= TOL_GRAD_L2 and worst <= TOL_GRAD_TENSOR, f"{tag}: gradients")
+
+
+def phase_train_k1(device, card):
+    """6. Training-mode K1 at B=120, 10 s clips, ``MelConfig()``'s jitter
+    and masks (freqm 48, timem 192), against its plain version on the same
+    draws; then K1 against plain in ms on the jittered banks."""
+    cfg = MelConfig()
+    waves = torch.from_numpy(train_waves(TRAIN_BATCH, seed=6)).to(device)
+    draws = draw_mel_augment(cfg, TRAIN_BATCH, cfg.num_frames(CLIP),
+                             torch.Generator().manual_seed(6))
+    banks = kaldi_mel_banks(cfg.n_mels, cfg.n_fft, cfg.sr,
+                            *jittered_fmin_fmax(cfg, draws, device))
+    check(banks.is_cuda, "jittered banks were not built on the card")
+    out = {}
+    for prec in ("fp32", "bf16x3"):
+        before = mel_kernel.LAUNCHES
+        got = mel_kernel.log_mel_spectrogram_fused(
+            waves, cfg, training=True, draws=draws, dft_precision=prec)
+        torch.cuda.synchronize()
+        launched = mel_kernel.LAUNCHES - before
+        want = apply_masks(mel_kernel.stft_log_mel_plain(waves, banks, cfg, prec),
+                           cfg, draws, 0.9)
+        err = float((got - want).abs().max())
+        masked = float((got == 0.9).float().mean())
+        del got, want
+        runs = {"plain": [], "kernel": []}
+        for which in ("plain", "kernel", "kernel", "plain"):
+            fn = (mel_kernel.stft_log_mel_plain if which == "plain"
+                  else mel_kernel.stft_log_mel)
+            runs[which].append(median_ms(lambda: fn(waves, banks, cfg, prec)))
+        phase("train_k1", precision=prec, batch=TRAIN_BATCH, k1_launches=launched,
+              max_abs=err, bound=TOL_KERNEL_VS_PLAIN[prec], masked_share=masked,
+              kernel_ms=runs["kernel"], plain_ms=runs["plain"], card=repr(card))
+        check(launched == 1, "training-mode mel did not launch K1")
+        check(err <= TOL_KERNEL_VS_PLAIN[prec], f"training-mode K1 {prec} vs plain")
+        check(0.0 < masked < 0.5, "the masks wrote no cell, or too many")
+        out[prec] = {"max_abs_err": err, "ms": statistics.mean(runs["kernel"]),
+                     "plain_ms": statistics.mean(runs["plain"])}
+    return out["bf16x3"]
+
+
+def phase_train(device):
+    """7. ``train audioset`` through ``run_train`` on the card at full width,
+    fp32 and --bf16; the export loads into the ``Tagger``; then one step
+    on the card against the same step on the CPU. Returns K1's launches."""
+    work = os.path.join(HERE, "build", "chip_smoke")
+    clips = 3 * TRAIN_BATCH
+    eval_batches = -(-(clips // 2) // TRAIN_BATCH)  # synthetic eval: clips / 2
+    total = 0
+    for bf16 in (False, True):
+        name = "bf16" if bf16 else "fp32"
+        export_dir = os.path.join(work, f"export_{name}")
+        argv = ["--synthetic", str(clips), "--batch_size", str(TRAIN_BATCH),
+                "--n_epochs", "1", "--num_workers", "8", "--device", device.type,
+                "--ckpt_dir", os.path.join(work, f"ckpt_{name}"),
+                "--export", os.path.join(export_dir, get_model_config("mn10_as").file),
+                "--experiment_name", f"chip_smoke_train_{name}"]
+        mel_kernel.LAUNCHES = 0
+        t0 = time.perf_counter()
+        result = run_train("audioset", argv + (["--bf16"] if bf16 else []))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = mel_kernel.LAUNCHES
+        total += launches
+        rec = result.history[-1]
+        losses = {k: rec[k] for k in ("train_loss", "label_loss",
+                                      "distillation_loss", "val_loss")}
+        phase("train", task="audioset", model="mn10_as", batch=TRAIN_BATCH,
+              bf16=bf16, steps=result.step, k1_launches=launches,
+              eval_batches=eval_batches, seconds=seconds, mAP=rec["mAP"],
+              **losses)
+        check(result.step == 3, f"train audioset took {result.step} steps, not 3")
+        check(launches >= result.step + eval_batches,
+              "train audioset did not launch K1 at every step")
+        check(all(np.isfinite(v) for v in losses.values()), "non-finite loss")
+        check(all(p.device == device for p in result.model.parameters()),
+              "the model left the card")
+        tagger = Tagger("mn10_as", model_dir=export_dir, device=device)
+        probs = tagger.predict(train_waves(4, seed=7))
+        check(probs.shape == (4, 527) and bool(np.isfinite(probs).all()),
+              "the Tagger on the exported weights")
+        del result, tagger
+        torch.cuda.empty_cache()
+
+    # one step from the same weights and draws on the card and on the CPU,
+    # the mel DFT in fp32 on both
+    sd, batch, draws = step_inputs(seed=1)
+    on_card = run_step(sd, batch, draws, device, dft_precision="fp32")
+    on_cpu = run_step(sd, batch, draws, torch.device("cpu"))
+    x_gap = float((on_card["x"] - on_cpu["x"]).abs().max())
+    step_checks("train_vs_cpu", on_card, on_cpu,
+                grads_at(sd, on_card["x"], batch, draws.mixup, "cpu"),
+                clips=STEP_CLIPS, seconds=STEP_SAMPLES // SR, x_gap=x_gap,
+                bound_x=TOL_STEP_X, k1_launches=on_card["launches"])
+    check(on_card["launches"] == 1, "the card's step did not launch K1")
+    check(x_gap <= TOL_STEP_X, "model inputs of the card's and the CPU's steps")
+    return total
+
+
+def dp_mel_inputs(device):
+    """K1-dp's inputs: DP_MEL_BATCH 10 s clips and jittered banks."""
+    cfg = MelConfig()
+    draws = draw_mel_augment(cfg, DP_MEL_BATCH, cfg.num_frames(CLIP),
+                             torch.Generator().manual_seed(8))
+    banks = kaldi_mel_banks(cfg.n_mels, cfg.n_fft, cfg.sr,
+                            *jittered_fmin_fmax(cfg, draws, device))
+    return cfg, torch.from_numpy(train_waves(DP_MEL_BATCH, seed=8)).to(device), banks
+
+
+def _dp_rank(rank, init, port, work, device):
+    """One of DP_WORLD ranks on ``device`` over gloo: K1-dp on its rows of
+    DP_MEL_BATCH clips (timed with the other rank waiting), then one DDP
+    train step on its rows of STEP_CLIPS clips; then ``run_train`` as a
+    torchrun rank, its K1 launches counted from 0."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=DP_WORLD)
+    try:
+        dp = DataParallel(rank, DP_WORLD, device)
+        cfg, waves, banks = dp_mel_inputs(device)
+        local = waves[dp.rows(DP_MEL_BATCH)].contiguous()
+        result = {"mel": mel_kernel.stft_log_mel_sharded(local, banks, cfg).cpu()}
+        dist.barrier()
+        if rank == 0:
+            runs = {"plain": [], "kernel": []}
+            for which in ("plain", "kernel", "kernel", "plain"):
+                fn = (mel_kernel.stft_log_mel_plain if which == "plain"
+                      else mel_kernel.stft_log_mel_sharded)
+                runs[which].append(median_ms(lambda: fn(local, banks, cfg)))
+            result.update(ms=statistics.mean(runs["kernel"]),
+                          plain_ms=statistics.mean(runs["plain"]))
+        dist.barrier()
+        sd, batch, draws = step_inputs(seed=2)
+        rows = dp.rows(STEP_CLIPS)
+        result.update(run_step(sd, {k: v[rows] for k, v in batch.items()},
+                               draws, device, dp=dp))
+    finally:
+        dist.destroy_process_group()
+
+    # the environment torchrun gives rank ``rank`` of DP_WORLD on one host;
+    # run_train joins its own process group from it
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank),
+                      WORLD_SIZE=str(DP_WORLD), LOCAL_WORLD_SIZE=str(DP_WORLD),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    argv = ["--synthetic", str(DP_TRAIN_STEPS * TRAIN_BATCH),
+            "--batch_size", str(TRAIN_BATCH), "--n_epochs", "1",
+            "--num_workers", "4", "--device", device.type,
+            "--ckpt_dir", os.path.join(work, "ckpt"),
+            "--experiment_name", "chip_smoke_train_dp"]
+    mel_kernel.LAUNCHES = 0
+    train = run_train("audioset", argv)
+    torch.cuda.synchronize()
+    result["train"] = {"launches": mel_kernel.LAUNCHES, "steps": train.step,
+                       "train_loss": train.history[-1]["train_loss"]}
+    torch.save(result, os.path.join(work, f"rank{rank}.pt"))
+
+
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_train_dp(device):
+    """8. K1-dp and one DDP step: DP_WORLD ranks on cuda:0 over gloo (NCCL
+    refuses two ranks on one card), against one process on the card; then
+    ``train audioset`` on the ranks through ``run_train``, whose K1 launches
+    are the path's count."""
+    work = os.path.join(HERE, "build", "chip_smoke", "dp")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    init = f"file://{os.path.join(work, 'rendezvous')}"
+    port = _free_port()
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_dp_rank, args=(r, init, port, work, device))
+             for r in range(DP_WORLD)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=300)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    check([p.exitcode for p in procs] == [0] * DP_WORLD,
+          f"DDP ranks exited with {[p.exitcode for p in procs]}")
+    ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+             for r in range(DP_WORLD)]
+
+    cfg, waves, banks = dp_mel_inputs(device)
+    whole = mel_kernel.stft_log_mel(waves, banks, cfg).cpu()
+    err = float((torch.cat([r["mel"] for r in ranks]) - whole).abs().max())
+    phase("train_dp_k1", backend="gloo", world=DP_WORLD, batch=DP_MEL_BATCH,
+          max_abs_vs_one_process=err, bound=TOL_DP_VS_WHOLE,
+          kernel_ms_rank0=ranks[0]["ms"], plain_ms_rank0=ranks[0]["plain_ms"],
+          seconds=time.perf_counter() - t0)
+    check(err <= TOL_DP_VS_WHOLE, "K1-dp rows against K1 on the whole batch")
+
+    sd, batch, draws = step_inputs(seed=2)
+    one = run_step(sd, batch, draws, device)
+    x = torch.cat([r["x"] for r in ranks])
+    x_gap = float((x - one["x"]).abs().max())
+    ranks_agree = ranks[0]["loss"] == ranks[1]["loss"] and all(
+        torch.equal(ranks[1]["grads"][n], g) for n, g in ranks[0]["grads"].items())
+    step_checks("train_dp_step", ranks[0], one,
+                grads_at(sd, x, batch, draws.mixup, device), backend="gloo",
+                world=DP_WORLD, clips=STEP_CLIPS, x_gap=x_gap,
+                ranks_agree=ranks_agree,
+                k1_launches=[r["launches"] for r in ranks])
+    check(ranks_agree, "the DDP ranks disagree on the loss or the gradients")
+    check(x_gap <= TOL_DP_VS_WHOLE, "DDP model input against one process")
+    check(all(r["launches"] == 1 for r in ranks), "a DDP rank did not launch K1")
+
+    train = [r["train"] for r in ranks]
+    phase("train_dp", task="audioset", model="mn10_as", world=DP_WORLD,
+          global_batch=TRAIN_BATCH, steps=[t["steps"] for t in train],
+          k1_launches=[t["launches"] for t in train],
+          train_loss=[t["train_loss"] for t in train])
+    check(all(t["steps"] == DP_TRAIN_STEPS for t in train),
+          f"train audioset on {DP_WORLD} ranks did not take {DP_TRAIN_STEPS} steps")
+    check(all(t["launches"] >= DP_TRAIN_STEPS for t in train),
+          "a rank of train audioset did not launch K1 at every step")
+    check(all(np.isfinite(t["train_loss"]) for t in train)
+          and train[0]["train_loss"] == train[1]["train_loss"],
+          "the ranks' train losses are not finite or not equal")
+    return {"launches": sum(t["launches"] for t in train), "max_abs_err": err,
+            "ms": ranks[0]["ms"], "plain_ms": ranks[0]["plain_ms"]}
+
+
+def phase_train_times(device, card):
+    """9. The train step at B=120, 10 s clips, full-width mn10_as, fp32 and
+    bf16 autocast: its time and clips/s, and its split into mel (K1),
+    forward+backward and the optimizer (CUDA events)."""
+    mel_cfg, loss_cfg = audioset_configs()
+    model = build_model("mn10_as")  # the preset's model, dropout 0.2
+    model.load_state_dict(seeded_weights("mn10_as", 9), strict=True)
+    model.to(device)
+    opt = make_optimizer(model.parameters(), 8e-4)
+    rng = np.random.default_rng(9)
+    batch = {k: torch.from_numpy(v).to(device) for k, v in {
+        "wave": train_waves(TRAIN_BATCH, seed=9),
+        "target": (rng.random((TRAIN_BATCH, 527)) > 0.9).astype(np.float32),
+        "teacher": rng.random((TRAIN_BATCH, 527)).astype(np.float32),
+        "teacher_valid": np.ones(TRAIN_BATCH, np.float32)}.items()}
+    draws = StepRandom(9).draw(mel_cfg, loss_cfg, TRAIN_BATCH, CLIP)
+    perm, lam = (torch.from_numpy(np.array(a)).to(device) for a in draws.mixup)
+    mix = (lam, {k: batch[k][perm] for k in ("target", "teacher")})
+
+    def mel():
+        return mel_kernel.log_mel_spectrogram_fused(
+            batch["wave"], mel_cfg, training=True, draws=draws.mel)
+
+    x = apply_mixup(mel()[:, None], perm, lam)
+    for bf16 in (False, True):
+        def step():
+            train_step(model, opt, None, mel_cfg, loss_cfg, batch, draws,
+                       bf16=bf16)
+
+        def forward_backward():
+            opt.zero_grad(set_to_none=True)
+            with torch.autocast("cuda", dtype=torch.bfloat16, enabled=bf16):
+                logits, _ = model(x)
+            task_loss(loss_cfg, logits.float(), batch, mix)[0].backward()
+
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = median_ms(step, iters=5)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        mel_ms = median_ms(mel, iters=5)
+        fb_ms = median_ms(forward_backward, iters=5)
+        opt_ms = median_ms(opt.step, iters=5)
+        phase("train_time", model="mn10_as", batch=TRAIN_BATCH, bf16=bf16,
+              step_ms=step_ms, clips_per_s=TRAIN_BATCH / step_ms * 1e3,
+              mel_ms=mel_ms, forward_backward_ms=fb_ms, optimizer_ms=opt_ms,
+              rest_ms=step_ms - mel_ms - fb_ms - opt_ms, peak_gb=peak_gb,
+              tf32=False, card=repr(card))
 
 
 def main():
@@ -264,8 +726,9 @@ def main():
           clips_per_s=BATCH / pipe_ms * 1e3, card=repr(card))
 
     k_ms, plain_ms, err = times["bf16x3"]
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "mel_kernel",
+        "path": "tag",
         "route": "cuda",
         "source": "efficientat_tpu_torch/csrc/mel_kernel.cu",
         "replaces": "efficientat_tpu/ops/mel_pallas.py:109",
@@ -273,7 +736,20 @@ def main():
         "max_abs_err": err,
         "ms": k_ms,
         "plain_ms": plain_ms,
-    }]}), flush=True)
+    }]
+    del tagger, pairs, xb, mel
+    torch.cuda.empty_cache()
+
+    # 6-9. the training path
+    k1_train = phase_train_k1(device, card)
+    train_launches = phase_train(device)
+    dp = phase_train_dp(device)
+    phase_train_times(device, card)
+    kernels.append({**kernels[0], "path": "train", "launches": train_launches,
+                    **k1_train})
+    kernels.append({**kernels[0], "name": "mel_kernel_dp", "path": "train_dp",
+                    "replaces": "efficientat_tpu/ops/mel_pallas.py:347", **dp})
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

@@ -1,9 +1,15 @@
 """Command line of the port (counterpart of efficientat_tpu/cli.py).
 
 - ``tag``: tag a single clip and print the top-10 labels
-  (reference surface: upstream inference.py).
+  (reference surface: upstream inference.py);
+- ``train <task>``: train or fine-tune on a task preset (upstream
+  ex_audioset.py, ex_esc50.py, ...), in one process or under
+  ``torchrun --nproc_per_node N -m efficientat_tpu_torch.cli train <task>``;
+- ``evaluate <task>``: evaluate weights on a task's eval split.
 
-Run ``python -m efficientat_tpu_torch.cli tag --help``.
+Run ``python -m efficientat_tpu_torch.cli tag --help``; ``train`` and
+``evaluate`` pass their remaining flags to the task's own parser
+(``train/cli.py``).
 """
 
 from __future__ import annotations
@@ -20,7 +26,6 @@ def _add_tag(sub):
                    help="random weights (pipeline testing without checkpoints)")
     p.add_argument("--model_dir", type=str, default="resources")
     p.add_argument("--device", type=str, default="cuda")
-    p.set_defaults(fn=_run_tag)
 
 
 def _run_tag(args):
@@ -36,12 +41,29 @@ def _run_tag(args):
     print("********************************************************")
 
 
+def _add_task_command(sub, name, help):
+    from efficientat_tpu_torch.train.tasks import TASKS
+
+    # no -h here: ``train <task> --help`` reaches the task's own parser
+    p = sub.add_parser(name, help=help, add_help=False)
+    p.add_argument("task", choices=list(TASKS))
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="efficientat_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
     _add_tag(sub)
-    args = parser.parse_args(argv)
-    args.fn(args)
+    _add_task_command(sub, "train", "Train / fine-tune on a task preset")
+    _add_task_command(sub, "evaluate", "Evaluate a model on a task's eval split")
+    args, extra = parser.parse_known_args(argv)
+    if args.command == "tag":
+        if extra:
+            parser.error(f"unrecognized arguments: {extra}")
+        _run_tag(args)
+        return
+    from efficientat_tpu_torch.train.cli import run_evaluate, run_train
+
+    (run_train if args.command == "train" else run_evaluate)(args.task, extra)
 
 
 if __name__ == "__main__":

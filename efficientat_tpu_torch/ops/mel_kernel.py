@@ -9,8 +9,12 @@ math and patched in, as the JAX wrapper does.
 
 ``stft_log_mel`` launches K1 for a CUDA tensor and runs its plain PyTorch
 version, ``stft_log_mel_plain``, for a CPU tensor; nothing else chooses
-between them. ``log_mel_spectrogram_fused`` picks K1 or the plain melspec
-path (``ops.melspec``) from the config and the device only.
+between them. ``stft_log_mel_sharded`` is K1-dp, the port of
+``stft_log_mel_pallas_sharded``: K1 on one data-parallel rank's rows.
+``log_mel_spectrogram_fused`` picks K1 or the plain melspec path
+(``ops.melspec``) from the config and the device only. In training it feeds
+K1 the jittered banks and masks K1's normalised output with 0.9, the value
+a masked log-mel cell of 0 takes after ``(x + 4.5) / 5``.
 """
 
 from __future__ import annotations
@@ -25,11 +29,14 @@ from efficientat_tpu_torch.ops.filterbank import kaldi_mel_banks
 from efficientat_tpu_torch.ops.melspec import (
     PREEMPH,
     MelConfig,
+    MelDraws,
     _edge_power,
     _folded_dft_basis,
+    apply_masks,
     device_const,
     edge_frames,
     frame_signal,
+    jittered_fmin_fmax,
     log_mel_spectrogram,
     true_fp32,
 )
@@ -194,6 +201,26 @@ def stft_log_mel(wave: torch.Tensor, banks: torch.Tensor, cfg: MelConfig,
     return _patch_edges(out, wave, banks, cfg)
 
 
+def stft_log_mel_sharded(wave_local: torch.Tensor, banks: torch.Tensor,
+                         cfg: MelConfig,
+                         dft_precision: str = "bf16x3") -> torch.Tensor:
+    """K1-dp: K1 on this rank's rows of a batch split over the ranks of the
+    default process group (port of ``stft_log_mel_pallas_sharded``, which
+    ``shard_map``s K1 over the ``data`` mesh axis).
+
+    ``wave_local`` holds this rank's rows; ``banks`` must be the same on
+    every rank (the train step draws the jitter from identically seeded
+    generators, so no broadcast is needed). The ranks' outputs, concatenated
+    in rank order, equal ``stft_log_mel`` on the whole batch. On a CPU tensor
+    it runs K1's plain version, as ``stft_log_mel`` does."""
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError("stft_log_mel_sharded needs an initialised "
+                           "torch.distributed process group")
+    return stft_log_mel(wave_local, banks, cfg, dft_precision)
+
+
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.eat_mel_log.argtypes = [p, i, i, i, i, p, p, p, i, p, i, p, p]
@@ -205,8 +232,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 def log_mel_spectrogram_fused(waveform: torch.Tensor,
                               cfg: MelConfig = MelConfig(), *,
-                              training: bool = False, backend: str = "auto",
-                              dft_precision: str | None = None) -> torch.Tensor:
+                              training: bool = False,
+                              draws: MelDraws | None = None,
+                              backend: str = "auto",
+                              dft_precision: str | None = None,
+                              sharded: bool = False) -> torch.Tensor:
     """Drop-in for ``ops.melspec.log_mel_spectrogram`` with a K1 path.
 
     backend: ``"kernel"`` (``stft_log_mel``: K1 on CUDA, its plain version
@@ -215,20 +245,32 @@ def log_mel_spectrogram_fused(waveform: torch.Tensor,
     4096 samples, the melspec path otherwise. The choice depends on the
     config and the device only.
 
-    dft_precision defaults to ``"bf16x3"``, the serving default of the JAX
-    package; ``"fp32"`` is exact fp32. The melspec path is always fp32.
+    ``training=True`` needs ``draws`` (this call's rows of them): K1 gets the
+    jittered fp32 banks as its runtime input and its output is masked with
+    0.9. ``sharded=True`` runs K1 as K1-dp (``stft_log_mel_sharded``), as
+    the JAX step does under a mesh of more than one device.
+
+    dft_precision defaults to ``"bf16x3"``, the serving and training default
+    of the JAX package; ``"fp32"`` is exact fp32. The melspec path is always
+    fp32.
     """
-    if training:
-        raise NotImplementedError(
-            "training-mode mel (SpecAugment, fmin/fmax jitter) is not ported yet")
+    if training and draws is None:
+        raise ValueError("training=True requires draws (see draw_mel_augment)")
     if backend not in ("auto", "kernel", "plain"):
         raise ValueError(f"backend must be auto, kernel or plain, got {backend!r}")
     use_kernel = backend == "kernel" or (
         backend == "auto" and waveform.device.type == "cuda"
         and kernel_supported(cfg) and waveform.shape[-1] >= MIN_SAMPLES)
     if not use_kernel:
-        return log_mel_spectrogram(waveform, cfg)
-    banks = kaldi_mel_banks(cfg.n_mels, cfg.n_fft, cfg.sr, cfg.fmin,
-                            cfg.effective_fmax, device=waveform.device)
-    return stft_log_mel(waveform.to(torch.float32).contiguous(), banks, cfg,
-                        dft_precision or "bf16x3")
+        return log_mel_spectrogram(waveform, cfg, training=training,
+                                   draws=draws)
+    fmin, fmax = (jittered_fmin_fmax(cfg, draws, waveform.device) if training
+                  else (cfg.fmin, cfg.effective_fmax))
+    banks = kaldi_mel_banks(cfg.n_mels, cfg.n_fft, cfg.sr, fmin, fmax,
+                            device=waveform.device)
+    run = stft_log_mel_sharded if sharded else stft_log_mel
+    mel = run(waveform.to(torch.float32).contiguous(), banks, cfg,
+              dft_precision or "bf16x3")
+    if training:
+        mel = apply_masks(mel, cfg, draws, 0.9)
+    return mel

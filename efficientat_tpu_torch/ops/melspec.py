@@ -15,8 +15,12 @@ RAW wave by a basis with the pre-emphasis folded in (``stft_power_folded``),
 which keeps the cancellation of the difference signal out of fp32. Every
 GEMM here runs in IEEE fp32 (``true_fp32``).
 
-SpecAugment and the fmin/fmax jitter come with the train step;
-``training=True`` raises until then.
+Training mode (upstream models/preprocess.py:45-63) adds the fmin/fmax
+jitter of the filterbank and SpecAugment (frequency then time mask, fill 0.0
+before normalisation). Its random numbers come in as explicit ``MelDraws``
+(``draw_mel_augment`` makes them from a ``torch.Generator``), so a test can
+replay the JAX key's draws and a data-parallel rank can take its rows of a
+global batch's draws.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 from functools import lru_cache
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -229,12 +233,95 @@ def stft_power_folded(x_raw: torch.Tensor, n_fft: int, hop: int,
     return power
 
 
+@dataclasses.dataclass(frozen=True)
+class MelDraws:
+    """The random numbers of one training-mode mel call on a batch.
+
+    ``fmin_offset`` is added to ``cfg.fmin`` (U{0..fmin_aug_range-1});
+    ``fmax_offset`` to ``cfg.effective_fmax`` (fmax_aug_range//2 -
+    U{0..fmax_aug_range-1}). The masks are per clip, (B,) fp32 on the CPU:
+    width ~ U[0, param), start ~ U[0, D - width), cells [start, start +
+    width) masked; ``None`` where the config's mask parameter is 0.
+    """
+
+    fmin_offset: int
+    fmax_offset: int
+    freq_width: Optional[torch.Tensor] = None
+    freq_start: Optional[torch.Tensor] = None
+    time_width: Optional[torch.Tensor] = None
+    time_start: Optional[torch.Tensor] = None
+
+    def rows(self, rows: slice) -> "MelDraws":
+        """The draws of the clips ``rows`` (a data-parallel rank's share)."""
+        per_clip = ("freq_width", "freq_start", "time_width", "time_start")
+        return dataclasses.replace(self, **{
+            name: getattr(self, name)[rows] for name in per_clip
+            if getattr(self, name) is not None})
+
+
+def draw_mel_augment(cfg: MelConfig, batch: int, n_frames: int,
+                     generator: torch.Generator) -> MelDraws:
+    """Draw one batch's jitter and masks from ``generator`` (on the CPU)."""
+    def draw_int(high):
+        return int(torch.randint(high, (), generator=generator))
+
+    def draw_mask(param, size):
+        if param <= 0:
+            return None, None
+        width = torch.rand(batch, generator=generator) * param
+        return width, torch.rand(batch, generator=generator) * (size - width)
+
+    fmin_offset = draw_int(cfg.fmin_aug_range)
+    fmax_offset = cfg.fmax_aug_range // 2 - draw_int(cfg.fmax_aug_range)
+    freq = draw_mask(cfg.freqm, cfg.n_mels)
+    time = draw_mask(cfg.timem, n_frames)
+    return MelDraws(fmin_offset, fmax_offset, *freq, *time)
+
+
+def jittered_fmin_fmax(cfg: MelConfig, draws: MelDraws,
+                       device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """fmin and fmax of a training call as fp32 tensors on ``device``, as the
+    JAX step forms them (melspec.py:311-315); tensors select the fp32 bank
+    construction of ``kaldi_mel_banks``."""
+    f32 = dict(dtype=torch.float32, device=device)
+    return (torch.tensor(cfg.fmin, **f32) + float(draws.fmin_offset),
+            torch.tensor(cfg.effective_fmax, **f32) + float(draws.fmax_offset))
+
+
+def _mask_axis(x: torch.Tensor, width: torch.Tensor, start: torch.Tensor,
+               axis: int, value: float) -> torch.Tensor:
+    """SpecAugment mask along ``axis`` (1 mels, 2 frames) of (B, F, T),
+    per clip: cells ``start <= pos < start + width`` become ``value``
+    (torchaudio ``_mask_along_axis_iid``)."""
+    size = x.shape[axis]
+    pos = torch.arange(size, dtype=torch.float32, device=x.device)
+    start = start.to(x.device)
+    end = start + width.to(x.device)
+    mask = (pos[None, :] >= start[:, None]) & (pos[None, :] < end[:, None])
+    shape = [x.shape[0], 1, 1]
+    shape[axis] = size
+    return x.masked_fill(mask.reshape(shape), value)
+
+
+def apply_masks(mel: torch.Tensor, cfg: MelConfig, draws: MelDraws,
+                value: float) -> torch.Tensor:
+    """Frequency mask, then time mask, as the config asks for them."""
+    if cfg.freqm > 0:
+        mel = _mask_axis(mel, draws.freq_width, draws.freq_start, 1, value)
+    if cfg.timem > 0:
+        mel = _mask_axis(mel, draws.time_width, draws.time_start, 2, value)
+    return mel
+
+
 def log_mel_spectrogram(waveform: torch.Tensor, cfg: MelConfig = MelConfig(),
-                        *, training: bool = False) -> torch.Tensor:
-    """Waveform (B, num_samples) -> normalized log-mel (B, n_mels, n_frames)."""
-    if training:
-        raise NotImplementedError(
-            "training-mode mel (SpecAugment, fmin/fmax jitter) is not ported yet")
+                        *, training: bool = False,
+                        draws: Optional[MelDraws] = None) -> torch.Tensor:
+    """Waveform (B, num_samples) -> normalized log-mel (B, n_mels, n_frames).
+
+    ``training=True`` jitters fmin/fmax and applies SpecAugment with
+    ``draws`` (required)."""
+    if training and draws is None:
+        raise ValueError("training=True requires draws (see draw_mel_augment)")
     x32 = waveform.to(torch.float32)
     if x32.shape[1] >= 2 * cfg.n_fft:
         spec = stft_power_folded(x32, cfg.n_fft, cfg.hopsize, cfg.win_length)
@@ -242,11 +329,16 @@ def log_mel_spectrogram(waveform: torch.Tensor, cfg: MelConfig = MelConfig(),
         # clips shorter than the edge-patch slivers: reference-order math
         spec = stft_power(preemphasis(x32), cfg.n_fft, cfg.hopsize,
                           cfg.win_length)
-    banks = kaldi_mel_banks(cfg.n_mels, cfg.n_fft, cfg.sr, cfg.fmin,
-                            cfg.effective_fmax, device=x32.device)
+    fmin, fmax = (jittered_fmin_fmax(cfg, draws, x32.device) if training
+                  else (cfg.fmin, cfg.effective_fmax))
+    banks = kaldi_mel_banks(cfg.n_mels, cfg.n_fft, cfg.sr, fmin, fmax,
+                            device=x32.device)
     with true_fp32():
         mel = torch.einsum("mf,btf->bmt", banks, spec)
-    return (torch.log(mel + 1e-5) + 4.5) / 5.0
+    mel = torch.log(mel + 1e-5)
+    if training:
+        mel = apply_masks(mel, cfg, draws, 0.0)
+    return (mel + 4.5) / 5.0
 
 
 def mel_oracle_f64(waves: np.ndarray, cfg: MelConfig,

@@ -26,6 +26,18 @@ SLICE_MODULES = [
     "efficientat_tpu_torch.ops.filterbank",
     "efficientat_tpu_torch.ops.mel_kernel",
     "efficientat_tpu_torch.ops.melspec",
+    "efficientat_tpu_torch.parallel",
+    "efficientat_tpu_torch.parallel.ddp",
+    "efficientat_tpu_torch.train",
+    "efficientat_tpu_torch.train.augment",
+    "efficientat_tpu_torch.train.cli",
+    "efficientat_tpu_torch.train.kd",
+    "efficientat_tpu_torch.train.loop",
+    "efficientat_tpu_torch.train.metrics",
+    "efficientat_tpu_torch.train.schedules",
+    "efficientat_tpu_torch.train.tasks",
+    "efficientat_tpu_torch.utils",
+    "efficientat_tpu_torch.utils.checkpointing",
 ]
 
 
@@ -45,6 +57,29 @@ def test_imports_with_jax_and_flax_blocked():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+def test_train_runs_with_jax_and_flax_blocked(tmp_path):
+    # the train path imports the JAX package's data and logging modules,
+    # which are numpy-only, when it runs
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['flax'] = None\n"
+        "from efficientat_tpu_torch import cli\n"
+        "cli.main(['train', 'esc50', '--synthetic', '2', '--batch_size', '2',\n"
+        "          '--n_epochs', '1', '--model_width', '0.1', '--clip_seconds', '1',\n"
+        "          '--num_workers', '1', '--device', 'cpu', '--ckpt_dir', 'ckpt'])\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', 'flax'))\n"
+        "               for m, v in sys.modules.items() if v is not None)\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")
+    assert (tmp_path / "ckpt" / "epoch_000000.pt").exists()
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")),

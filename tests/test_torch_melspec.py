@@ -43,7 +43,8 @@ def test_log_mel_matches_jax(hop, n_mels, n_samples):
 
 
 def test_log_mel_training_not_ported():
-    with pytest.raises(NotImplementedError):
+    # training mode is ported; it needs its random draws passed in
+    with pytest.raises(ValueError, match="draws"):
         tmel.log_mel_spectrogram(torch.zeros(1, 32000), training=True)
 
 
