@@ -28,9 +28,18 @@ and the training path, ``train audioset`` (KD, mixup, fmin/fmax jitter):
    ``train audioset`` on the two ranks as ``torchrun --nproc_per_node 2``
    starts it, K1-dp at every step;
 9. the train step's time at B=120 and its split into mel, forward+backward
-   and optimizer.
+   and optimizer;
 
-Then one JSON line on the kernels, per path (tag, train, train_dp), the
+and the probe path, the tensor-core variants P1-P3 of the fused log-mel
+(``efficientat_tpu_torch/csrc/mel_probe_kernel.cu``):
+
+10. each variant against its plain version and the float64 oracle on the
+    selftest waves; at B=64 of 10 s clips, each against its plain version
+    in ms, beside ``gemm_ms``, cuBLAS's time for the DFT products alone on
+    pre-made frames (K1's rows get theirs too); then the entry point,
+    ``tools.probe_mel_kernel.run("all", "cuda")``, must launch each kernel.
+
+Then one JSON line on the kernels, per path (tag, train, train_dp, probe), the
 card's ``nvidia-smi`` line and, last, ``{"ok": true, "device": {...}}``. Any
 failure raises and exits non-zero; nothing falls back to the CPU.
 """
@@ -63,20 +72,25 @@ from efficientat_tpu_torch.models.registry import (  # noqa: E402
     build_model,
     get_model_config,
 )
-from efficientat_tpu_torch.ops import _build, mel_kernel  # noqa: E402
+from efficientat_tpu_torch.ops import _build, mel_kernel, mel_probe  # noqa: E402
 from efficientat_tpu_torch.ops.filterbank import kaldi_mel_banks  # noqa: E402
 from efficientat_tpu_torch.ops.melspec import (  # noqa: E402
     MelConfig,
     apply_masks,
+    device_const,
     draw_mel_augment,
+    frame_signal,
     jittered_fmin_fmax,
     log_mel_spectrogram,
     mel_oracle_f64,
+    true_fp32,
 )
 from efficientat_tpu_torch.parallel.ddp import (  # noqa: E402
     DataParallel,
     convert_global_bn,
 )
+from efficientat_tpu_torch.tools import probe_mel_kernel  # noqa: E402
+from efficientat_tpu_torch.tools.probe_mel_kernel import median_ms  # noqa: E402
 from efficientat_tpu_torch.train.augment import apply_mixup  # noqa: E402
 from efficientat_tpu_torch.train.cli import run_train  # noqa: E402
 from efficientat_tpu_torch.train.loop import (  # noqa: E402
@@ -126,6 +140,50 @@ TOL_GRAD_TENSOR = 5e-2
 # the edge patch's GEMMs may block 8 and 16 rows differently
 TOL_DP_VS_WHOLE = 1e-5
 
+# the probe kernels P1-P3 against their plain versions: the same bf16
+# products, fp32 sums in another order. Set from two readings: the kernels'
+# largest gap in phase 10 on an H100, 1.01e-5, and the smaller of the two
+# lower-precision controls of ``probe_controls``, 7.1e-4 for banks rounded
+# to bf16 (a bf16 mel product rounds the power as well); phase 10 checks
+# that both controls stay above this bound
+TOL_PROBE_VS_PLAIN = 1e-4
+# against the float64 oracle, per selftest wave: K1 bf16x3's bound at 3
+# passes; at 2 passes twice the plain version's gap on the CPU, rounded up
+# (``probe_oracle_gaps(torch.device("cpu"))`` measured [1.09e-2, 1.03,
+# 4.75e-2, 1.56e-3] at 21 passes and [1.61e-2, 1.17, 7.02e-2, 2.44e-3] at
+# 22: bf16 rounding of one operand leaves a noise floor that the pure tone's
+# far bins, near the 1e-5 mel floor, do not hide)
+TOL_PROBE_VS_ORACLE = {3: (TOL_VS_ORACLE["bf16x3"],) * 4,
+                       21: (0.022, 2.1, 0.095, 0.0032),
+                       22: (0.033, 2.4, 0.15, 0.0049)}
+# the variants the probe phase checks and times: (kernel, variant, function,
+# its arguments, DFT passes, the TPU kernel body it replaces)
+PROBE = "scripts/probe_mel_kernel.py"
+PROBE_VARIANTS = [
+    ("P1", "unfolded_t128", mel_probe.variant_mel,
+     {"frame_tile": 128, "folded": False}, 3, f"{PROBE}:80"),
+    ("P1", "folded_t128", mel_probe.variant_mel,
+     {"frame_tile": 128, "folded": True}, 3, f"{PROBE}:80"),
+    ("P1", "folded_t512", mel_probe.variant_mel,
+     {"frame_tile": 512, "folded": True}, 3, f"{PROBE}:80"),
+    ("P2", "t128", mel_probe.variant_mel_dma, {"frame_tile": 128}, 3,
+     f"{PROBE}:268"),
+    ("P3", "passes3", mel_probe.variant_mel_e, {"passes": 3}, 3,
+     f"{PROBE}:419"),
+    ("P3", "passes21", mel_probe.variant_mel_e, {"passes": 21}, 2,
+     f"{PROBE}:419"),
+    ("P3", "passes22", mel_probe.variant_mel_e, {"passes": 22}, 2,
+     f"{PROBE}:419"),
+]
+PROBE_PLAIN = {mel_probe.variant_mel: mel_probe.variant_mel_plain,
+               mel_probe.variant_mel_dma: mel_probe.variant_mel_dma_plain,
+               mel_probe.variant_mel_e: mel_probe.variant_mel_e_plain}
+# the variant of each kernel that stands for it in the kernels line
+PROBE_ROW = {"P1": "folded_t128", "P2": "t128", "P3": "passes3"}
+# H100 SXM dense peaks (NVIDIA's data sheet): bf16 tensor cores, fp32 CUDA
+# cores, HBM3
+PEAK_BF16, PEAK_FP32, PEAK_BYTES = 989e12, 67e12, 3.35e12
+
 
 def phase(tag, /, **fields):
     print(f"[{tag}] " + " ".join(f"{k}={v}" for k, v in fields.items()),
@@ -135,23 +193,6 @@ def phase(tag, /, **fields):
 def check(ok, what):
     if not ok:
         raise AssertionError(what)
-
-
-def median_ms(fn, iters=10, warmup=2):
-    """Median device time of ``fn`` in ms, from CUDA events after a warm-up."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def selftest_waves():
@@ -602,6 +643,184 @@ def phase_train_times(device, card):
               tf32=False, card=repr(card))
 
 
+# ---------------------------------------------------------------- the probe
+
+def mel_bound_ms(batch, samples, n_mels, dft):
+    """The least time of a log-mel call at hop 320 on the card, and what
+    sets it: the DFT products (``dft`` bf16 passes at the tensor-core rate,
+    or "fp32" at the CUDA-core rate) plus the fp32 mel product, against the
+    wave read once and the output written once."""
+    frames = batch * ((samples - 1) // 320 + 1)
+    dft_flop = frames * 1024 * 1024 * 2
+    ops_s = (dft_flop / PEAK_FP32 if dft == "fp32"
+             else dft * dft_flop / PEAK_BF16)
+    ops_s += frames * 512 * n_mels * 2 / PEAK_FP32
+    bytes_s = 4 * (batch * samples + frames * n_mels) / PEAK_BYTES
+    return 1e3 * max(ops_s, bytes_s), "operations" if ops_s >= bytes_s else "bytes"
+
+
+# how gemm_ms multiplies bf16 operands: set at its first call
+GEMM_KIND = [None]
+
+
+def _bf16_gemm(a, b):
+    """a @ b of bf16 operands into fp32: one bf16 GEMM where this torch has
+    ``out_dtype``, else the fp32 product of the bf16 values."""
+    if GEMM_KIND[0] is None:
+        try:
+            torch.mm(a[:8], b[:, :8], out_dtype=torch.float32)
+            GEMM_KIND[0] = "bf16 in, fp32 out (torch.mm out_dtype)"
+        except (TypeError, RuntimeError):
+            GEMM_KIND[0] = "fp32 GEMM of bf16-valued operands"
+    if GEMM_KIND[0].startswith("bf16"):
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+def gemm_ms(device, batch, dft):
+    """The cuBLAS yardstick of a log-mel call: the time of its DFT products
+    alone, on frames made beforehand from ``batch`` 10 s clips at hop 320
+    (``dft`` bf16 products of the split operands, or one fp32 product)."""
+    waves = torch.from_numpy(train_waves(batch, seed=10)).to(device)
+    frames = frame_signal(waves, 1024, 320, (CLIP - 1) // 320 + 1,
+                          pad_mode="constant").reshape(-1, 1024)
+    basis = device_const(mel_probe._basis_no_nyquist, (1024, 800), str(device))
+    if dft == "fp32":
+        def products():
+            with true_fp32():
+                return frames @ basis
+    else:
+        fh = frames.to(torch.bfloat16)
+        fl = (frames - fh.float()).to(torch.bfloat16)
+        bh = basis.to(torch.bfloat16)
+        bl = (basis - bh.float()).to(torch.bfloat16)
+        pairs = {3: [(fh, bh), (fh, bl), (fl, bh)], 2: [(fh, bh), (fl, bh)]}[dft]
+
+        def products():
+            return [_bf16_gemm(a, b) for a, b in pairs]
+    return median_ms(products)
+
+
+def probe_oracle_gaps(device):
+    """Each probe variant's plain version against the float64 oracle on the
+    selftest waves at hop 320: {name: per-wave max gap}."""
+    waves = selftest_waves()
+    cfg = MelConfig()
+    banks = kaldi_mel_banks(cfg.n_mels, cfg.n_fft, cfg.sr, cfg.fmin,
+                            cfg.effective_fmax, device=device)
+    oracle = mel_oracle_f64(waves, cfg, banks.cpu().numpy())
+    wd = torch.from_numpy(waves).to(device)
+    return {f"{kernel}_{name}": np.abs(PROBE_PLAIN[fn](wd, banks, cfg, **kw)
+                                       .cpu().numpy() - oracle).max(axis=(1, 2))
+            for kernel, name, fn, kw, _, _ in PROBE_VARIANTS}
+
+
+def probe_controls(wave, device):
+    """Two lower-precision versions of P3 at 3 passes against its plain
+    version, on the card's kernel: banks rounded to bf16 (what a bf16 mel
+    product does to one of its operands) and a dropped correction pass
+    (passes 22). {control: max gap}; each must exceed TOL_PROBE_VS_PLAIN,
+    or that bound could not tell a lower-precision kernel from a sound one."""
+    cfg = MelConfig()
+    banks = kaldi_mel_banks(cfg.n_mels, cfg.n_fft, cfg.sr, cfg.fmin,
+                            cfg.effective_fmax, device=device)
+    want = mel_probe.variant_mel_e_plain(wave, banks, cfg, 3)
+    got = {"bf16_banks": mel_probe.variant_mel_e(wave, banks.bfloat16().float(),
+                                                 cfg, 3),
+           "dropped_pass": mel_probe.variant_mel_e(wave, banks, cfg, 22)}
+    return {name: float((g - want).abs().max()) for name, g in got.items()}
+
+
+def phase_probe(device, card):
+    """10. P1-P3: the build; each variant against its plain version and
+    the float64 oracle on the selftest waves (hop 320, and 640 for P1 and
+    P2); at B=64 of 10 s clips, kernel against plain in ms beside
+    ``gemm_ms``; then ``tools.probe_mel_kernel.run("all", "cuda")``, the
+    path's entry point, with the counters set to 0. Returns the kernels
+    line's rows for P1, P2 and P3."""
+    regs = [ln.split(":", 1)[-1].strip() for ln in
+            _build.BUILD_LOG.get("mel_probe_kernel", "").splitlines()
+            if "registers" in ln or "spill" in ln]
+    phase("probe_build", source="efficientat_tpu_torch/csrc/mel_probe_kernel.cu",
+          arch="sm_90a", ptxas=repr(regs))
+
+    waves = selftest_waves()
+    wd = torch.from_numpy(waves).to(device)
+    controls = probe_controls(wd, device)
+    phase("probe_control", bound_plain=TOL_PROBE_VS_PLAIN,
+          **{f"{k}_vs_plain": v for k, v in controls.items()})
+    check(min(controls.values()) > TOL_PROBE_VS_PLAIN,
+          f"a lower-precision control passes the kernel bound: {controls}")
+    for hop in (320, 640):
+        cfg = MelConfig(hopsize=hop)
+        banks = kaldi_mel_banks(cfg.n_mels, cfg.n_fft, cfg.sr, cfg.fmin,
+                                cfg.effective_fmax, device=device)
+        oracle = mel_oracle_f64(waves, cfg, banks.cpu().numpy())
+        for kernel, name, fn, kw, passes, _ in PROBE_VARIANTS:
+            if fn is mel_probe.variant_mel_e and hop != mel_probe.P3_HOP:
+                continue
+            got = fn(wd, banks, cfg, **kw)
+            torch.cuda.synchronize()
+            want = PROBE_PLAIN[fn](wd, banks, cfg, **kw)
+            vs_plain = float((got - want).abs().max())
+            vs_oracle = np.abs(got.cpu().numpy() - oracle).max(axis=(1, 2))
+            plain_vs_oracle = np.abs(want.cpu().numpy() - oracle).max(axis=(1, 2))
+            bound = TOL_PROBE_VS_ORACLE[kw.get("passes", 3)]
+            phase("probe_selftest", kernel=kernel, variant=name, hop=hop,
+                  vs_plain=vs_plain, bound_plain=TOL_PROBE_VS_PLAIN,
+                  vs_oracle=vs_oracle.tolist(),
+                  plain_vs_oracle=plain_vs_oracle.tolist(),
+                  bound_oracle=list(bound))
+            check(vs_plain <= TOL_PROBE_VS_PLAIN, f"{kernel} {name} vs plain")
+            check(all(d < b for d, b in zip(vs_oracle, bound)),
+                  f"{kernel} {name} vs oracle")
+
+    # B=64, 10 s clips: kernel against plain in turns, and the yardstick
+    xb, banks, cfg = probe_mel_kernel.inputs(device)
+    rows = {}
+    for kernel, name, fn, kw, passes, replaces in PROBE_VARIANTS:
+        got = fn(xb, banks, cfg, **kw)
+        err = float((got - PROBE_PLAIN[fn](xb, banks, cfg, **kw)).abs().max())
+        del got
+        check(err <= TOL_PROBE_VS_PLAIN, f"{kernel} {name} vs plain at B={BATCH}")
+        runs = {"plain": [], "kernel": []}
+        for which in ("plain", "kernel", "kernel", "plain"):
+            run = PROBE_PLAIN[fn] if which == "plain" else fn
+            runs[which].append(median_ms(lambda: run(xb, banks, cfg, **kw)))
+        bound, bound_by = mel_bound_ms(BATCH, CLIP, cfg.n_mels, passes)
+        gemm = gemm_ms(device, BATCH, passes)
+        phase("probe_time", kernel=kernel, variant=name, batch=BATCH,
+              kernel_ms=runs["kernel"], plain_ms=runs["plain"], gemm_ms=gemm,
+              bound_ms=bound, max_abs=err, card=repr(card))
+        rows[kernel, name] = {
+            "max_abs_err": err, "ms": statistics.mean(runs["kernel"]),
+            "plain_ms": statistics.mean(runs["plain"]), "gemm_ms": gemm,
+            "bound_ms": bound, "bound_by": bound_by, "replaces": replaces}
+
+    # the path: the probe's entry point, every variant of every group
+    mel_probe.LAUNCHES_P1 = mel_probe.LAUNCHES_P2 = mel_probe.LAUNCHES_P3 = 0
+    records = probe_mel_kernel.run("all", device)
+    launches = {"P1": mel_probe.LAUNCHES_P1, "P2": mel_probe.LAUNCHES_P2,
+                "P3": mel_probe.LAUNCHES_P3}
+    for rec in records:
+        phase("probe_run", **rec)
+        # the 2-pass variants are held to the oracle above, on the selftest
+        check(rec["max_vs_ref"] < TOL_VS_ORACLE["bf16x3"]
+              or "2pass" in rec["variant"],
+              f"probe variant {rec['variant']} vs the melspec path")
+    phase("probe_path", entry="tools.probe_mel_kernel.run('all', 'cuda')",
+          variants=len(records), launches=json.dumps(launches),
+          gemm_kind=GEMM_KIND[0])
+    check(all(n >= 1 for n in launches.values()),
+          f"the probe path did not launch every kernel: {launches}")
+    return [{"name": f"mel_probe_{kernel.lower()}", "path": "probe",
+             "route": "cuda",
+             "source": "efficientat_tpu_torch/csrc/mel_probe_kernel.cu",
+             "variant": PROBE_ROW[kernel], "launches": launches[kernel],
+             "library_ms": None, **rows[kernel, PROBE_ROW[kernel]]}
+            for kernel in ("P1", "P2", "P3")]
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -619,9 +838,9 @@ def main():
           cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
           matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32)
 
-    # 2. build
+    # 2. build: every kernel source at once, one nvcc each
     t0 = time.perf_counter()
-    _build.load_library("mel_kernel")
+    _build.load_libraries(["mel_kernel", "mel_probe_kernel"])
     regs = [ln.split(":", 1)[1].strip() for ln in
             _build.BUILD_LOG.get("mel_kernel", "").splitlines() if "registers" in ln]
     phase("build", source="efficientat_tpu_torch/csrc/mel_kernel.cu",
@@ -749,6 +968,21 @@ def main():
                     **k1_train})
     kernels.append({**kernels[0], "name": "mel_kernel_dp", "path": "train_dp",
                     "replaces": "efficientat_tpu/ops/mel_pallas.py:347", **dp})
+
+    # 10. the probe path
+    cfg = MelConfig()
+    for row, batch_rows in zip(kernels, (BATCH, TRAIN_BATCH,
+                                         DP_MEL_BATCH // DP_WORLD)):
+        bound, bound_by = mel_bound_ms(batch_rows, CLIP, cfg.n_mels, 3)
+        row.update(bound_ms=bound, bound_by=bound_by, library_ms=None,
+                   gemm_ms=gemm_ms(device, batch_rows, 3))
+    k1_fp32_gemm = gemm_ms(device, BATCH, "fp32")
+    phase("k1_gemm", batch=BATCH, fp32_gemm_ms=k1_fp32_gemm,
+          fp32_bound_ms=mel_bound_ms(BATCH, CLIP, cfg.n_mels, "fp32")[0],
+          bf16x3_gemm_ms=kernels[0]["gemm_ms"],
+          bf16x3_bound_ms=kernels[0]["bound_ms"], gemm_kind=GEMM_KIND[0],
+          card=repr(card))
+    kernels.extend(phase_probe(device, card))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,17 +3,23 @@
 The JAX package ``efficientat_tpu`` stays the reference; this package keeps
 its module layout and names, so every counterpart sits at the same path:
 
-- ``ops``: Kaldi filterbank, the plain log-mel path (``ops.melspec``) and the
+- ``ops``: Kaldi filterbank, the plain log-mel path (``ops.melspec``), the
   fused log-mel front end (``ops.mel_kernel``), whose CUDA kernel for Hopper
-  (``csrc/mel_kernel.cu``) replaces the Pallas TPU kernel;
+  (``csrc/mel_kernel.cu``) replaces the Pallas TPU kernel, and the probe
+  variants of it on the tensor cores (``ops.mel_probe``,
+  ``csrc/mel_probe_kernel.cu``);
 - ``models``: MN (MobileNetV3) in NCHW with the upstream checkpoint key
   names, its registry and the checkpoint loaders;
-- ``data.wavecodec``: device-side decode of f32 / int16 / mu-law uint8 waves;
-- ``infer.tag``: single-clip tagging (``Tagger``), and ``cli`` around it.
+- ``data``: audio I/O, wave transport (host encode, device decode), the
+  datasets and the loader;
+- ``infer.tag``: single-clip tagging (``Tagger``), and ``cli`` around it;
+- ``train``, ``parallel``: the train step, its tasks and data parallelism;
+- ``tools.probe_mel_kernel``: the probe of the fused log-mel variants.
 
-This package imports ``torch`` and never ``jax`` or ``flax``. From the JAX
-package it reuses only modules free of JAX: ``utils.common``,
-``utils.labels``, ``data.audio_io`` and ``data.wavecodec.encode``.
+This package imports ``torch`` and never ``jax``, ``flax`` or anything of
+the JAX package: the numpy host code it needs (``utils.common``,
+``utils.labels``, ``utils.logging``, ``utils.host`` and the ``data``
+modules) is its own copy.
 """
 
 __version__ = "0.1.0"

@@ -1,13 +1,11 @@
-"""Host-side audio I/O and wave transport.
+"""Host-side data: audio I/O, wave transport, datasets and the loader.
 
-Decoding files and encoding waves for transport are numpy code shared with
-the JAX package (``efficientat_tpu.data.audio_io`` and
-``efficientat_tpu.data.wavecodec.encode``, both free of JAX); the device-side
-decode is ``efficientat_tpu_torch.data.wavecodec.decode``.
+The numpy host code is the port's own copy of the JAX package's
+(``audio_io``, ``core``, ``hdf5``, ``native`` and the dataset modules);
+``wavecodec.decode`` is the device-side decode in PyTorch.
 """
 
-from efficientat_tpu.data.audio_io import load_waveform
-from efficientat_tpu.data.wavecodec import encode
-from efficientat_tpu_torch.data.wavecodec import decode
+from efficientat_tpu_torch.data.audio_io import load_waveform, resample
+from efficientat_tpu_torch.data.wavecodec import decode, encode
 
-__all__ = ["decode", "encode", "load_waveform"]
+__all__ = ["decode", "encode", "load_waveform", "resample"]

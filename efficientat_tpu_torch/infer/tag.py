@@ -15,11 +15,11 @@ from typing import List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from efficientat_tpu.utils.labels import AUDIOSET_LABELS
 from efficientat_tpu_torch.data.wavecodec import decode
 from efficientat_tpu_torch.models.mn import init_weights
 from efficientat_tpu_torch.models.registry import build_model, get_model_config
 from efficientat_tpu_torch.ops.mel_kernel import log_mel_spectrogram_fused
+from efficientat_tpu_torch.utils.labels import AUDIOSET_LABELS
 
 
 class Tagger:

@@ -19,7 +19,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from efficientat_tpu.utils.common import cnn_out_size, make_divisible
+from efficientat_tpu_torch.utils.common import cnn_out_size, make_divisible
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.01

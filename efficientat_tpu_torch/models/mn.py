@@ -16,7 +16,6 @@ from typing import List, Tuple
 import torch
 from torch import nn
 
-from efficientat_tpu.utils.common import cnn_out_size, make_divisible
 from efficientat_tpu_torch.models.layers import (
     BlockConfig,
     ConvNormAct,
@@ -25,6 +24,7 @@ from efficientat_tpu_torch.models.layers import (
     MlpHead,
     MultiHeadAttentionPooling,
 )
+from efficientat_tpu_torch.utils.common import cnn_out_size, make_divisible
 
 
 def mn_block_table(

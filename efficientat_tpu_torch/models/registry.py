@@ -10,9 +10,9 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-from efficientat_tpu.utils.common import NAME_TO_WIDTH
 from efficientat_tpu_torch.models.mn import MN, MNConfig
 from efficientat_tpu_torch.ops.melspec import MelConfig
+from efficientat_tpu_torch.utils.common import NAME_TO_WIDTH
 
 RELEASE_URL = "https://github.com/fschmid56/EfficientAT/releases/download/v0.0.1/"
 MODEL_DIR = "resources"

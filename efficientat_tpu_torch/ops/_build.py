@@ -36,23 +36,46 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def _lib_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` for sm_90a if needed and load it."""
+    return load_libraries([name])[name]
+
+
+def load_libraries(names) -> dict:
+    """``load_library`` for each of ``names``: the sources that need a build
+    compile side by side, one nvcc each, all started together."""
     with _LOCK:
-        if name in _LIBS:
-            return _LIBS[name]
-        src = CSRC / f"{name}.cu"
-        digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-        lib_path = BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
-        if not lib_path.exists():
+        builds = {}
+        for name in names:
+            if name in _LIBS:
+                continue
+            lib_path = _lib_path(name)
+            if lib_path.exists():
+                continue
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr}")
-            BUILD_LOG[name] = proc.stderr
-            os.replace(tmp, lib_path)
-        lib = ctypes.CDLL(str(lib_path))
-        _LIBS[name] = lib
-        return lib
+            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            builds[name] = (tmp, subprocess.Popen(
+                cmd, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True))
+        try:
+            for name, (tmp, proc) in builds.items():
+                _, err = proc.communicate()
+                if proc.returncode != 0:
+                    raise RuntimeError(f"nvcc failed for {CSRC / name}.cu:\n{err}")
+                BUILD_LOG[name] = err
+                os.replace(tmp, _lib_path(name))
+        finally:
+            for _, proc in builds.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        for name in names:
+            if name not in _LIBS:
+                _LIBS[name] = ctypes.CDLL(str(_lib_path(name)))
+        return {name: _LIBS[name] for name in names}

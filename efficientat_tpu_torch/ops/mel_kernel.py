@@ -65,14 +65,19 @@ def _folded_basis_no_nyquist(n_fft: int, win_length: int,
         [full[:, :n_freq - 1], full[:, n_freq:2 * n_freq - 1]], axis=1))
 
 
+def bf16_part(basis: np.ndarray, part: int) -> np.ndarray:
+    """The bf16 hi (``part`` 0) or lo (1) part of ``basis``, as fp32 numpy
+    holding bf16 values: hi + lo carries about 16 mantissa bits."""
+    full = torch.from_numpy(basis)
+    hi = full.to(torch.bfloat16).to(torch.float32)
+    out = hi if part == 0 else (full - hi).to(torch.bfloat16).to(torch.float32)
+    return out.numpy()
+
+
 @lru_cache(maxsize=8)
 def _folded_basis_split(n_fft: int, win_length: int, part: int) -> np.ndarray:
-    """The bf16 hi (``part`` 0) or lo (1) part of the folded basis, as fp32
-    numpy holding bf16 values: hi + lo carries about 16 mantissa bits."""
-    basis = torch.from_numpy(_folded_basis_no_nyquist(n_fft, win_length))
-    hi = basis.to(torch.bfloat16).to(torch.float32)
-    out = hi if part == 0 else (basis - hi).to(torch.bfloat16).to(torch.float32)
-    return out.numpy()
+    """``bf16_part`` of the folded basis."""
+    return bf16_part(_folded_basis_no_nyquist(n_fft, win_length), part)
 
 
 def _edge_frames_logmel(wave: torch.Tensor, banks: torch.Tensor,

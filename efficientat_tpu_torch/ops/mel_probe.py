@@ -1,0 +1,265 @@
+"""Probe variants P1-P3 of the fused log-mel (port of scripts/probe_mel_kernel.py).
+
+Each variant computes K1's function (``ops.mel_kernel``), frames x windowed
+rDFT basis (no Nyquist bin) -> power -> x banks^T -> ``(log(x + 1e-5) + 4.5)
+/ 5``, with the DFT as bf16 products summed in fp32: the frames are split
+into bf16 hi/lo inside the kernel, the basis hi/lo is made here, once.
+
+- P1, ``variant_mel``: ``folded=False`` takes the pre-emphasised,
+  reflect-padded wave and the plain windowed basis; ``folded=True`` the raw
+  wave behind a zero pad and the pre-emphasis-folded basis, with the frames
+  that reach the reflect pad patched afterwards. ``frame_tile`` frames a
+  block, a multiple of 64.
+- P2, ``variant_mel_dma``: P1 folded, with each 64-frame sub-tile's wave
+  segment copied into shared memory by ``cp.async``. ``sub64`` only shaped
+  the TPU's copies; both values launch the same kernel.
+- P3, ``variant_mel_e``: P1 folded at hop 320 and 128-frame tiles, with
+  ``passes`` 3 (fh*bhi + fh*blo + fl*bhi), 21 (fh*bhi + fl*bhi) or 22
+  (fh*bhi + fh*blo). The TPU's even/odd frame assembly has no counterpart.
+
+On a CPU tensor each wrapper runs its plain version (``variant_mel_plain``,
+``variant_mel_dma_plain``, ``variant_mel_e_plain``): the same splits and
+passes as fp32 GEMMs of bf16-valued operands, then power, the fp32 mel GEMM,
+the log and the edge patch. On a CUDA tensor it launches its kernel
+(``csrc/mel_probe_kernel.cu``) or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from functools import lru_cache
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from efficientat_tpu_torch.ops.mel_kernel import (
+    MIN_SAMPLES,
+    _folded_basis_split,
+    _patch_edges,
+    bf16_part,
+)
+from efficientat_tpu_torch.ops.melspec import (
+    MelConfig,
+    _dft_basis,
+    device_const,
+    frame_signal,
+    preemphasis,
+    true_fp32,
+)
+
+PASSES = (3, 21, 22)
+SUB_TILE = 64  # frames a block computes at a time; frame tiles are multiples
+MAX_MELS = 128
+# P2 stages a sub-tile's wave segment, 63 * hop + 1024 samples, in shared
+# memory: up to this hop it fits beside the power and banks tiles
+MAX_STAGED_HOP = 768
+P3_HOP = 320
+
+# each kernel's launches in this process; a run resets them to 0 and reads them after
+LAUNCHES_P1 = 0
+LAUNCHES_P2 = 0
+LAUNCHES_P3 = 0
+
+
+@lru_cache(maxsize=8)
+def _basis_no_nyquist(n_fft: int, win_length: int) -> np.ndarray:
+    """(n_fft, n_fft) = [cos | sin] windowed basis, Nyquist bin dropped
+    (port of ``mel_pallas._basis_no_nyquist``)."""
+    full = _dft_basis(n_fft, win_length)
+    n_freq = n_fft // 2 + 1
+    return np.ascontiguousarray(np.concatenate(
+        [full[:, :n_freq - 1], full[:, n_freq:2 * n_freq - 1]], axis=1))
+
+
+@lru_cache(maxsize=8)
+def _basis_split(n_fft: int, win_length: int, part: int) -> np.ndarray:
+    """``bf16_part`` of the unfolded basis."""
+    return bf16_part(_basis_no_nyquist(n_fft, win_length), part)
+
+
+@lru_cache(maxsize=8)
+def _kernel_basis(n_fft: int, win_length: int, folded: bool,
+                  part: int) -> np.ndarray:
+    """The kernel's basis operand: a part of the split transposed to
+    (columns, samples), so that a thread reads 8 samples of one column as
+    one 16-byte load."""
+    split = _folded_basis_split if folded else _basis_split
+    return np.ascontiguousarray(split(n_fft, win_length, part).T)
+
+
+def _check_args(wave: torch.Tensor, banks: torch.Tensor, cfg: MelConfig,
+                frame_tile: int, passes: int = 3, max_hop: int | None = None,
+                hop: int | None = None) -> None:
+    if cfg.n_fft != 1024 or cfg.hopsize < SUB_TILE or cfg.hopsize % SUB_TILE:
+        raise ValueError("the probe kernels take n_fft 1024 and a hop that is "
+                         f"a multiple of {SUB_TILE}, got {cfg}")
+    if hop is not None and cfg.hopsize != hop:
+        raise ValueError(f"this variant takes hop {hop}, got {cfg.hopsize}")
+    if max_hop is not None and cfg.hopsize > max_hop:
+        raise ValueError(f"this variant takes a hop up to {max_hop}, got "
+                         f"{cfg.hopsize}")
+    if passes not in PASSES:
+        raise ValueError(f"passes must be one of {PASSES}, got {passes!r}")
+    if frame_tile < SUB_TILE or frame_tile % SUB_TILE:
+        raise ValueError(f"frame_tile must be a multiple of {SUB_TILE}, got "
+                         f"{frame_tile}")
+    if wave.dim() != 2 or wave.shape[1] < MIN_SAMPLES:
+        raise ValueError(f"the probe kernels take (B, S >= {MIN_SAMPLES}) "
+                         f"waves, got {tuple(wave.shape)}")
+    if banks.shape != (cfg.n_mels, cfg.n_freqs) or cfg.n_mels > MAX_MELS:
+        raise ValueError(f"banks must be {(cfg.n_mels, cfg.n_freqs)} with at "
+                         f"most {MAX_MELS} mels, got {tuple(banks.shape)}")
+
+
+def _plain(wave: torch.Tensor, banks: torch.Tensor, cfg: MelConfig,
+           folded: bool, passes: int) -> torch.Tensor:
+    """The probe function in plain PyTorch: (B, S) f32 -> (B, n_mels, n_frames)."""
+    n_fft, hop = cfg.n_fft, cfg.hopsize
+    n_bins = n_fft // 2
+    n_frames = cfg.num_frames(wave.shape[1])
+    device = str(wave.device)
+    if folded:
+        frames = frame_signal(wave, n_fft, hop, n_frames, pad_mode="constant")
+    else:
+        frames = frame_signal(preemphasis(wave), n_fft, hop, n_frames)
+    split = _folded_basis_split if folded else _basis_split
+    bhi, blo = (device_const(split, (n_fft, cfg.win_length, p), device)
+                for p in (0, 1))
+    with true_fp32():
+        fh = frames.to(torch.bfloat16).to(torch.float32)
+        if passes == 22:
+            proj = fh @ bhi + fh @ blo
+        else:
+            fl = (frames - fh).to(torch.bfloat16).to(torch.float32)
+            proj = fh @ bhi + ((fh @ blo + fl @ bhi) if passes == 3
+                               else fl @ bhi)
+        power = proj[..., :n_bins] ** 2 + proj[..., n_bins:] ** 2
+        mel = power @ banks[:, :n_bins].t()
+    out = ((torch.log(mel + 1e-5) + 4.5) / 5.0).transpose(1, 2).contiguous()
+    return _patch_edges(out, wave, banks, cfg) if folded else out
+
+
+def _frame_rows(wave: torch.Tensor, cfg: MelConfig, n_frames: int,
+                folded: bool) -> torch.Tensor:
+    """The rows the kernel cuts its frames from, frame i at ``hop * i``:
+    the raw wave behind an ``n_fft // 2`` zero pad (folded), or the
+    pre-emphasised wave with the reflect pad (not). Zero-padded to hold
+    every frame of the last 64-frame sub-tile, to a multiple of 64 samples
+    (16-byte aligned rows)."""
+    pad = cfg.n_fft // 2
+    if folded:
+        src, lead = wave, pad
+    else:
+        src, lead = F.pad(preemphasis(wave), (pad, pad), mode="reflect"), 0
+    sub_frames = -(-n_frames // SUB_TILE) * SUB_TILE
+    need = max(cfg.hopsize * (sub_frames - 1) + cfg.n_fft, lead + src.shape[1])
+    row_len = -(-need // 64) * 64
+    return F.pad(src, (lead, row_len - lead - src.shape[1])).contiguous()
+
+
+def _launch(entry: str, wave: torch.Tensor, banks: torch.Tensor,
+            cfg: MelConfig, folded: bool, tile_or_passes: int) -> torch.Tensor:
+    """Launch ``entry`` of the probe library on a CUDA wave; returns the
+    kernel's output, before any edge patch."""
+    if wave.device.type != "cuda":
+        raise ValueError(f"the probe kernels run on CUDA tensors, got {wave.device}")
+    if wave.dtype != torch.float32 or not wave.is_contiguous():
+        raise ValueError("the probe kernels take a contiguous float32 wave, got "
+                         f"{wave.dtype}, contiguous={wave.is_contiguous()}")
+    if banks.device != wave.device or banks.dtype != torch.float32:
+        raise ValueError("banks must be float32 on the wave's device")
+    from efficientat_tpu_torch.ops._build import load_library
+
+    lib = _bind(load_library("mel_probe_kernel"))
+    n_fft, hop = cfg.n_fft, cfg.hopsize
+    batch, n_samples = wave.shape
+    n_frames = cfg.num_frames(n_samples)
+    device = str(wave.device)
+    rows = _frame_rows(wave, cfg, n_frames, folded)
+    bhi, blo = (device_const(_kernel_basis, (n_fft, cfg.win_length, folded, p),
+                             device, torch.bfloat16) for p in (0, 1))
+    banks_t = banks[:, :n_fft // 2].t().contiguous()
+    out = torch.empty((batch, cfg.n_mels, n_frames), device=wave.device,
+                      dtype=torch.float32)
+    stream = torch.cuda.current_stream(wave.device).cuda_stream
+    err = getattr(lib, entry)(rows.data_ptr(), batch, rows.shape[1], hop,
+                              n_frames, tile_or_passes, bhi.data_ptr(),
+                              blo.data_ptr(), banks_t.data_ptr(), cfg.n_mels,
+                              out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"{entry} launch failed: "
+                           + lib.eat_probe_error_string(err).decode())
+    return out
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for entry in ("eat_probe_p1", "eat_probe_p2", "eat_probe_p3"):
+        fn = getattr(lib, entry)
+        fn.argtypes = [p, i, i, i, i, i, p, p, p, i, p, p]
+        fn.restype = i
+    lib.eat_probe_error_string.argtypes = [i]
+    lib.eat_probe_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def variant_mel_plain(wave: torch.Tensor, banks: torch.Tensor, cfg: MelConfig,
+                      frame_tile: int = 128, folded: bool = False) -> torch.Tensor:
+    """P1's function in plain PyTorch (``frame_tile`` does not change it)."""
+    _check_args(wave, banks, cfg, frame_tile)
+    return _plain(wave, banks, cfg, folded, 3)
+
+
+def variant_mel(wave: torch.Tensor, banks: torch.Tensor, cfg: MelConfig,
+                frame_tile: int = 128, folded: bool = False) -> torch.Tensor:
+    """P1: (B, S) f32 -> (B, n_mels, n_frames), the probe's ``variant_mel``.
+    Launches its kernel on a CUDA tensor; the plain version on a CPU one."""
+    global LAUNCHES_P1
+    if wave.device.type == "cpu":
+        return variant_mel_plain(wave, banks, cfg, frame_tile, folded)
+    _check_args(wave, banks, cfg, frame_tile)
+    out = _launch("eat_probe_p1", wave, banks, cfg, folded, frame_tile)
+    LAUNCHES_P1 += 1
+    return _patch_edges(out, wave, banks, cfg) if folded else out
+
+
+def variant_mel_dma_plain(wave: torch.Tensor, banks: torch.Tensor,
+                          cfg: MelConfig, frame_tile: int = 128,
+                          sub64: bool = False) -> torch.Tensor:
+    """P2's function in plain PyTorch: P1 folded's."""
+    _check_args(wave, banks, cfg, frame_tile, max_hop=MAX_STAGED_HOP)
+    return _plain(wave, banks, cfg, True, 3)
+
+
+def variant_mel_dma(wave: torch.Tensor, banks: torch.Tensor, cfg: MelConfig,
+                    frame_tile: int = 128, sub64: bool = False) -> torch.Tensor:
+    """P2: P1 folded with each sub-tile's wave segment staged in shared
+    memory by ``cp.async``; ``sub64`` launches the same kernel."""
+    global LAUNCHES_P2
+    if wave.device.type == "cpu":
+        return variant_mel_dma_plain(wave, banks, cfg, frame_tile, sub64)
+    _check_args(wave, banks, cfg, frame_tile, max_hop=MAX_STAGED_HOP)
+    out = _launch("eat_probe_p2", wave, banks, cfg, True, frame_tile)
+    LAUNCHES_P2 += 1
+    return _patch_edges(out, wave, banks, cfg)
+
+
+def variant_mel_e_plain(wave: torch.Tensor, banks: torch.Tensor,
+                        cfg: MelConfig, passes: int = 3) -> torch.Tensor:
+    """P3's function in plain PyTorch."""
+    _check_args(wave, banks, cfg, 128, passes, hop=P3_HOP)
+    return _plain(wave, banks, cfg, True, passes)
+
+
+def variant_mel_e(wave: torch.Tensor, banks: torch.Tensor, cfg: MelConfig,
+                  passes: int = 3) -> torch.Tensor:
+    """P3: P1 folded at hop 320 and 128-frame tiles, with 3, 21 or 22
+    passes (see the module docstring)."""
+    global LAUNCHES_P3
+    if wave.device.type == "cpu":
+        return variant_mel_e_plain(wave, banks, cfg, passes)
+    _check_args(wave, banks, cfg, 128, passes, hop=P3_HOP)
+    out = _launch("eat_probe_p3", wave, banks, cfg, True, passes)
+    LAUNCHES_P3 += 1
+    return _patch_edges(out, wave, banks, cfg)

@@ -204,8 +204,7 @@ def run_train(task_name: str, argv):
     ``TrainResult``, or the eval metrics with ``--eval_only``."""
     import torch.distributed as dist
 
-    from efficientat_tpu.data.core import Loader, SequentialSampler
-    from efficientat_tpu.utils.logging import MetricsLogger
+    from efficientat_tpu_torch.data.core import Loader, SequentialSampler
     from efficientat_tpu_torch.parallel import ddp
     from efficientat_tpu_torch.train.loop import (
         LossConfig, StepRandom, make_optimizer, train_step,
@@ -217,6 +216,7 @@ def run_train(task_name: str, argv):
     from efficientat_tpu_torch.utils.checkpointing import (
         export_weights, load_weights, restore_checkpoint, save_checkpoint,
     )
+    from efficientat_tpu_torch.utils.logging import MetricsLogger
 
     spec = TASKS[task_name]
     args = _build_parser(spec).parse_args(argv)

@@ -9,8 +9,9 @@ expressed as one registry instead of five copy-pasted scripts.
 exact target structure, so every training path can run end-to-end on a
 machine without the real data; ``--clip_seconds`` shortens its clips.
 
-The dataset modules are the JAX package's own (``efficientat_tpu.data.*``,
-numpy and h5py only), imported when a task needs them.
+The dataset modules are the port's copies of the JAX package's
+(``efficientat_tpu_torch.data.*``, numpy and h5py only), imported when a
+task needs them.
 ``--variable_eval_length`` (FSD50K's exact-length eval) needs the model's
 ``time_valid`` masking, which is not ported yet, and raises.
 """
@@ -22,7 +23,7 @@ from typing import Dict, Optional
 
 import numpy as np
 
-from efficientat_tpu.data.core import Dataset
+from efficientat_tpu_torch.data.core import Dataset
 
 
 @dataclasses.dataclass(frozen=True)
@@ -175,7 +176,7 @@ def build_datasets(spec: TaskSpec, args, eval_only: bool = False):
 
     d = getattr(args, "dataset_dir", None)
     if spec.name == "audioset":
-        from efficientat_tpu.data import audioset as m
+        from efficientat_tpu_torch.data import audioset as m
 
         if eval_only:
             return None, None, m.get_test_set(d, args.resample_rate)
@@ -190,7 +191,7 @@ def build_datasets(spec: TaskSpec, args, eval_only: bool = False):
                          "datasets (audioset/fsd50k/openmic); esc50/dcase20 "
                          "load wav/csv sources host-side")
     if spec.name == "esc50":
-        from efficientat_tpu.data import esc50 as m
+        from efficientat_tpu_torch.data import esc50 as m
 
         return (None if eval_only else
                 m.get_training_set(d, args.resample_rate, not args.no_roll,
@@ -198,7 +199,7 @@ def build_datasets(spec: TaskSpec, args, eval_only: bool = False):
                                    args.fold),
                 None, m.get_test_set(d, args.resample_rate, args.fold))
     if spec.name == "fsd50k":
-        from efficientat_tpu.data import fsd50k as m
+        from efficientat_tpu_torch.data import fsd50k as m
 
         held_out = m.get_eval_set if split == "eval" else m.get_valid_set
         return (None if eval_only else
@@ -208,7 +209,7 @@ def build_datasets(spec: TaskSpec, args, eval_only: bool = False):
                 None,
                 held_out(d, args.resample_rate, args.variable_eval_length))
     if spec.name == "dcase20":
-        from efficientat_tpu.data import dcase20 as m
+        from efficientat_tpu_torch.data import dcase20 as m
 
         return (None if eval_only else
                 m.get_training_set(d, args.cache_path, args.resample_rate,
@@ -216,7 +217,7 @@ def build_datasets(spec: TaskSpec, args, eval_only: bool = False):
                                    not args.no_wavmix),
                 None, m.get_test_set(d, args.cache_path, args.resample_rate))
     if spec.name == "openmic":
-        from efficientat_tpu.data import openmic as m
+        from efficientat_tpu_torch.data import openmic as m
 
         return (None if eval_only else
                 m.get_training_set(d, args.resample_rate, not args.no_roll,
