@@ -7,14 +7,17 @@ Drives the port's main path, single-clip tagging with ``mn10_as`` through
 seeded random weights, in phases that each print a line:
 
 1. device: the card, its power limit, the TF32 flags (off for parity);
-2. build: K1 (``efficientat_tpu_torch/csrc/mel_kernel.cu``) with nvcc;
+2. build: K1 (``efficientat_tpu_torch/csrc/mel_kernel.cu``) with nvcc, and
+   its ptxas registers and spills;
 3. K1 against its plain PyTorch version and a float64 oracle on the
-   selftest waves, hop 320 and 640, fp32 and bf16x3;
+   selftest waves, hop 320 and 640, fp32 and bf16x3; and a control: K1
+   bf16x3 on banks rounded to bf16 must miss the kernel-vs-plain bound;
 4. the slice: a B=64 batch of 10 s clips (the demo clip and seeded
    variants) as f32, int16 and mu-law uint8; K1 must have been launched,
    and the card's probs must agree with the CPU's;
 5. times at B=64: K1 against its plain version, the model alone, and the
-   whole pipeline in clips/s.
+   whole pipeline in clips/s; the pipeline's device time by kernel group
+   (``torch.profiler``).
 
 and the training path, ``train audioset`` (KD, mixup, fmin/fmax jitter):
 
@@ -27,8 +30,8 @@ and the training path, ``train audioset`` (KD, mixup, fmin/fmax jitter):
    running K1 on its rows and one DDP step, against one process; then
    ``train audioset`` on the two ranks as ``torchrun --nproc_per_node 2``
    starts it, K1-dp at every step;
-9. the train step's time at B=120 and its split into mel, forward+backward
-   and optimizer;
+9. the train step's time at B=120, its split into mel, forward+backward
+   and optimizer, and its device time by kernel group;
 
 and the probe path, the tensor-core variants P1-P3 of the fused log-mel
 (``efficientat_tpu_torch/csrc/mel_probe_kernel.cu``):
@@ -50,6 +53,7 @@ import dataclasses
 import json
 import multiprocessing
 import os
+import re
 import shutil
 import socket
 import statistics
@@ -105,10 +109,11 @@ SR = 32000
 CLIP = 10 * SR
 BATCH = 64
 DEMO = os.path.join(HERE, "assets", "demo_scene.wav")
-# K1 against its plain version: fp32 sums in another order (4 frames x 1024
-# FMAs a thread against cuBLAS), bf16x3 adds the split's rounding; both then
-# pass through the log near the 1e-5 floor
-TOL_KERNEL_VS_PLAIN = {"fp32": 1e-4, "bf16x3": 2e-3}
+# K1 against its plain version: the same products (fp32, or exact bf16 x
+# bf16 ones on the tensor cores), fp32 sums in another order, then the log
+# near the 1e-5 floor. bf16x3 shares the probe kernels' bound (see
+# TOL_PROBE_VS_PLAIN); phase 3 checks that banks rounded to bf16 miss it
+TOL_KERNEL_VS_PLAIN = {"fp32": 1e-4, "bf16x3": 1e-4}
 # against the float64 oracle: the bounds of the JAX package's bench selftest
 TOL_VS_ORACLE = {"fp32": 1e-4, "bf16x3": 2e-2}
 TOL_MELSPEC_VS_ORACLE = 2e-4
@@ -183,6 +188,15 @@ PROBE_ROW = {"P1": "folded_t128", "P2": "t128", "P3": "passes3"}
 # H100 SXM dense peaks (NVIDIA's data sheet): bf16 tensor cores, fp32 CUDA
 # cores, HBM3
 PEAK_BF16, PEAK_FP32, PEAK_BYTES = 989e12, 67e12, 3.35e12
+# the groups of device_profile: kernel-name fragments, the first match wins
+KERNEL_GROUPS = (
+    ("k1", ("mel_kernel",)),
+    ("batchnorm", ("bn_", "batch_norm", "batchnorm")),
+    ("depthwise_conv", ("conv_depthwise",)),
+    ("dense_conv", ("conv", "xmma", "implicit", "cudnn", "wgrad")),
+    ("copy", ("memcpy", "memset")),
+    ("elementwise", ("elementwise",)),
+)
 
 
 def phase(tag, /, **fields):
@@ -193,6 +207,44 @@ def phase(tag, /, **fields):
 def check(ok, what):
     if not ok:
         raise AssertionError(what)
+
+
+def device_profile(fn, calls=3):
+    """Device time of ``fn``, from ``torch.profiler``'s kernel and copy rows
+    over ``calls`` calls after a warm-up: ms a call by group of
+    KERNEL_GROUPS (the rest under "other"), the busy ms a call (the union of
+    the rows) and the idle share of the span from the first row's start to
+    the last one's end."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = sorted((e.time_range.start, e.time_range.end, e.name)
+                  for e in prof.events() if e.device_type == DeviceType.CUDA)
+    check(rows, "the profiler saw no device time")
+    ms = dict.fromkeys([g for g, _ in KERNEL_GROUPS] + ["other"], 0.0)
+    other = {}
+    busy, reach = 0.0, float("-inf")
+    for start, end, name in rows:
+        group = next((g for g, keys in KERNEL_GROUPS
+                      if any(k in name.lower() for k in keys)), "other")
+        ms[group] += (end - start) / 1e3 / calls
+        if group == "other":
+            key = name[:48]
+            other[key] = other.get(key, 0.0) + (end - start) / 1e3 / calls
+        if end > reach:
+            busy += end - max(start, reach)
+            reach = end
+    span = reach - rows[0][0]
+    return {"busy_ms": busy / 1e3 / calls, "idle_share": 1 - busy / span,
+            "rows_a_call": len(rows) / calls,
+            **{f"{g}_ms": v for g, v in ms.items()},
+            "other_top": json.dumps(sorted(other.items(), key=lambda kv: -kv[1])[:4])}
 
 
 def selftest_waves():
@@ -641,6 +693,8 @@ def phase_train_times(device, card):
               mel_ms=mel_ms, forward_backward_ms=fb_ms, optimizer_ms=opt_ms,
               rest_ms=step_ms - mel_ms - fb_ms - opt_ms, peak_gb=peak_gb,
               tf32=False, card=repr(card))
+        phase("train_profile", model="mn10_as", batch=TRAIN_BATCH, bf16=bf16,
+              **device_profile(step), card=repr(card))
 
 
 # ---------------------------------------------------------------- the probe
@@ -841,8 +895,13 @@ def main():
     # 2. build: every kernel source at once, one nvcc each
     t0 = time.perf_counter()
     _build.load_libraries(["mel_kernel", "mel_probe_kernel"])
-    regs = [ln.split(":", 1)[1].strip() for ln in
-            _build.BUILD_LOG.get("mel_kernel", "").splitlines() if "registers" in ln]
+    regs = []  # each kernel's name, then its spill and register lines
+    for ln in _build.BUILD_LOG.get("mel_kernel", "").splitlines():
+        kernel = re.search(r"(mel_kernel_(?:tc|fp32))(?:ILi(\d+)E)?", ln)
+        if "Compiling entry function" in ln and kernel:
+            regs.append(kernel[1] + (f"<{kernel[2]}>" if kernel[2] else ""))
+        elif "registers" in ln or "spill" in ln:
+            regs.append(ln.split(":", 1)[-1].strip())
     phase("build", source="efficientat_tpu_torch/csrc/mel_kernel.cu",
           arch="sm_90a", seconds=f"{time.perf_counter() - t0:.2f}",
           ptxas=repr(regs))
@@ -871,6 +930,13 @@ def main():
                   vs_oracle=dev_oracle, bound_oracle=TOL_VS_ORACLE[prec])
             check(dev_plain <= TOL_KERNEL_VS_PLAIN[prec], f"K1 {prec} vs plain")
             check(dev_oracle < TOL_VS_ORACLE[prec], f"K1 {prec} vs oracle")
+        # the control: what a bf16 mel product does to one of its operands
+        control = float((mel_kernel.stft_log_mel(wd, banks.bfloat16().float(), cfg)
+                         - mel_kernel.stft_log_mel_plain(wd, banks, cfg)).abs().max())
+        phase("k1_control", hop=hop, precision="bf16x3", bf16_banks_vs_plain=control,
+              bound_plain=TOL_KERNEL_VS_PLAIN["bf16x3"])
+        check(control > TOL_KERNEL_VS_PLAIN["bf16x3"],
+              f"K1 on bf16 banks passes the kernel bound: {control}")
 
     # 4. the slice, through the entry point a user calls
     batch = slice_batch()
@@ -936,6 +1002,14 @@ def main():
         phase("k1_time", precision=prec, batch=BATCH,
               kernel_ms=runs["kernel"], plain_ms=runs["plain"], max_abs=err,
               card=repr(card))
+    # the parts of a K1 bf16x3 call around the kernel: the copy of the wave
+    # into the kernel's rows, and the reflect-pad edge frames' patch
+    n_frames = cfg.num_frames(CLIP)
+    out = torch.empty((BATCH, cfg.n_mels, n_frames), device=device)
+    phase("k1_wrapper", batch=BATCH,
+          frame_rows_ms=median_ms(lambda: mel_kernel._frame_rows(xb, cfg, n_frames)),
+          patch_edges_ms=median_ms(lambda: mel_kernel._patch_edges(out, xb, banks, cfg)),
+          card=repr(card))
     with torch.inference_mode():
         mel = mel_kernel.stft_log_mel(xb, banks, cfg)[:, None]
         model_ms = median_ms(lambda: tagger.members[0](mel))
@@ -943,6 +1017,8 @@ def main():
     phase("slice_time", model="mn10_as", batch=BATCH, dft_precision="bf16x3",
           model_ms=model_ms, pipeline_ms=pipe_ms,
           clips_per_s=BATCH / pipe_ms * 1e3, card=repr(card))
+    phase("slice_profile", model="mn10_as", batch=BATCH, dft_precision="bf16x3",
+          **device_profile(lambda: tagger.predict(batch)), card=repr(card))
 
     k_ms, plain_ms, err = times["bf16x3"]
     kernels = [{
@@ -956,7 +1032,7 @@ def main():
         "ms": k_ms,
         "plain_ms": plain_ms,
     }]
-    del tagger, pairs, xb, mel
+    del tagger, pairs, xb, mel, out
     torch.cuda.empty_cache()
 
     # 6-9. the training path

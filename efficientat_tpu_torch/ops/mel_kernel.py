@@ -1,11 +1,14 @@
 """Fused log-mel front end: host side of K1 (port of efficientat_tpu/ops/mel_pallas.py).
 
-K1 (``csrc/mel_kernel.cu``) computes, for each clip and each 64-frame tile,
+K1 (``csrc/mel_kernel.cu``) computes, for each clip and each tile of frames,
 frames of the raw wave x the pre-emphasis-folded windowed rDFT basis (no
 Nyquist bin) -> power -> x banks^T -> ``(log(x + 1e-5) + 4.5) / 5``, written
 as (B, n_mels, n_frames). The frames whose window reaches the reflect pad (at
 most 4 a clip) are recomputed here in plain PyTorch with the exact reference
-math and patched in, as the JAX wrapper does.
+math and patched in, as the JAX wrapper does. In bf16x3 K1 runs the DFT on
+the tensor cores: it takes the basis's bf16 hi/lo parts transposed to
+(columns, samples) (``_folded_basis_t``) and reads its frames from rows made
+here (``_frame_rows``): the wave behind a zero pad, 16-byte aligned.
 
 ``stft_log_mel`` launches K1 for a CUDA tensor and runs its plain PyTorch
 version, ``stft_log_mel_plain``, for a CPU tensor; nothing else chooses
@@ -24,6 +27,7 @@ from functools import lru_cache
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from efficientat_tpu_torch.ops.filterbank import kaldi_mel_banks
 from efficientat_tpu_torch.ops.melspec import (
@@ -44,6 +48,7 @@ from efficientat_tpu_torch.ops.melspec import (
 DFT_PRECISIONS = ("fp32", "bf16x3")
 # the edge patch reads 2 * n_fft-sample slivers from both ends of the clip
 MIN_SAMPLES = 4096
+MAX_MELS = 256  # K1's mel accumulators: 64 a thread, 64 or 128 frames a block
 
 # K1 launches in this process; a run resets it to 0 and reads it after
 LAUNCHES = 0
@@ -78,6 +83,24 @@ def bf16_part(basis: np.ndarray, part: int) -> np.ndarray:
 def _folded_basis_split(n_fft: int, win_length: int, part: int) -> np.ndarray:
     """``bf16_part`` of the folded basis."""
     return bf16_part(_folded_basis_no_nyquist(n_fft, win_length), part)
+
+
+@lru_cache(maxsize=8)
+def _folded_basis_t(n_fft: int, win_length: int, part: int) -> np.ndarray:
+    """K1 bf16x3's basis operand: ``_folded_basis_split`` transposed to
+    (columns, samples), so that a thread reads 8 samples of one column as
+    one 16-byte copy."""
+    return np.ascontiguousarray(_folded_basis_split(n_fft, win_length, part).T)
+
+
+def _frame_rows(wave: torch.Tensor, cfg: MelConfig, n_frames: int) -> torch.Tensor:
+    """K1 bf16x3's rows, frame i at ``hop * i``: the raw wave behind an
+    ``n_fft // 2`` zero pad, zero-padded to hold the last frame whole and to
+    a multiple of 4 samples (16-byte aligned rows). One copy of the wave."""
+    pad = cfg.n_fft // 2
+    need = max(cfg.hopsize * (n_frames - 1) + cfg.n_fft, pad + wave.shape[1])
+    row_len = -(-need // 4) * 4
+    return F.pad(wave, (pad, row_len - pad - wave.shape[1]))
 
 
 def _edge_frames_logmel(wave: torch.Tensor, banks: torch.Tensor,
@@ -174,6 +197,8 @@ def stft_log_mel(wave: torch.Tensor, banks: torch.Tensor, cfg: MelConfig,
                          f"{wave.dtype}, contiguous={wave.is_contiguous()}")
     if banks.device != wave.device or banks.dtype != torch.float32:
         raise ValueError("banks must be float32 on the wave's device")
+    if cfg.n_mels > MAX_MELS:
+        raise ValueError(f"K1 takes at most {MAX_MELS} mels, got {cfg.n_mels}")
     from efficientat_tpu_torch.ops._build import load_library
 
     lib = _bind(load_library("mel_kernel"))
@@ -185,17 +210,19 @@ def stft_log_mel(wave: torch.Tensor, banks: torch.Tensor, cfg: MelConfig,
     banks_t = banks[:, :n_bins].t().contiguous()
     bf16x3 = dft_precision == "bf16x3"
     if bf16x3:
-        bhi, blo = (device_const(_folded_basis_split, (n_fft, cfg.win_length, p),
+        x = _frame_rows(wave, cfg, n_frames)
+        bhi, blo = (device_const(_folded_basis_t, (n_fft, cfg.win_length, p),
                                  device, torch.bfloat16) for p in (0, 1))
-        basis = bhi  # unused by the bf16x3 instantiation
+        basis = bhi  # unused by the bf16x3 kernel
     else:
+        x = wave
         basis = device_const(_folded_basis_no_nyquist, (n_fft, cfg.win_length),
                              device)
-        bhi = blo = basis  # unused by the fp32 instantiation
+        bhi = blo = basis  # unused by the fp32 kernel
     out = torch.empty((batch, cfg.n_mels, n_frames), device=wave.device,
                       dtype=torch.float32)
     stream = torch.cuda.current_stream(wave.device).cuda_stream
-    err = lib.eat_mel_log(wave.data_ptr(), batch, n_samples, hop, n_frames,
+    err = lib.eat_mel_log(x.data_ptr(), batch, x.shape[1], hop, n_frames,
                           basis.data_ptr(), bhi.data_ptr(), blo.data_ptr(),
                           int(bf16x3), banks_t.data_ptr(), cfg.n_mels,
                           out.data_ptr(), stream)

@@ -16,6 +16,8 @@ from efficientat_tpu_torch.ops import mel_kernel
 from efficientat_tpu_torch.ops.filterbank import kaldi_mel_banks
 from efficientat_tpu_torch.ops.melspec import (
     MelConfig,
+    device_const,
+    frame_signal,
     log_mel_spectrogram,
     mel_oracle_f64,
 )
@@ -25,8 +27,11 @@ from efficientat_tpu_torch.ops.melspec import (
 ATOL_VS_PALLAS = {"fp32": 5e-5, "bf16x3": 2e-3}
 # against the float64 oracle: the bounds of the JAX package's bench selftest
 ATOL_VS_ORACLE = {"fp32": 1e-4, "bf16x3": 2e-2}
-# K1 against its plain version on the card (measured 2.4e-7 / 4.8e-7)
-ATOL_KERNEL_VS_PLAIN = {"fp32": 1e-4, "bf16x3": 2e-3}
+# K1 against its plain version on the card: the same products (fp32, or
+# exact bf16 x bf16 ones), fp32 sums in another order (fp32 measured 2.4e-7;
+# the tensor-core probe kernels, the same bf16x3 DFT, up to 1.01e-5). A
+# bf16 mel product moves the output by 7e-4 (test_kernel_bound_catches_bf16_banks)
+ATOL_KERNEL_VS_PLAIN = {"fp32": 1e-4, "bf16x3": 1e-4}
 
 
 @pytest.fixture(autouse=True)
@@ -158,6 +163,57 @@ def test_bases_match_jax():
     np.testing.assert_array_equal(mel_kernel._folded_basis_split(1024, 800, 1), lo)
 
 
+@pytest.mark.parametrize("part", [0, 1])
+def test_kernel_basis_is_the_split_transposed(part):
+    import jax.numpy as jnp
+
+    from efficientat_tpu.ops import mel_pallas
+
+    split = mel_kernel._folded_basis_split(1024, 800, part)
+    # the bf16 tensor the wrapper hands K1 bf16x3, made as on the card
+    handed = device_const(mel_kernel._folded_basis_t, (1024, 800, part), "cpu",
+                          torch.bfloat16)
+    assert handed.shape == (1024, 1024) and handed.is_contiguous()
+    np.testing.assert_array_equal(handed.float().numpy(), split.T)
+    basis = mel_pallas._folded_basis_no_nyquist(1024, 800)
+    hi = np.asarray(basis.astype(jnp.bfloat16), np.float32)
+    want = hi if part == 0 else np.asarray((basis - hi).astype(jnp.bfloat16),
+                                           np.float32)
+    np.testing.assert_array_equal(handed.float().numpy(), want.T)
+
+
+@pytest.mark.parametrize("hop", [320, 640])
+@pytest.mark.parametrize("n_samples", [4096, 32001, 320123])
+def test_frame_rows_hold_every_frame(n_samples, hop):
+    # K1 bf16x3 reads frame i at rows[:, hop * i]: the zero-padded frames of
+    # the plain version, in 16-byte aligned rows that hold the last frame
+    cfg = MelConfig(hopsize=hop)
+    wave = torch.from_numpy(_wave(2, n_samples, seed=n_samples))
+    n_frames = cfg.num_frames(n_samples)
+    rows = mel_kernel._frame_rows(wave, cfg, n_frames)
+    assert rows.is_contiguous() and rows.shape[1] % 4 == 0
+    assert rows.shape[1] >= hop * (n_frames - 1) + cfg.n_fft
+    want = frame_signal(wave, cfg.n_fft, hop, n_frames, pad_mode="constant")
+    torch.testing.assert_close(rows.unfold(1, cfg.n_fft, hop)[:, :n_frames], want,
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("hop", [320, 640])
+def test_kernel_bound_catches_bf16_banks(hop):
+    # a K1 whose mel product rounded the banks to bf16 must fail the bound
+    # that the card's K1 bf16x3 is held to, here and in chip_smoke.py
+    import chip_smoke
+
+    assert ATOL_KERNEL_VS_PLAIN == chip_smoke.TOL_KERNEL_VS_PLAIN
+    cfg = MelConfig(hopsize=hop)
+    wave = torch.from_numpy(_wave(2, 16000, seed=7))
+    banks = _banks(cfg)
+    want = mel_kernel.stft_log_mel_plain(wave, banks, cfg, "bf16x3")
+    got = mel_kernel.stft_log_mel_plain(wave, banks.bfloat16().float(), cfg,
+                                        "bf16x3")
+    assert (got - want).abs().max() > ATOL_KERNEL_VS_PLAIN["bf16x3"]
+
+
 @pytest.mark.parametrize("hop", [320, 640])
 def test_edge_frames_match_jax(hop):
     import jax.numpy as jnp
@@ -182,20 +238,28 @@ def test_edge_frames_match_jax(hop):
     np.testing.assert_allclose(got, want, rtol=0, atol=5e-5)
 
 
+# (batch, samples, hop, n_mels): 320123 samples make rows that are not a
+# multiple of 4 and 1001 / 501 frames, a ragged last tile of 128 or 64
+# frames; then one clip of the least length, and single, partly filled tiles
+CARD_CASES = ([(3, 320000 + 123, hop, n_mels) for hop in (320, 640)
+               for n_mels in (40, 64, 128, 256)]
+              + [(1, 4096, 320, 128), (1, 4096, 640, 256), (2, 40001, 320, 128),
+                 (2, 40001, 640, 256), (1, 4097, 320, 200)])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("precision", ["fp32", "bf16x3"])
-@pytest.mark.parametrize("hop,n_mels", [(320, 128), (640, 128), (320, 256),
-                                        (320, 40)])
-def test_kernel_matches_plain_on_card(hop, n_mels, precision):
+@pytest.mark.parametrize("batch,n_samples,hop,n_mels", CARD_CASES)
+def test_kernel_matches_plain_on_card(batch, n_samples, hop, n_mels, precision):
     cfg = MelConfig(hopsize=hop, n_mels=n_mels)
-    wave = torch.from_numpy(_wave(3, 320000 + 123, seed=5)).cuda()
+    wave = torch.from_numpy(_wave(batch, n_samples, seed=5)).cuda()
     banks = _banks(cfg, device="cuda")
     before = mel_kernel.LAUNCHES
     got = mel_kernel.stft_log_mel(wave, banks, cfg, precision)
     torch.cuda.synchronize()
     assert mel_kernel.LAUNCHES == before + 1
     want = mel_kernel.stft_log_mel_plain(wave, banks, cfg, precision)
-    assert got.shape == want.shape == (3, n_mels, cfg.num_frames(wave.shape[1]))
+    assert got.shape == want.shape == (batch, n_mels, cfg.num_frames(n_samples))
     torch.testing.assert_close(got, want, rtol=0,
                                atol=ATOL_KERNEL_VS_PLAIN[precision])
     oracle = mel_oracle_f64(wave.cpu().numpy(), cfg, banks.cpu().numpy())
@@ -213,3 +277,6 @@ def test_kernel_raises_on_wrong_input_on_card():
         mel_kernel.stft_log_mel(wave[:, ::2], banks, cfg, "fp32")
     with pytest.raises(ValueError):
         mel_kernel.stft_log_mel(wave, banks.cpu(), cfg, "fp32")
+    cfg = MelConfig(n_mels=mel_kernel.MAX_MELS + 1)
+    with pytest.raises(ValueError, match="mels"):
+        mel_kernel.stft_log_mel(wave, _banks(cfg, device="cuda"), cfg, "bf16x3")
