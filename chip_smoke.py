@@ -8,24 +8,28 @@ seeded random weights, in phases that each print a line:
 
 1. device: the card, its power limit, the TF32 flags (off for parity);
 2. build: K1 (``efficientat_tpu_torch/csrc/mel_kernel.cu``) with nvcc, and
-   its ptxas registers and spills;
+   the ptxas registers and spills of each of its kernels,
+   ``mel_kernel_tc<TILE, PARTS>`` (PARTS 2: bf16x3, 3: fp32);
 3. K1 against its plain PyTorch version and a float64 oracle on the
-   selftest waves, hop 320 and 640, fp32 and bf16x3; and a control: K1
-   bf16x3 on banks rounded to bf16 must miss the kernel-vs-plain bound;
+   selftest waves, hop 320 and 640, fp32 and bf16x3; and two controls that
+   must miss the kernel-vs-plain bound: K1 bf16x3 on banks rounded to bf16
+   against bf16x3's plain version, and K1 bf16x3 against fp32's;
 4. the slice: a B=64 batch of 10 s clips (the demo clip and seeded
    variants) as f32, int16 and mu-law uint8; K1 must have been launched,
-   and the card's probs must agree with the CPU's;
-5. times at B=64: K1 against its plain version, the model alone, and the
-   whole pipeline in clips/s; the pipeline's device time by kernel group
-   (``torch.profiler``).
+   and the card's probs must agree with the CPU's (Taggers with the DFT in
+   fp32, which must launch K1 fp32);
+5. times at B=64: K1 against its plain version in both precisions at 128
+   and 256 mels, the model alone, and the whole pipeline in clips/s; the
+   pipeline's device time by kernel group (``torch.profiler``).
 
 and the training path, ``train audioset`` (KD, mixup, fmin/fmax jitter):
 
 6. training-mode K1 at B=120, 10 s clips, with jittered banks and masks,
-   against its plain version on the same draws, and its time;
+   against its plain version on the same draws, and its time, both
+   precisions;
 7. ``run_train("audioset", ...)`` at full width, B=120, fp32 and --bf16:
    finite losses, K1 at every step, the export loads into the Tagger; then
-   one step on the card against the same step on the CPU;
+   one step on the card (K1 fp32) against the same step on the CPU;
 8. K1-dp and data parallelism: two ranks on this card over gloo, each
    running K1 on its rows and one DDP step, against one process; then
    ``train audioset`` on the two ranks as ``torchrun --nproc_per_node 2``
@@ -39,12 +43,14 @@ and the probe path, the tensor-core variants P1-P3 of the fused log-mel
 10. each variant against its plain version and the float64 oracle on the
     selftest waves; at B=64 of 10 s clips, each against its plain version
     in ms, beside ``gemm_ms``, cuBLAS's time for the DFT products alone on
-    pre-made frames (K1's rows get theirs too); then the entry point,
+    pre-made frames (K1's rows get theirs too: 3 bf16 products for bf16x3,
+    6 for fp32, beside fp32's SGEMM); then the entry point,
     ``tools.probe_mel_kernel.run("all", "cuda")``, must launch each kernel.
 
-Then one JSON line on the kernels, per path (tag, train, train_dp, probe), the
-card's ``nvidia-smi`` line and, last, ``{"ok": true, "device": {...}}``. Any
-failure raises and exits non-zero; nothing falls back to the CPU.
+Then one JSON line on the kernels, per path (tag, train, train_dp,
+tag_fp32, train_fp32, probe), the card's ``nvidia-smi`` line and, last,
+``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
+nothing falls back to the CPU.
 """
 
 from __future__ import annotations
@@ -93,7 +99,7 @@ from efficientat_tpu_torch.parallel.ddp import (  # noqa: E402
     DataParallel,
     convert_global_bn,
 )
-from efficientat_tpu_torch.tools import probe_mel_kernel  # noqa: E402
+from efficientat_tpu_torch.tools import probe_mel_kernel, time_k1  # noqa: E402
 from efficientat_tpu_torch.tools.probe_mel_kernel import median_ms  # noqa: E402
 from efficientat_tpu_torch.train.augment import apply_mixup  # noqa: E402
 from efficientat_tpu_torch.train.cli import run_train  # noqa: E402
@@ -109,10 +115,11 @@ SR = 32000
 CLIP = 10 * SR
 BATCH = 64
 DEMO = os.path.join(HERE, "assets", "demo_scene.wav")
-# K1 against its plain version: the same products (fp32, or exact bf16 x
-# bf16 ones on the tensor cores), fp32 sums in another order, then the log
-# near the 1e-5 floor. bf16x3 shares the probe kernels' bound (see
-# TOL_PROBE_VS_PLAIN); phase 3 checks that banks rounded to bf16 miss it
+# K1 against its plain version: exact bf16 x bf16 products on the tensor
+# cores, fp32 sums in another order (in fp32 six products of a three-part
+# split against one fp32 GEMM), then the log near the 1e-5 floor. bf16x3
+# shares the probe kernels' bound (see TOL_PROBE_VS_PLAIN); phase 3 checks
+# that banks rounded to bf16 miss it, and that K1 bf16x3 misses fp32's
 TOL_KERNEL_VS_PLAIN = {"fp32": 1e-4, "bf16x3": 1e-4}
 # against the float64 oracle: the bounds of the JAX package's bench selftest
 TOL_VS_ORACLE = {"fp32": 1e-4, "bf16x3": 2e-2}
@@ -185,6 +192,8 @@ PROBE_PLAIN = {mel_probe.variant_mel: mel_probe.variant_mel_plain,
                mel_probe.variant_mel_e: mel_probe.variant_mel_e_plain}
 # the variant of each kernel that stands for it in the kernels line
 PROBE_ROW = {"P1": "folded_t128", "P2": "t128", "P3": "passes3"}
+# K1's bf16 products by precision: parts i and j with i + j < parts
+DFT_PASSES = {prec: n * (n + 1) // 2 for prec, n in mel_kernel.PARTS.items()}
 # H100 SXM dense peaks (NVIDIA's data sheet): bf16 tensor cores, fp32 CUDA
 # cores, HBM3
 PEAK_BF16, PEAK_FP32, PEAK_BYTES = 989e12, 67e12, 3.35e12
@@ -207,6 +216,11 @@ def phase(tag, /, **fields):
 def check(ok, what):
     if not ok:
         raise AssertionError(what)
+
+
+def reset_k1_launches():
+    """Set K1's launch counts, both precisions, to 0."""
+    mel_kernel.LAUNCHES.update(dict.fromkeys(mel_kernel.LAUNCHES, 0))
 
 
 def device_profile(fn, calls=3):
@@ -341,7 +355,8 @@ def _step_model(sd, device):
 def run_step(sd, batch, draws, device, dp=None, dft_precision=None):
     """One ``train_step`` (Adam, the audioset preset's loss) from ``sd`` on
     ``batch`` (this rank's rows under ``dp``). Returns the loss, the model
-    input, the gradients and buffers (on the CPU) and the K1 launches."""
+    input, the gradients and buffers (on the CPU) and the K1 launches in
+    the step's precision."""
     mel_cfg, loss_cfg = audioset_configs()
     model = _step_model(sd, device)
     if dp is not None:
@@ -354,10 +369,10 @@ def run_step(sd, batch, draws, device, dp=None, dft_precision=None):
         model, device_ids=[device] if device.type == "cuda" else None)
     opt = make_optimizer(net.parameters(), 8e-4)
     tensors = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
-    mel_kernel.LAUNCHES = 0
+    reset_k1_launches()
     metrics = train_step(net, opt, None, mel_cfg, loss_cfg, tensors, draws,
                          dp=dp, dft_precision=dft_precision)
-    launches = mel_kernel.LAUNCHES
+    launches = mel_kernel.LAUNCHES[dft_precision or "bf16x3"]
     return {"loss": float(metrics["train_loss"]), "x": seen["x"],
             "launches": launches,
             "grads": {n: p.grad.detach().cpu() for n, p in model.named_parameters()},
@@ -419,7 +434,8 @@ def step_checks(tag, got, want, grads_want, **fields):
 def phase_train_k1(device, card):
     """6. Training-mode K1 at B=120, 10 s clips, ``MelConfig()``'s jitter
     and masks (freqm 48, timem 192), against its plain version on the same
-    draws; then K1 against plain in ms on the jittered banks."""
+    draws; then K1 against plain in ms on the jittered banks. Both
+    precisions; returns the kernels line's numbers of each."""
     cfg = MelConfig()
     waves = torch.from_numpy(train_waves(TRAIN_BATCH, seed=6)).to(device)
     draws = draw_mel_augment(cfg, TRAIN_BATCH, cfg.num_frames(CLIP),
@@ -429,11 +445,11 @@ def phase_train_k1(device, card):
     check(banks.is_cuda, "jittered banks were not built on the card")
     out = {}
     for prec in ("fp32", "bf16x3"):
-        before = mel_kernel.LAUNCHES
+        reset_k1_launches()
         got = mel_kernel.log_mel_spectrogram_fused(
             waves, cfg, training=True, draws=draws, dft_precision=prec)
         torch.cuda.synchronize()
-        launched = mel_kernel.LAUNCHES - before
+        launched = mel_kernel.LAUNCHES[prec]
         want = apply_masks(mel_kernel.stft_log_mel_plain(waves, banks, cfg, prec),
                            cfg, draws, 0.9)
         err = float((got - want).abs().max())
@@ -451,14 +467,16 @@ def phase_train_k1(device, card):
         check(err <= TOL_KERNEL_VS_PLAIN[prec], f"training-mode K1 {prec} vs plain")
         check(0.0 < masked < 0.5, "the masks wrote no cell, or too many")
         out[prec] = {"max_abs_err": err, "ms": statistics.mean(runs["kernel"]),
-                     "plain_ms": statistics.mean(runs["plain"])}
-    return out["bf16x3"]
+                     "plain_ms": statistics.mean(runs["plain"]),
+                     "launches": launched}
+    return out
 
 
 def phase_train(device):
     """7. ``train audioset`` through ``run_train`` on the card at full width,
     fp32 and --bf16; the export loads into the ``Tagger``; then one step
-    on the card against the same step on the CPU. Returns K1's launches."""
+    on the card against the same step on the CPU. Returns K1's launches,
+    bf16x3 in ``run_train`` and fp32 in the card's step."""
     work = os.path.join(HERE, "build", "chip_smoke")
     clips = 3 * TRAIN_BATCH
     eval_batches = -(-(clips // 2) // TRAIN_BATCH)  # synthetic eval: clips / 2
@@ -471,12 +489,12 @@ def phase_train(device):
                 "--ckpt_dir", os.path.join(work, f"ckpt_{name}"),
                 "--export", os.path.join(export_dir, get_model_config("mn10_as").file),
                 "--experiment_name", f"chip_smoke_train_{name}"]
-        mel_kernel.LAUNCHES = 0
+        reset_k1_launches()
         t0 = time.perf_counter()
         result = run_train("audioset", argv + (["--bf16"] if bf16 else []))
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = mel_kernel.LAUNCHES
+        launches = mel_kernel.LAUNCHES["bf16x3"]
         total += launches
         rec = result.history[-1]
         losses = {k: rec[k] for k in ("train_loss", "label_loss",
@@ -508,9 +526,9 @@ def phase_train(device):
                 grads_at(sd, on_card["x"], batch, draws.mixup, "cpu"),
                 clips=STEP_CLIPS, seconds=STEP_SAMPLES // SR, x_gap=x_gap,
                 bound_x=TOL_STEP_X, k1_launches=on_card["launches"])
-    check(on_card["launches"] == 1, "the card's step did not launch K1")
+    check(on_card["launches"] == 1, "the card's step did not launch K1 fp32")
     check(x_gap <= TOL_STEP_X, "model inputs of the card's and the CPU's steps")
-    return total
+    return total, on_card["launches"]
 
 
 def dp_mel_inputs(device):
@@ -538,14 +556,15 @@ def _dp_rank(rank, init, port, work, device):
         dp = DataParallel(rank, DP_WORLD, device)
         cfg, waves, banks = dp_mel_inputs(device)
         local = waves[dp.rows(DP_MEL_BATCH)].contiguous()
-        result = {"mel": mel_kernel.stft_log_mel_sharded(local, banks, cfg).cpu()}
+        result = {"mel": mel_kernel.stft_log_mel_sharded(local, banks, cfg,
+                                                         "bf16x3").cpu()}
         dist.barrier()
         if rank == 0:
             runs = {"plain": [], "kernel": []}
             for which in ("plain", "kernel", "kernel", "plain"):
                 fn = (mel_kernel.stft_log_mel_plain if which == "plain"
                       else mel_kernel.stft_log_mel_sharded)
-                runs[which].append(median_ms(lambda: fn(local, banks, cfg)))
+                runs[which].append(median_ms(lambda: fn(local, banks, cfg, "bf16x3")))
             result.update(ms=statistics.mean(runs["kernel"]),
                           plain_ms=statistics.mean(runs["plain"]))
         dist.barrier()
@@ -566,10 +585,10 @@ def _dp_rank(rank, init, port, work, device):
             "--num_workers", "4", "--device", device.type,
             "--ckpt_dir", os.path.join(work, "ckpt"),
             "--experiment_name", "chip_smoke_train_dp"]
-    mel_kernel.LAUNCHES = 0
+    reset_k1_launches()
     train = run_train("audioset", argv)
     torch.cuda.synchronize()
-    result["train"] = {"launches": mel_kernel.LAUNCHES, "steps": train.step,
+    result["train"] = {"launches": mel_kernel.LAUNCHES["bf16x3"], "steps": train.step,
                        "train_loss": train.history[-1]["train_loss"]}
     torch.save(result, os.path.join(work, f"rank{rank}.pt"))
 
@@ -608,7 +627,7 @@ def phase_train_dp(device):
              for r in range(DP_WORLD)]
 
     cfg, waves, banks = dp_mel_inputs(device)
-    whole = mel_kernel.stft_log_mel(waves, banks, cfg).cpu()
+    whole = mel_kernel.stft_log_mel(waves, banks, cfg, "bf16x3").cpu()
     err = float((torch.cat([r["mel"] for r in ranks]) - whole).abs().max())
     phase("train_dp_k1", backend="gloo", world=DP_WORLD, batch=DP_MEL_BATCH,
           max_abs_vs_one_process=err, bound=TOL_DP_VS_WHOLE,
@@ -702,8 +721,9 @@ def phase_train_times(device, card):
 def mel_bound_ms(batch, samples, n_mels, dft):
     """The least time of a log-mel call at hop 320 on the card, and what
     sets it: the DFT products (``dft`` bf16 passes at the tensor-core rate,
-    or "fp32" at the CUDA-core rate) plus the fp32 mel product, against the
-    wave read once and the output written once."""
+    6 for K1 fp32's split, or "fp32" at the CUDA-core rate, the bound of a
+    CUDA-core kernel) plus the fp32 mel product, against the wave read once
+    and the output written once."""
     frames = batch * ((samples - 1) // 320 + 1)
     dft_flop = frames * 1024 * 1024 * 2
     ops_s = (dft_flop / PEAK_FP32 if dft == "fp32"
@@ -734,7 +754,8 @@ def _bf16_gemm(a, b):
 def gemm_ms(device, batch, dft):
     """The cuBLAS yardstick of a log-mel call: the time of its DFT products
     alone, on frames made beforehand from ``batch`` 10 s clips at hop 320
-    (``dft`` bf16 products of the split operands, or one fp32 product)."""
+    (``dft`` bf16 products of the split operands, 3 or 6, or one fp32
+    product)."""
     waves = torch.from_numpy(train_waves(batch, seed=10)).to(device)
     frames = frame_signal(waves, 1024, 320, (CLIP - 1) // 320 + 1,
                           pad_mode="constant").reshape(-1, 1024)
@@ -744,11 +765,10 @@ def gemm_ms(device, batch, dft):
             with true_fp32():
                 return frames @ basis
     else:
-        fh = frames.to(torch.bfloat16)
-        fl = (frames - fh.float()).to(torch.bfloat16)
-        bh = basis.to(torch.bfloat16)
-        bl = (basis - bh.float()).to(torch.bfloat16)
-        pairs = {3: [(fh, bh), (fh, bl), (fl, bh)], 2: [(fh, bh), (fl, bh)]}[dft]
+        f, b = mel_kernel.bf16_split(frames, 3), mel_kernel.bf16_split(basis, 3)
+        pairs = {6: [(f[i], b[j]) for i in range(3) for j in range(3 - i)],
+                 3: [(f[0], b[0]), (f[0], b[1]), (f[1], b[0])],
+                 2: [(f[0], b[0]), (f[1], b[0])]}[dft]
 
         def products():
             return [_bf16_gemm(a, b) for a, b in pairs]
@@ -897,9 +917,9 @@ def main():
     _build.load_libraries(["mel_kernel", "mel_probe_kernel"])
     regs = []  # each kernel's name, then its spill and register lines
     for ln in _build.BUILD_LOG.get("mel_kernel", "").splitlines():
-        kernel = re.search(r"(mel_kernel_(?:tc|fp32))(?:ILi(\d+)E)?", ln)
+        kernel = re.search(r"mel_kernel_tcILi(\d+)ELi(\d+)E", ln)
         if "Compiling entry function" in ln and kernel:
-            regs.append(kernel[1] + (f"<{kernel[2]}>" if kernel[2] else ""))
+            regs.append(f"mel_kernel_tc<{kernel[1]},{kernel[2]}>")
         elif "registers" in ln or "spill" in ln:
             regs.append(ln.split(":", 1)[-1].strip())
     phase("build", source="efficientat_tpu_torch/csrc/mel_kernel.cu",
@@ -919,8 +939,9 @@ def main():
         phase("k1_selftest", hop=hop, path="melspec", vs_oracle=dev_melspec,
               bound=TOL_MELSPEC_VS_ORACLE)
         check(dev_melspec < TOL_MELSPEC_VS_ORACLE, "melspec path vs oracle")
+        k1 = {}
         for prec in ("fp32", "bf16x3"):
-            k = mel_kernel.stft_log_mel(wd, banks, cfg, prec)
+            k = k1[prec] = mel_kernel.stft_log_mel(wd, banks, cfg, prec)
             torch.cuda.synchronize()
             p = mel_kernel.stft_log_mel_plain(wd, banks, cfg, prec)
             dev_plain = float((k - p).abs().max())
@@ -930,22 +951,32 @@ def main():
                   vs_oracle=dev_oracle, bound_oracle=TOL_VS_ORACLE[prec])
             check(dev_plain <= TOL_KERNEL_VS_PLAIN[prec], f"K1 {prec} vs plain")
             check(dev_oracle < TOL_VS_ORACLE[prec], f"K1 {prec} vs oracle")
-        # the control: what a bf16 mel product does to one of its operands
-        control = float((mel_kernel.stft_log_mel(wd, banks.bfloat16().float(), cfg)
-                         - mel_kernel.stft_log_mel_plain(wd, banks, cfg)).abs().max())
+        # the controls: what a bf16 mel product does to one of its operands,
+        # and what bf16x3's three products do to fp32's six
+        control = float((mel_kernel.stft_log_mel(wd, banks.bfloat16().float(), cfg,
+                                                 "bf16x3")
+                         - mel_kernel.stft_log_mel_plain(wd, banks, cfg, "bf16x3"))
+                        .abs().max())
         phase("k1_control", hop=hop, precision="bf16x3", bf16_banks_vs_plain=control,
               bound_plain=TOL_KERNEL_VS_PLAIN["bf16x3"])
         check(control > TOL_KERNEL_VS_PLAIN["bf16x3"],
               f"K1 on bf16 banks passes the kernel bound: {control}")
+        control = float((k1["bf16x3"] - mel_kernel.stft_log_mel_plain(
+            wd, banks, cfg, "fp32")).abs().max())
+        phase("k1_control", hop=hop, precision="fp32", k1_bf16x3_vs_plain=control,
+              bound_plain=TOL_KERNEL_VS_PLAIN["fp32"])
+        check(control > TOL_KERNEL_VS_PLAIN["fp32"],
+              f"K1 bf16x3 passes K1 fp32's kernel bound: {control}")
+        del k1
 
     # 4. the slice, through the entry point a user calls
     batch = slice_batch()
     coded = {"f32": batch, "i16": encode(batch, "i16"),
              "mulaw8": encode(batch, "mulaw8")}
     tagger = Tagger("mn10_as", pretrained=False, device=device, seed=0)
-    mel_kernel.LAUNCHES = 0
+    reset_k1_launches()
     probs = {name: tagger.predict(w) for name, w in coded.items()}
-    launches = mel_kernel.LAUNCHES
+    launches = mel_kernel.LAUNCHES["bf16x3"]
     phase("slice", model="mn10_as", batch=BATCH, seconds=CLIP // SR,
           k1_launches=launches)
     check(launches >= len(coded), "the main path did not launch K1")
@@ -967,6 +998,7 @@ def main():
         "seeded_file": [Tagger("mn10_as", model_dir=model_dir, device=d,
                                dft_precision="fp32") for d in (device, "cpu")],
     }
+    reset_k1_launches()
     for weights, (on_card, on_cpu) in pairs.items():
         for name, w in coded.items():
             card_probs = on_card.predict(w[:4])
@@ -975,33 +1007,31 @@ def main():
                   max_abs=dev, bound=TOL_CARD_VS_CPU,
                   probs_std=float(card_probs.std()))
             check(dev <= TOL_CARD_VS_CPU, f"card vs CPU probs ({weights}, {name})")
+    slice_fp32_launches = mel_kernel.LAUNCHES["fp32"]
+    phase("slice_vs_cpu_k1", precision="fp32", k1_launches=slice_fp32_launches)
+    check(slice_fp32_launches == len(pairs) * len(coded),
+          "the card's fp32 Taggers did not launch K1 fp32 once a predict")
     top5 = pairs["seeded_file"][0].tag(DEMO, top_k=5)
     phase("slice_top5", clip="assets/demo_scene.wav", weights="seeded file",
           labels=json.dumps([(lab, round(p, 4)) for lab, p in top5]))
 
-    # 5. times at B=64, 10 s clips
+    # 5. K1 against its plain version in turns at B=64 of 10 s clips
+    # (tools.time_k1): the tagger's 128 mels (128-frame blocks) and 256
+    # (64-frame blocks, the widest bank of one launch)
     cfg = tagger.mel_cfg
+    times = {}
+    for n_mels in (cfg.n_mels, 2 * cfg.n_mels):
+        for prec in ("bf16x3", "fp32"):
+            rec = time_k1.time_k1(BATCH, n_mels, prec, turns=1)
+            check(rec["max_abs"] <= TOL_KERNEL_VS_PLAIN[prec],
+                  f"K1 {prec} vs plain at B={BATCH}, {n_mels} mels")
+            times[prec, n_mels] = (statistics.mean(rec["kernel_ms"]),
+                                   statistics.mean(rec["plain_ms"]), rec["max_abs"])
+            phase("k1_time", **rec, card=repr(card),
+                  bound_ms=mel_bound_ms(BATCH, CLIP, n_mels, DFT_PASSES[prec])[0])
     banks = kaldi_mel_banks(cfg.n_mels, cfg.n_fft, cfg.sr, cfg.fmin,
                             cfg.effective_fmax, device=device)
     xb = torch.from_numpy(batch).to(device)
-    times = {}
-    for prec in ("bf16x3", "fp32"):
-        k = mel_kernel.stft_log_mel(xb, banks, cfg, prec)
-        p = mel_kernel.stft_log_mel_plain(xb, banks, cfg, prec)
-        err = float((k - p).abs().max())
-        check(err <= TOL_KERNEL_VS_PLAIN[prec], f"K1 {prec} vs plain at B={BATCH}")
-        del k, p
-        # plain, kernel, kernel, plain: the two versions in turns
-        runs = {"plain": [], "kernel": []}
-        for which in ("plain", "kernel", "kernel", "plain"):
-            fn = (mel_kernel.stft_log_mel_plain if which == "plain"
-                  else mel_kernel.stft_log_mel)
-            runs[which].append(median_ms(lambda: fn(xb, banks, cfg, prec)))
-        times[prec] = (statistics.mean(runs["kernel"]),
-                       statistics.mean(runs["plain"]), err)
-        phase("k1_time", precision=prec, batch=BATCH,
-              kernel_ms=runs["kernel"], plain_ms=runs["plain"], max_abs=err,
-              card=repr(card))
     # the parts of a K1 bf16x3 call around the kernel: the copy of the wave
     # into the kernel's rows, and the reflect-pad edge frames' patch
     n_frames = cfg.num_frames(CLIP)
@@ -1011,7 +1041,7 @@ def main():
           patch_edges_ms=median_ms(lambda: mel_kernel._patch_edges(out, xb, banks, cfg)),
           card=repr(card))
     with torch.inference_mode():
-        mel = mel_kernel.stft_log_mel(xb, banks, cfg)[:, None]
+        mel = mel_kernel.stft_log_mel(xb, banks, cfg, "bf16x3")[:, None]
         model_ms = median_ms(lambda: tagger.members[0](mel))
     pipe_ms = median_ms(lambda: tagger.predict(batch), iters=5)
     phase("slice_time", model="mn10_as", batch=BATCH, dft_precision="bf16x3",
@@ -1020,7 +1050,7 @@ def main():
     phase("slice_profile", model="mn10_as", batch=BATCH, dft_precision="bf16x3",
           **device_profile(lambda: tagger.predict(batch)), card=repr(card))
 
-    k_ms, plain_ms, err = times["bf16x3"]
+    k_ms, plain_ms, err = times["bf16x3", cfg.n_mels]
     kernels = [{
         "name": "mel_kernel",
         "path": "tag",
@@ -1037,27 +1067,44 @@ def main():
 
     # 6-9. the training path
     k1_train = phase_train_k1(device, card)
-    train_launches = phase_train(device)
+    train_launches, step_fp32_launches = phase_train(device)
     dp = phase_train_dp(device)
     phase_train_times(device, card)
-    kernels.append({**kernels[0], "path": "train", "launches": train_launches,
-                    **k1_train})
+    kernels.append({**kernels[0], "path": "train",
+                    **k1_train["bf16x3"], "launches": train_launches})
     kernels.append({**kernels[0], "name": "mel_kernel_dp", "path": "train_dp",
                     "replaces": "efficientat_tpu/ops/mel_pallas.py:347", **dp})
+    # K1 fp32 on the tag path: the card-vs-CPU Taggers' launches, phase 5's
+    # times at B=64; on the train path: the card's train step's launch,
+    # phase 6's times at B=120
+    k_ms, plain_ms, err = times["fp32", cfg.n_mels]
+    kernels.append({**kernels[0], "path": "tag_fp32", "launches": slice_fp32_launches,
+                    "max_abs_err": err, "ms": k_ms, "plain_ms": plain_ms})
+    kernels.append({**kernels[0], "path": "train_fp32", **k1_train["fp32"],
+                    "launches": step_fp32_launches})
+
+    # each K1 row's bound and cuBLAS yardstick, at the clips a launch and
+    # the precision of its times
+    cfg = MelConfig()
+    sizes = {"tag": (BATCH, "bf16x3"), "train": (TRAIN_BATCH, "bf16x3"),
+             "train_dp": (DP_MEL_BATCH // DP_WORLD, "bf16x3"),
+             "tag_fp32": (BATCH, "fp32"), "train_fp32": (TRAIN_BATCH, "fp32")}
+    for row in kernels:
+        batch_rows, prec = sizes[row["path"]]
+        passes = DFT_PASSES[prec]
+        bound, bound_by = mel_bound_ms(batch_rows, CLIP, cfg.n_mels, passes)
+        row.update(bound_ms=bound, bound_by=bound_by, library_ms=None,
+                   gemm_ms=gemm_ms(device, batch_rows, passes))
+    rows = {row["path"]: row for row in kernels}
+    phase("k1_gemm", batch=BATCH, fp32_sgemm_ms=gemm_ms(device, BATCH, "fp32"),
+          fp32_cuda_core_bound_ms=mel_bound_ms(BATCH, CLIP, cfg.n_mels, "fp32")[0],
+          fp32_6pass_gemm_ms=rows["tag_fp32"]["gemm_ms"],
+          fp32_6pass_bound_ms=rows["tag_fp32"]["bound_ms"],
+          bf16x3_gemm_ms=rows["tag"]["gemm_ms"],
+          bf16x3_bound_ms=rows["tag"]["bound_ms"], gemm_kind=GEMM_KIND[0],
+          card=repr(card))
 
     # 10. the probe path
-    cfg = MelConfig()
-    for row, batch_rows in zip(kernels, (BATCH, TRAIN_BATCH,
-                                         DP_MEL_BATCH // DP_WORLD)):
-        bound, bound_by = mel_bound_ms(batch_rows, CLIP, cfg.n_mels, 3)
-        row.update(bound_ms=bound, bound_by=bound_by, library_ms=None,
-                   gemm_ms=gemm_ms(device, batch_rows, 3))
-    k1_fp32_gemm = gemm_ms(device, BATCH, "fp32")
-    phase("k1_gemm", batch=BATCH, fp32_gemm_ms=k1_fp32_gemm,
-          fp32_bound_ms=mel_bound_ms(BATCH, CLIP, cfg.n_mels, "fp32")[0],
-          bf16x3_gemm_ms=kernels[0]["gemm_ms"],
-          bf16x3_bound_ms=kernels[0]["bound_ms"], gemm_kind=GEMM_KIND[0],
-          card=repr(card))
     kernels.extend(phase_probe(device, card))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -11,51 +11,61 @@
 // The few frames whose window reaches the reflect pad are recomputed exactly
 // by the Python wrapper (ops/mel_kernel.py), as the JAX package does.
 //
-// What bounds it: the DFT product, 2 * 1024 * 1024 FLOP a frame and a pass,
-// about 2.1 GFLOP for a 10 s clip at hop 320 (1000 frames); the fp32 mel
-// product adds 512 * n_mels * 2 FLOP a frame. The bytes (the wave, a 0.5 MB
-// output a clip; the 4 MB basis is read from L2) are small beside that, so
-// the kernel is bound by arithmetic.
+// Both precisions of the wrapper's dft_precision run the DFT on the tensor
+// cores as products of bf16 parts summed in fp32, one kernel,
+// mel_kernel_tc<TILE, PARTS>. The basis comes split into PARTS bf16 parts
+// from the host (part 0 = bf16(b), part p = the bf16 of what parts 0 .. p-1
+// leave), transposed to (columns, samples); each frame sample is split the
+// same way here. The products of frame part i and basis part j with
+// i + j < PARTS are summed by mma.sync.m16n8k16, bf16 in, fp32 accumulators
+// (every bf16 x bf16 product is exact in fp32), the main product hi*hi in
+// one set of accumulators and the corrections, 2^-8 of it and less, in
+// another, so that they are not rounded at the main sum's scale:
+//   bf16x3, PARTS 2: the JAX package's 3-pass split (mel_pallas.py:185-189),
+//     hi*hi + (hi*lo + lo*hi);
+//   fp32, PARTS 3: the 6-pass split the TPU's MXU runs for
+//     Precision.HIGHEST (mel_pallas.py:190-192), hi*hi + (hi*mid + mid*hi +
+//     hi*lo + mid*mid + lo*hi) (three bf16 parts carry fp32's 24
+//     significand bits; the products dropped are of order 2^-24 of the main
+//     one, or less).
+// The mel product is fp32 FMAs on the CUDA cores in both (the JAX body uses
+// HIGHEST for it, mel_pallas.py:197-198).
 //
-// One kernel for each precision (the wrapper's dft_precision):
+// What bounds it: the DFT products, 2 * 1024 * 1024 FLOP a frame and a pass,
+// about 2.1 GFLOP for a 10 s clip at hop 320 (1000 frames), 3 or 6 passes at
+// the tensor cores' bf16 rate; the fp32 mel product adds 512 * n_mels * 2
+// FLOP a frame at the CUDA cores' rate. The bytes (the wave, a 0.5 MB output
+// a clip; the 4 or 6 MB basis is read from L2) are small beside that, so the
+// kernel is bound by arithmetic; in practice by the shared-memory traffic of
+// the basis fragments, which the design keeps to one read a part, a column
+// and a warp.
 //
-// bf16x3, mel_kernel_tc: the JAX package's 3-pass split (mel_pallas.py:185-189)
-//   on the tensor cores. The basis comes split into bf16 hi + lo from the
-//   host, transposed to (columns, samples); each frame sample is split the
-//   same way here (fh = bf16(f), fl = bf16(f - fh)), and fh * bhi +
-//   (fh * blo + fl * bhi) is summed in fp32 by mma.sync.m16n8k16, bf16 in,
-//   fp32 accumulators (every bf16 x bf16 product is exact in fp32). The
-//   frames come from rows the wrapper prepares: the raw wave behind a
-//   512-sample zero pad, frame i at x[hop * i], 16-byte aligned.
-//   A block of 8 warps owns a tile of TILE frames and walks the 512 bins in
-//   chunks of 32 (32 cos + the 32 matching sin columns, 8 n-tiles of 8).
-//   TILE is 128 for n_mels <= 128 (a warp: 16 frames x the chunk's 8
-//   n-tiles) and 64 for n_mels <= 256 (a warp: 16 frames x 2 cos + 2 sin
-//   n-tiles, two warps a chunk), so the fp32 mel accumulators, which stay in
-//   registers for the whole tile, are 64 a thread either way.
-//   The basis is streamed through a ring of RING stages in shared memory by
-//   cp.async, one stage (32 KB) being the chunk's 64 columns x 128 samples,
-//   hi and lo, so a block reads the 4 MB basis from L2 once a tile. The
-//   warps read their B fragments from a stage as 16-byte reads of 8
-//   consecutive samples of a column, and their A fragments as 16-byte loads
-//   of 8 consecutive samples of their frame rows, straight from device
-//   memory (L1): the reduction runs over a permutation of the samples that
-//   is the same for both operands, so the fragments need no shuffle (the
-//   layout of the probe kernel P1, csrc/mel_probe_kernel.cu). The power of
-//   a chunk goes through a padded shared tile into the mel accumulators,
-//   fp32 FMAs on the CUDA cores, a few rows at each stage of the next chunk,
-//   so that they run beside the tensor cores' products rather than behind a
-//   barrier; the power tile and the chunk's banks^T rows (copied with its
-//   first stage) have two buffers each for that.
-//
-// fp32, mel_kernel_fp32: exact fp32 on the CUDA cores. A block owns a
-//   64-frame tile and walks the 512 bins in chunks of 32. For a chunk it runs
-//   an fp32 tiled GEMM over K = 1024 through shared memory, each thread
-//   holding 4 frames x 2 bins of (re, im) in registers; the chunk's power
-//   goes to shared memory and straight into the mel accumulators, which stay
-//   in registers (4 frames x up to 16 mels a thread) for the whole tile.
-//
-// The mel product is fp32 in both modes (the JAX body uses HIGHEST).
+// The frames come from rows the wrapper prepares: the raw wave behind a
+// 512-sample zero pad, frame i at x[hop * i], 16-byte aligned.
+// A block of 8 warps owns a tile of TILE frames and walks the 512 bins in
+// chunks of 32 (32 cos + the 32 matching sin columns, 8 n-tiles of 8).
+// TILE is 128 for n_mels <= 128 (a warp: 16 frames x the chunk's 8
+// n-tiles) and 64 for n_mels <= 256 (a warp: 16 frames x 2 cos + 2 sin
+// n-tiles, two warps a chunk), so the fp32 mel accumulators, which stay in
+// registers for the whole tile, are 64 a thread either way. A wider bank is
+// computed in launches of at most 256 mels, each writing its rows of the
+// output and redoing the DFT (the wrapper's mel groups).
+// The basis is streamed through a ring of RING stages in shared memory by
+// cp.async, one stage being the chunk's 64 columns x 128 samples of each
+// part (16 KB a part: 32 KB in bf16x3, 48 KB in fp32), so a block reads the
+// basis from L2 once a tile. The warps read their B fragments from a stage
+// as 16-byte reads of 8 consecutive samples of a column (two 8-byte reads
+// in fp32 at 64-frame blocks, which split one group of A at a time), and
+// their A fragments as 16-byte loads of 8 consecutive samples of their frame
+// rows, straight from device memory (L1): the reduction runs over a
+// permutation of the samples that is the same for both operands, so the
+// fragments need no shuffle (the layout of the probe kernel P1,
+// csrc/mel_probe_kernel.cu). The power of a chunk goes through a padded
+// shared tile into the mel accumulators, fp32 FMAs on the CUDA cores, a few
+// rows at each stage of the next chunk, so that they run beside the tensor
+// cores' products rather than behind a barrier; the power tile and the
+// chunk's banks^T rows (copied with its first stage) have two buffers each
+// for that.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -65,154 +75,31 @@ namespace {
 
 constexpr int N_FFT = 1024;
 constexpr int N_BINS = 512;        // rDFT bins kept (the Nyquist bin is dropped)
-constexpr int HALF = N_FFT / 2;    // frame i starts at sample hop * i - HALF
 constexpr int NB = 32;             // bins a chunk: NB cos + NB sin columns
 constexpr int THREADS = 256;
 constexpr int MJ = 16;             // mels a thread: n_mels <= 16 * (mel lanes)
-constexpr int MAX_MELS = 256;
+constexpr int MAX_MELS = 256;      // mels a launch
+constexpr int MAX_PARTS = 3;
 constexpr int PS = NB + 1;         // padded row stride of the power tile
-
-// ------------------------------------------------------------------ fp32
-
-constexpr int TILE_FP32 = 64;      // frames a block
-constexpr int KT = 32;             // K step of the DFT GEMM
-constexpr int XS = KT + 1;         // padded row stride of the frame tile
-
-constexpr int smem_floats_fp32(int n_mels) {
-  return TILE_FP32 * XS            // frame tile
-         + KT * 2 * NB             // basis tile
-         + TILE_FP32 * PS          // power tile
-         + NB * n_mels;            // banks^T rows of the chunk
-}
-
-__global__ void __launch_bounds__(THREADS)
-mel_kernel_fp32(const float* __restrict__ wave, int S, int hop, int n_frames,
-                const float* __restrict__ basis,    // (N_FFT, 2 * N_BINS)
-                const float* __restrict__ banks_t,  // (N_BINS, n_mels)
-                int n_mels, float* __restrict__ out) {  // (B, n_mels, n_frames)
-  extern __shared__ float smem_fp32[];
-  float* xs = smem_fp32;                   // [TILE_FP32][XS]
-  float* bs = xs + TILE_FP32 * XS;         // [KT][2 * NB]
-  float* ps = bs + KT * 2 * NB;            // [TILE_FP32][PS]
-  float* bt = ps + TILE_FP32 * PS;         // [NB][n_mels]
-
-  const int tid = threadIdx.x;
-  const int b = blockIdx.y;
-  const int f0 = blockIdx.x * TILE_FP32;
-  const float* w = wave + (size_t)b * S;
-  // thread tiles: frames fg*4 .. fg*4+3; DFT bins bg*2, bg*2+1 of the chunk;
-  // mels lane + 16*j
-  const int fg = tid / 16;
-  const int lane = tid % 16;
-
-  float acc[4][MJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < MJ; ++j) acc[i][j] = 0.f;
-
-  for (int j0 = 0; j0 < N_BINS; j0 += NB) {
-    float re[4][2], im[4][2];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int q = 0; q < 2; ++q) re[i][q] = im[i][q] = 0.f;
-
-    for (int k0 = 0; k0 < N_FFT; k0 += KT) {
-      // frame tile: TILE_FP32 frames x KT samples, neighbouring threads on
-      // neighbouring samples
-#pragma unroll
-      for (int r = 0; r < TILE_FP32 * KT / THREADS; ++r) {
-        const int e = tid + r * THREADS;
-        const int kk = e % KT, f = e / KT;
-        const long s = (long)(f0 + f) * hop - HALF + k0 + kk;
-        xs[f * XS + kk] = (s >= 0 && s < S) ? w[s] : 0.f;
-      }
-      // basis tile: KT rows x (NB cos columns | NB sin columns)
-#pragma unroll
-      for (int r = 0; r < KT * 2 * NB / THREADS; ++r) {
-        const int e = tid + r * THREADS;
-        const int c = e % (2 * NB), kk = e / (2 * NB);
-        const int col = c < NB ? j0 + c : N_BINS + j0 + (c - NB);
-        bs[kk * 2 * NB + c] = basis[(size_t)(k0 + kk) * (2 * N_BINS) + col];
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int kk = 0; kk < KT; ++kk) {
-        float xh[4], ch[2], sh[2];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) xh[i] = xs[(fg * 4 + i) * XS + kk];
-#pragma unroll
-        for (int q = 0; q < 2; ++q) {
-          ch[q] = bs[kk * 2 * NB + lane * 2 + q];
-          sh[q] = bs[kk * 2 * NB + NB + lane * 2 + q];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int q = 0; q < 2; ++q) {
-            re[i][q] = fmaf(xh[i], ch[q], re[i][q]);
-            im[i][q] = fmaf(xh[i], sh[q], im[i][q]);
-          }
-      }
-      __syncthreads();
-    }
-
-    // power of this chunk, and the banks^T rows it meets
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int q = 0; q < 2; ++q)
-        ps[(fg * 4 + i) * PS + lane * 2 + q] = re[i][q] * re[i][q] + im[i][q] * im[i][q];
-    for (int e = tid; e < NB * n_mels; e += THREADS)
-      bt[e] = banks_t[(size_t)j0 * n_mels + e];
-    __syncthreads();
-    for (int kk = 0; kk < NB; ++kk) {
-      float p[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = ps[(fg * 4 + i) * PS + kk];
-#pragma unroll
-      for (int j = 0; j < MJ; ++j) {
-        const int m = lane + 16 * j;
-        if (m < n_mels) {
-          const float v = bt[kk * n_mels + m];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(p[i], v, acc[i][j]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  float* o = out + (size_t)b * n_mels * n_frames;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int f = f0 + fg * 4 + i;
-    if (f >= n_frames) continue;
-#pragma unroll
-    for (int j = 0; j < MJ; ++j) {
-      const int m = lane + 16 * j;
-      if (m < n_mels) o[(size_t)m * n_frames + f] = (logf(acc[i][j] + 1e-5f) + 4.5f) / 5.0f;
-    }
-  }
-}
-
-// ---------------------------------------------------------------- bf16x3
 
 constexpr int KC = 128;                  // samples a stage
 constexpr int K_STAGES = N_FFT / KC;     // stages a chunk
 constexpr int N_STAGES = N_BINS / NB * K_STAGES;  // stages a tile
 constexpr int RING = 3;                  // stages in shared memory
 constexpr int PIECES = KC / 8;           // 16-byte pieces of a stage column
-constexpr int STAGE_PART = 2 * NB * KC;  // bf16 values of a stage's hi (or lo) part
-constexpr int STAGE = 2 * STAGE_PART;    // bf16 values of a stage: 32 KB
+constexpr int STAGE_PART = 2 * NB * KC;  // bf16 values of a stage's part: 16 KB
 constexpr int MEL_ROWS = NB / K_STAGES;  // power rows of a chunk that a stage folds in
 static_assert(NB % K_STAGES == 0, "a chunk's power rows spread evenly over its stages");
 
-constexpr size_t smem_bytes_tc(int tile, int n_mels) {
-  return sizeof(__nv_bfloat16) * RING * STAGE          // the basis ring
-         + sizeof(float) * 2 * (tile * PS              // power tiles, two chunks
-                                + NB * n_mels);        // banks^T rows, two chunks
+// the basis's bf16 parts, each (2 * N_BINS, N_FFT): columns x samples
+struct Basis {
+  const __nv_bfloat16* part[MAX_PARTS];
+};
+
+constexpr size_t smem_bytes(int tile, int parts, int n_mels) {
+  return sizeof(__nv_bfloat16) * RING * parts * STAGE_PART  // the basis ring
+         + sizeof(float) * 2 * (tile * PS                   // power tiles, two chunks
+                                + NB * n_mels);             // banks^T rows, two chunks
 }
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
@@ -223,13 +110,18 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// (a, b) -> bf16x2 hi = (bf16(a), bf16(b)) and lo = the bf16 of what is left
-__device__ __forceinline__ void split2(float a, float b, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  const float2 hf = __bfloat1622float2(h);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
+// (a, b) -> register r of each part's fragment: part 0 is (bf16(a),
+// bf16(b)) as bf16x2, part p the bf16 of what parts 0 .. p-1 leave
+template <int PARTS>
+__device__ __forceinline__ void split(float a, float b, uint32_t (&af)[PARTS][4], int r) {
+#pragma unroll
+  for (int p = 0; p < PARTS; ++p) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+    af[p][r] = *reinterpret_cast<const uint32_t*>(&h);
+    const float2 hf = __bfloat1622float2(h);
+    a -= hf.x;
+    b -= hf.y;
+  }
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -256,24 +148,25 @@ __device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
 }
 
 // Start the copy of stage q of a tile's walk (chunk q / K_STAGES, samples
-// from (q % K_STAGES) * KC) into ring slot q % RING. Column c of the chunk
-// (c < NB: cos bin j0 + c, else sin bin j0 + c - NB) holds its KC samples
-// as 16-byte pieces, piece u at u ^ (4 * (c & 1)): a quarter warp's
-// fragment reads, 4 pieces of two neighbouring columns, then fall on 32
-// distinct banks.
-__device__ __forceinline__ void load_stage(int q, int tid, __nv_bfloat16* ring,
-                                           const __nv_bfloat16* __restrict__ bhi_t,
-                                           const __nv_bfloat16* __restrict__ blo_t) {
+// from (q % K_STAGES) * KC) into ring slot q % RING, each part in turn.
+// Column c of the chunk (c < NB: cos bin j0 + c, else sin bin j0 + c - NB)
+// holds its KC samples as 16-byte pieces, piece u at u ^ (4 * (c & 1)): a
+// quarter warp's fragment reads, 4 pieces of two neighbouring columns, then
+// fall on 32 distinct banks.
+template <int PARTS>
+__device__ __forceinline__ void load_stage(int q, int tid, __nv_bfloat16* ring, Basis basis) {
   const int j0 = q / K_STAGES * NB, k0 = q % K_STAGES * KC;
-  __nv_bfloat16* st = ring + q % RING * STAGE;
+  __nv_bfloat16* st = ring + q % RING * PARTS * STAGE_PART;
 #pragma unroll
-  for (int r = 0; r < STAGE / 8 / THREADS; ++r) {
-    const int e = tid + r * THREADS;
-    const int part = e / (STAGE_PART / 8), c = e / PIECES % (2 * NB), u = e % PIECES;
-    const int col = c < NB ? j0 + c : N_BINS + j0 + c - NB;
-    cp_async16(st + part * STAGE_PART + c * KC + 8 * (u ^ (4 * (c & 1))),
-               (part ? blo_t : bhi_t) + (size_t)col * N_FFT + k0 + 8 * u);
-  }
+  for (int p = 0; p < PARTS; ++p)
+#pragma unroll
+    for (int r = 0; r < STAGE_PART / 8 / THREADS; ++r) {
+      const int e = tid + r * THREADS;
+      const int c = e / PIECES, u = e % PIECES;
+      const int col = c < NB ? j0 + c : N_BINS + j0 + c - NB;
+      cp_async16(st + p * STAGE_PART + c * KC + 8 * (u ^ (4 * (c & 1))),
+                 basis.part[p] + (size_t)col * N_FFT + k0 + 8 * u);
+    }
 }
 
 // acc[i][j] += the power of frame 4 fg + i at the chunk's bins kk0 ..
@@ -299,19 +192,25 @@ __device__ __forceinline__ void mel_rows(float (&acc)[4][MJ], const float* ps,
   }
 }
 
-template <int TILE>
+template <int TILE, int PARTS>
 __global__ void __launch_bounds__(THREADS, 1)
 mel_kernel_tc(const float* __restrict__ x, int row_len, int hop, int n_frames,
-              const __nv_bfloat16* __restrict__ bhi_t,  // (2 * N_BINS, N_FFT): columns x samples
-              const __nv_bfloat16* __restrict__ blo_t,
-              const float* __restrict__ banks_t,        // (N_BINS, n_mels)
-              int n_mels, float* __restrict__ out) {    // (B, n_mels, n_frames)
+              Basis basis, const float* __restrict__ banks_t,  // (N_BINS, n_mels)
+              int n_mels, float* __restrict__ out,              // (B, out_mels, n_frames)
+              int out_mels) {
   constexpr int FG = TILE / 16;          // 16-frame groups of the tile, one a warp
   constexpr int NT = FG;                 // n-tiles a warp: 8 of a chunk's 8, or 4
   constexpr int ML = 4 * THREADS / TILE; // mel lanes: a thread has 4 frames x MJ mels
+  constexpr int STAGE = PARTS * STAGE_PART;
+  // 16-sample groups of A fragments split and live at a time: both, but one
+  // in fp32 at 64-frame blocks, where that measured about 9 % faster at 256
+  // mels on an H100 (tools/time_k1.py); it reads each B fragment as two
+  // 8-byte halves
+  constexpr int GROUPS = PARTS == 3 && TILE == 64 ? 1 : 2;
   static_assert(THREADS / 32 * NT == FG * 8, "the warps cover a chunk once");
+  static_assert(PARTS == 2 || PARTS == 3, "bf16x3 or fp32");
   extern __shared__ __align__(16) unsigned char smem_tc[];
-  auto* ring = reinterpret_cast<__nv_bfloat16*>(smem_tc);     // [RING][STAGE]
+  auto* ring = reinterpret_cast<__nv_bfloat16*>(smem_tc);     // [RING][PARTS][STAGE_PART]
   float* ps = reinterpret_cast<float*>(ring + RING * STAGE);  // [2][TILE][PS]
   float* bt = ps + 2 * TILE * PS;                             // [2][NB][n_mels]
 
@@ -337,7 +236,7 @@ mel_kernel_tc(const float* __restrict__ x, int row_len, int hop, int n_frames,
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < MJ; ++j) acc[i][j] = 0.f;
-  // main (fh * bhi) and correction sums of the warp's n-tiles of a chunk
+  // main (hi * hi) and correction sums of the warp's n-tiles of a chunk
   float cm[NT][4], cc[NT][4];
 #pragma unroll
   for (int n = 0; n < NT; ++n)
@@ -345,7 +244,7 @@ mel_kernel_tc(const float* __restrict__ x, int row_len, int hop, int n_frames,
     for (int e = 0; e < 4; ++e) cm[n][e] = cc[n][e] = 0.f;
 
   for (int q = 0; q < RING - 1; ++q) {
-    load_stage(q, tid, ring, bhi_t, blo_t);
+    load_stage<PARTS>(q, tid, ring, basis);
     cp_async_commit();
   }
 
@@ -367,7 +266,7 @@ mel_kernel_tc(const float* __restrict__ x, int row_len, int hop, int n_frames,
         const float* src = banks_t + (size_t)chunk * NB * n_mels;
         for (int e = 4 * tid; e < NB * n_mels; e += 4 * THREADS) cp_async16(dst + e, src + e);
       }
-      if (q + RING - 1 < N_STAGES) load_stage(q + RING - 1, tid, ring, bhi_t, blo_t);
+      if (q + RING - 1 < N_STAGES) load_stage<PARTS>(q + RING - 1, tid, ring, basis);
       cp_async_commit();  // an empty group at the end keeps the count
       const __nv_bfloat16* st = ring + q % RING * STAGE;
 #pragma unroll
@@ -380,28 +279,46 @@ mel_kernel_tc(const float* __restrict__ x, int row_len, int hop, int n_frames,
         float v0[8], v1[8];
         load8(row0 + k, v0);
         load8(row1 + k, v1);
-        uint32_t ah[2][4], al[2][4];
-#pragma unroll
-        for (int s = 0; s < 2; ++s) {
-          split2(v0[4 * s], v0[4 * s + 1], ah[s][0], al[s][0]);
-          split2(v1[4 * s], v1[4 * s + 1], ah[s][1], al[s][1]);
-          split2(v0[4 * s + 2], v0[4 * s + 3], ah[s][2], al[s][2]);
-          split2(v1[4 * s + 2], v1[4 * s + 3], ah[s][3], al[s][3]);
-        }
         const int piece = (4 * kq + t) ^ swz;
 #pragma unroll
-        for (int n = 0; n < NT; ++n) {
-          // stage column g of the n-tile: a cos column, or the matching sin one
-          const int c = 8 * (n < NT / 2 ? n0 + n : NB / 8 + n0 + n - NT / 2) + g;
-          const int off = c * KC + 8 * piece;
-          const uint4 h = *reinterpret_cast<const uint4*>(st + off);
-          const uint4 l = *reinterpret_cast<const uint4*>(st + STAGE_PART + off);
-          mma_bf16(cm[n], ah[0], h.x, h.y);
-          mma_bf16(cm[n], ah[1], h.z, h.w);
-          mma_bf16(cc[n], ah[0], l.x, l.y);
-          mma_bf16(cc[n], ah[1], l.z, l.w);
-          mma_bf16(cc[n], al[0], h.x, h.y);
-          mma_bf16(cc[n], al[1], h.z, h.w);
+        for (int s0 = 0; s0 < 2; s0 += GROUPS) {
+          uint32_t af[GROUPS][PARTS][4];
+#pragma unroll
+          for (int s = 0; s < GROUPS; ++s) {
+            const int v = 4 * (s0 + s);
+            split<PARTS>(v0[v], v0[v + 1], af[s], 0);
+            split<PARTS>(v1[v], v1[v + 1], af[s], 1);
+            split<PARTS>(v0[v + 2], v0[v + 3], af[s], 2);
+            split<PARTS>(v1[v + 2], v1[v + 3], af[s], 3);
+          }
+#pragma unroll
+          for (int n = 0; n < NT; ++n) {
+            // stage column g of the n-tile: a cos column, or the matching sin one;
+            // its 8 samples of the sub-step, 4 a group
+            const int c = 8 * (n < NT / 2 ? n0 + n : NB / 8 + n0 + n - NT / 2) + g;
+            const __nv_bfloat16* col = st + c * KC + 8 * piece + 4 * s0;
+            uint32_t bf[PARTS][2 * GROUPS];
+#pragma unroll
+            for (int p = 0; p < PARTS; ++p) {
+              if constexpr (GROUPS == 2) {
+                const uint4 u = *reinterpret_cast<const uint4*>(col + p * STAGE_PART);
+                bf[p][0] = u.x; bf[p][1] = u.y; bf[p][2] = u.z; bf[p][3] = u.w;
+              } else {
+                const uint2 u = *reinterpret_cast<const uint2*>(col + p * STAGE_PART);
+                bf[p][0] = u.x; bf[p][1] = u.y;
+              }
+            }
+            // frame part i times basis part j, i + j < PARTS
+#pragma unroll
+            for (int i = 0; i < PARTS; ++i)
+#pragma unroll
+              for (int j = 0; i + j < PARTS; ++j) {
+                float(&sum)[4] = i + j == 0 ? cm[n] : cc[n];
+#pragma unroll
+                for (int s = 0; s < GROUPS; ++s)
+                  mma_bf16(sum, af[s][i], bf[j][2 * s], bf[j][2 * s + 1]);
+              }
+          }
         }
       }
       if (chunk > 0)
@@ -431,7 +348,7 @@ mel_kernel_tc(const float* __restrict__ x, int row_len, int hop, int n_frames,
   mel_rows<ML, NB>(acc, ps + LAST % 2 * TILE * PS, bt + LAST % 2 * NB * n_mels, 0, fg, ml,
                    n_mels);
 
-  float* o = out + (size_t)b * n_mels * n_frames;
+  float* o = out + (size_t)b * out_mels * n_frames;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int f = f0 + fg * 4 + i;
@@ -444,58 +361,62 @@ mel_kernel_tc(const float* __restrict__ x, int row_len, int hop, int n_frames,
   }
 }
 
-cudaError_t launch_fp32(const float* wave, int B, int S, int hop, int n_frames,
-                        const void* basis, const float* banks_t, int n_mels, float* out,
-                        cudaStream_t stream) {
-  const size_t smem = sizeof(float) * smem_floats_fp32(n_mels);
+template <int TILE, int PARTS>
+cudaError_t launch(const float* x, int B, int row_len, int hop, int n_frames, Basis basis,
+                   const float* banks_t, int n_mels, float* out, int out_mels,
+                   cudaStream_t stream) {
+  const size_t smem = smem_bytes(TILE, PARTS, n_mels);
   cudaError_t err = cudaFuncSetAttribute(
-      mel_kernel_fp32, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      mel_kernel_tc<TILE, PARTS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((n_frames + TILE_FP32 - 1) / TILE_FP32, B);
-  mel_kernel_fp32<<<grid, THREADS, smem, stream>>>(
-      wave, S, hop, n_frames, static_cast<const float*>(basis), banks_t, n_mels, out);
+  const dim3 grid((n_frames + TILE - 1) / TILE, B);
+  mel_kernel_tc<TILE, PARTS><<<grid, THREADS, smem, stream>>>(x, row_len, hop, n_frames, basis,
+                                                              banks_t, n_mels, out, out_mels);
   return cudaGetLastError();
 }
 
-template <int TILE>
-cudaError_t launch_tc(const float* x, int B, int row_len, int hop, int n_frames,
-                      const void* bhi_t, const void* blo_t, const float* banks_t,
-                      int n_mels, float* out, cudaStream_t stream) {
-  const size_t smem = smem_bytes_tc(TILE, n_mels);
-  cudaError_t err = cudaFuncSetAttribute(
-      mel_kernel_tc<TILE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((n_frames + TILE - 1) / TILE, B);
-  mel_kernel_tc<TILE><<<grid, THREADS, smem, stream>>>(
-      x, row_len, hop, n_frames, static_cast<const __nv_bfloat16*>(bhi_t),
-      static_cast<const __nv_bfloat16*>(blo_t), banks_t, n_mels, out);
-  return cudaGetLastError();
+// frames a block: 128 x 128 or 64 x 256 mel accumulators, 64 a thread
+template <int PARTS>
+cudaError_t launch_parts(const float* x, int B, int row_len, int hop, int n_frames,
+                         Basis basis, const float* banks_t, int n_mels, float* out,
+                         int out_mels, cudaStream_t stream) {
+  if (n_mels <= 128)
+    return launch<128, PARTS>(x, B, row_len, hop, n_frames, basis, banks_t, n_mels, out,
+                              out_mels, stream);
+  return launch<64, PARTS>(x, B, row_len, hop, n_frames, basis, banks_t, n_mels, out,
+                           out_mels, stream);
 }
 
 }  // namespace
 
-// bf16x3 == 0: wave is the raw wave (B, S) f32 and basis the (1024, 1024) f32
-// basis. bf16x3 == 1: wave is the kernel's rows (B, S) f32, the raw wave
-// behind a 512-sample zero pad, frame i at wave[:, hop * i], with S and hop
-// multiples of 4 and hop * (n_frames - 1) + 1024 <= S; bhi/blo are the bf16
-// basis parts transposed to (columns, samples), (1024, 1024). banks_t
-// (512, n_mels) f32; out (B, n_mels, n_frames) f32. All contiguous on the
+// rows: the kernel's rows (B, S) f32, the raw wave behind a 512-sample zero
+// pad, frame i at rows[:, hop * i], with S and hop multiples of 4 and
+// hop * (n_frames - 1) + 1024 <= S. b0, b1, b2: the basis's bf16 parts
+// transposed to (columns, samples), (1024, 1024) each; parts 2 (bf16x3,
+// b2 unused) or 3 (fp32). banks_t (512, n_mels) f32, n_mels <= 256. out:
+// the first n_mels rows of each clip's out_mels rows of a (B, out_mels,
+// n_frames) f32 output, so that a wider bank is computed in launches of at
+// most 256 mels. B <= 65535, the grid's y limit. All contiguous on the
 // device. Returns the launch's cudaError_t (0 = success).
-extern "C" int eat_mel_log(const float* wave, int B, int S, int hop, int n_frames,
-                           const void* basis, const void* bhi, const void* blo,
-                           int bf16x3, const float* banks_t, int n_mels, float* out,
+extern "C" int eat_mel_log(const float* rows, int B, int S, int hop, int n_frames,
+                           const void* b0, const void* b1, const void* b2, int parts,
+                           const float* banks_t, int n_mels, float* out, int out_mels,
                            void* stream) {
-  if (B < 1 || B > 65535 || n_frames < 1 || n_mels < 1 || n_mels > MAX_MELS || hop < 1)
+  if (B < 1 || B > 65535 || n_frames < 1 || n_mels < 1 || n_mels > MAX_MELS ||
+      out_mels < n_mels || hop < 1 || S % 4 != 0 || hop % 4 != 0 ||
+      (long long)hop * (n_frames - 1) + N_FFT > S)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!bf16x3)
-    return (int)launch_fp32(wave, B, S, hop, n_frames, basis, banks_t, n_mels, out, s);
-  if (S % 4 != 0 || hop % 4 != 0 || (long long)hop * (n_frames - 1) + N_FFT > S)
-    return (int)cudaErrorInvalidValue;
-  // frames a block: 128 x 128 or 64 x 256 mel accumulators, 64 a thread
-  if (n_mels <= 128)
-    return (int)launch_tc<128>(wave, B, S, hop, n_frames, bhi, blo, banks_t, n_mels, out, s);
-  return (int)launch_tc<64>(wave, B, S, hop, n_frames, bhi, blo, banks_t, n_mels, out, s);
+  const Basis basis = {{static_cast<const __nv_bfloat16*>(b0),
+                        static_cast<const __nv_bfloat16*>(b1),
+                        static_cast<const __nv_bfloat16*>(b2)}};
+  if (parts == 2)
+    return (int)launch_parts<2>(rows, B, S, hop, n_frames, basis, banks_t, n_mels, out,
+                                out_mels, s);
+  if (parts == 3)
+    return (int)launch_parts<3>(rows, B, S, hop, n_frames, basis, banks_t, n_mels, out,
+                                out_mels, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" const char* eat_error_string(int err) {

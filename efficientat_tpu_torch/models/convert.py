@@ -95,7 +95,9 @@ def from_flax_mn(variables: Mapping[str, Any], cfg: MNConfig) -> Dict[str, torch
 def load_pretrained(name: str, model_dir: str = MODEL_DIR,
                     num_classes: Optional[int] = None) -> MN:
     """Build the registry model ``name`` on the CPU and load
-    ``<model_dir>/<release file>`` into it with ``strict=True``."""
+    ``<model_dir>/<release file>`` into it with ``strict=True``.
+    ``num_classes`` other than the checkpoint file's class count raises
+    ``NotImplementedError``: classifier-head surgery is not ported yet."""
     spec = get_model_config(name)
     path = os.path.join(model_dir, spec.file)
     if not os.path.isfile(path):
@@ -104,5 +106,11 @@ def load_pretrained(name: str, model_dir: str = MODEL_DIR,
             f"{spec.url} there (nothing is downloaded)")
     model = build_model(name, num_classes=num_classes)
     sd = torch.load(path, map_location="cpu", weights_only=True)
+    for key, v in model.state_dict().items():
+        if key.startswith("classifier.") and key in sd and sd[key].shape != v.shape:
+            raise NotImplementedError(
+                f"{path} has another class count than {num_classes} ({key}: "
+                f"{tuple(sd[key].shape)}, not {tuple(v.shape)}): "
+                "classifier-head surgery is not ported yet")
     model.load_state_dict(sd, strict=True)
     return model

@@ -42,19 +42,26 @@ ITERS = 10
 
 def _variant(name, fn, counter, **kwargs):
     """(name, mel(wave, banks, cfg), launches counter) of one variant."""
-    module, attr = counter
-    return (name, lambda w, b, c: fn(w, b, c, **kwargs),
-            lambda: getattr(module, attr))
+    return name, lambda w, b, c: fn(w, b, c, **kwargs), counter
 
 
 def variants(group: str):
     """The variants of ``group`` (fold, dma, e or all), in the script's order."""
-    p1 = (mel_probe, "LAUNCHES_P1")
-    p2 = (mel_probe, "LAUNCHES_P2")
-    p3 = (mel_probe, "LAUNCHES_P3")
+    def p1():
+        return mel_probe.LAUNCHES_P1
+
+    def p2():
+        return mel_probe.LAUNCHES_P2
+
+    def p3():
+        return mel_probe.LAUNCHES_P3
+
+    def k1():
+        return mel_kernel.LAUNCHES["bf16x3"]
+
     groups = {
         "fold": [
-            _variant("current", mel_kernel.stft_log_mel, (mel_kernel, "LAUNCHES"),
+            _variant("current", mel_kernel.stft_log_mel, k1,
                      dft_precision="bf16x3"),
             _variant("splitbasis", mel_probe.variant_mel, p1, frame_tile=128,
                      folded=False),

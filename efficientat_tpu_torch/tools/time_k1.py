@@ -1,0 +1,76 @@
+"""Time K1 against its plain version on the card.
+
+    python -m efficientat_tpu_torch.tools.time_k1 [--batch 64] [--n_mels 128 256]
+        [--precision fp32 bf16x3] [--turns 2]
+
+The inputs are the probe's (``tools.probe_mel_kernel.inputs``): B random 10 s
+waves from seed 0 at hop 320, with the Kaldi bank over 0-15 kHz at each
+``--n_mels``. For each precision and bank: K1's largest gap to its plain
+version, then ``stft_log_mel`` and ``stft_log_mel_plain`` timed in turns
+(plain, kernel, kernel, plain, ``--turns`` times), each a median of CUDA
+events; one JSON line each. First a line with K1's ptxas registers and
+spills, when this process built it, and last the card's name and power
+limit as ``nvidia-smi`` gives them. It uses only K1's public entry points, so
+one copy of it times two checkouts of the package in one run.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import subprocess
+
+import torch
+
+from efficientat_tpu_torch.ops import _build, mel_kernel
+from efficientat_tpu_torch.ops.filterbank import kaldi_mel_banks
+from efficientat_tpu_torch.tools.probe_mel_kernel import inputs, median_ms
+
+
+def time_k1(batch: int, n_mels: int, precision: str, turns: int) -> dict:
+    """One record: K1 against its plain version at ``batch`` clips and an
+    ``n_mels`` bank, in ``precision``."""
+    waves, _, cfg = inputs(torch.device("cuda"), batch)
+    cfg = dataclasses.replace(cfg, n_mels=n_mels)
+    banks = kaldi_mel_banks(n_mels, cfg.n_fft, cfg.sr, 0.0, 15000.0, device="cuda")
+    err = float((mel_kernel.stft_log_mel(waves, banks, cfg, precision)
+                 - mel_kernel.stft_log_mel_plain(waves, banks, cfg, precision))
+                .abs().max())
+    runs = {"plain": [], "kernel": []}
+    for _ in range(turns):
+        for which in ("plain", "kernel", "kernel", "plain"):
+            fn = (mel_kernel.stft_log_mel_plain if which == "plain"
+                  else mel_kernel.stft_log_mel)
+            runs[which].append(median_ms(lambda: fn(waves, banks, cfg, precision)))
+    return {"precision": precision, "batch": batch, "n_mels": n_mels,
+            "max_abs": err, "kernel_ms": runs["kernel"], "plain_ms": runs["plain"]}
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--batch", type=int, default=64)
+    p.add_argument("--n_mels", type=int, nargs="+", default=[128, 256])
+    p.add_argument("--precision", nargs="+", choices=("fp32", "bf16x3"),
+                   default=["fp32", "bf16x3"])
+    p.add_argument("--turns", type=int, default=2)
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise RuntimeError("time_k1 needs a CUDA device; none is visible")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.load_library("mel_kernel")
+    print(json.dumps({"ptxas": [ln.split(":", 1)[-1].strip() for ln in
+                                _build.BUILD_LOG.get("mel_kernel", "").splitlines()
+                                if "registers" in ln or "spill" in ln
+                                or "Compiling entry" in ln]}), flush=True)
+    for n_mels in args.n_mels:
+        for precision in args.precision:
+            print(json.dumps(time_k1(args.batch, n_mels, precision, args.turns)),
+                  flush=True)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip(), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -268,3 +268,21 @@ def test_chip_smoke_oracle_bounds():
             else:
                 scale = 10.0 ** (math.floor(math.log10(2 * gap)) - 1)
                 assert bound == pytest.approx(math.ceil(2 * gap / scale) * scale)
+
+
+def test_probe_entry_point_on_cpu():
+    # tools.probe_mel_kernel.run on CPU tensors: every variant, K1 bf16x3 as
+    # "current" among them, runs its plain version and launches nothing
+    from efficientat_tpu_torch.tools import probe_mel_kernel
+
+    records = probe_mel_kernel.run("all", "cpu", batch=2, seconds=1)
+    assert [r["variant"] for r in records] == [
+        name for name, _, _ in probe_mel_kernel.variants("all")]
+    assert records[0]["variant"] == "current"
+    for rec in records:
+        assert rec["ms"] is None and rec["launches"] == 0
+        # against the fp32 melspec path, as chip_smoke.py holds the card's
+        # run; the 2-pass variants, which drop a correction product, are held
+        # to the oracle elsewhere
+        assert np.isfinite(rec["max_vs_ref"])
+        assert rec["max_vs_ref"] < 2e-2 or "2pass" in rec["variant"]

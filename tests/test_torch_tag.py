@@ -86,6 +86,18 @@ def test_missing_checkpoint_raises(tmp_path):
         Tagger(NAME, model_dir=str(tmp_path), device="cpu")
 
 
+def test_load_pretrained_refuses_other_class_count(ckpt_dir):
+    # the checkpoint file's own class count loads; another one needs
+    # classifier-head surgery (efficientat_tpu/models/convert.py:83-100),
+    # not ported yet
+    model = load_pretrained(NAME, ckpt_dir, num_classes=527)
+    assert model.state_dict()["classifier.5.weight"].shape[0] == 527
+    with pytest.raises(NotImplementedError, match="head surgery"):
+        load_pretrained(NAME, ckpt_dir, num_classes=10)
+    with pytest.raises(NotImplementedError, match="head surgery"):
+        Tagger(NAME, model_dir=ckpt_dir, num_classes=50, device="cpu")
+
+
 def test_dymn_not_ported():
     with pytest.raises(KeyError, match="DyMN"):
         Tagger("dymn10_as", pretrained=False, device="cpu")

@@ -144,11 +144,12 @@ def test_fused_training_plain_matches_pallas_interpret(precision):
     with pltpu.force_tpu_interpret_mode():
         want = np.asarray(jax.jit(fused)(jnp.asarray(wave), key))
     draws = mel_draws(key, cfg, 2, cfg.num_frames(32000))
-    before = mel_kernel.LAUNCHES
+    before = mel_kernel.LAUNCHES[precision]
     got = mel_kernel.log_mel_spectrogram_fused(
         torch.from_numpy(wave), cfg, training=True, draws=draws,
         backend="kernel", dft_precision=precision).numpy()
-    assert mel_kernel.LAUNCHES == before  # a CPU tensor runs the plain version
+    # a CPU tensor runs the plain version
+    assert mel_kernel.LAUNCHES[precision] == before
     assert got.shape == want.shape == (2, 128, 100)
     np.testing.assert_array_equal(_masked(got), _masked(want))
     assert _masked(got).any()
@@ -221,12 +222,12 @@ def test_training_kernel_matches_plain_on_card(n_mels, precision):
     cpu_banks = tfb.kaldi_mel_banks(n_mels, cfg.n_fft, cfg.sr,
                                     *tmel.jittered_fmin_fmax(cfg, draws, "cpu"))
     torch.testing.assert_close(banks.cpu(), cpu_banks, rtol=0, atol=ATOL_BANKS)
-    before = mel_kernel.LAUNCHES
+    before = mel_kernel.LAUNCHES[precision]
     got = mel_kernel.log_mel_spectrogram_fused(wave, cfg, training=True,
                                                draws=draws,
                                                dft_precision=precision)
     torch.cuda.synchronize()
-    assert mel_kernel.LAUNCHES == before + 1
+    assert mel_kernel.LAUNCHES[precision] == before + 1
     plain = tmel.apply_masks(
         mel_kernel.stft_log_mel_plain(wave, banks, cfg, precision), cfg, draws, 0.9)
     assert got.shape == (4, n_mels, 1000)
@@ -240,7 +241,7 @@ def test_training_mel_on_card_never_leaves_it():
     cfg = tmel.MelConfig()
     wave = torch.from_numpy(_wave(2, 32000, seed=10)).cuda()
     draws = tmel.draw_mel_augment(cfg, 2, 100, torch.Generator().manual_seed(3))
-    before = mel_kernel.LAUNCHES
+    before = mel_kernel.LAUNCHES["bf16x3"]
     mel = mel_kernel.log_mel_spectrogram_fused(wave, cfg, training=True,
                                                draws=draws)
-    assert mel.is_cuda and mel_kernel.LAUNCHES == before + 1
+    assert mel.is_cuda and mel_kernel.LAUNCHES["bf16x3"] == before + 1
