@@ -47,10 +47,26 @@ and the probe path, the tensor-core variants P1-P3 of the fused log-mel
     6 for fp32, beside fp32's SGEMM); then the entry point,
     ``tools.probe_mel_kernel.run("all", "cuda")``, must launch each kernel.
 
+and DyMN (``dymn10_as``, full width, seeded weights), after the probe:
+
+11. serving through ``Tagger.predict`` at B=64 as f32, int16 and mu-law,
+    K1 at every predict; card against CPU in fp32 (seeded init, a seeded
+    checkpoint file, and a seeded ``dymn10_im`` file served at its t_max
+    30); model and pipeline times at B=64 and B=256 (the fold's largest
+    group count) with their device profiles by kernel group and by
+    PyTorch op, and each DynamicConv of blocks 1 and 12 alone (forward at
+    B=64; forward+backward at B=120, fp32 and bf16);
+12. ``run_train("audioset", ["--model_name", "dymn10_as", ...])`` at B=120
+    in fp32, --bf16 and --bf16 --remat, as phase 7; one step on the card
+    against the CPU at temperature 30; the step's time, split, peak memory
+    and profile in fp32, bf16 and bf16 with remat, as phase 9;
+13. ``train audioset --model_name dymn10_as`` on two gloo ranks of cuda:0
+    as torchrun starts them: K1-dp at every step, every BatchNorm global.
+
 Then one JSON line on the kernels, per path (tag, train, train_dp,
-tag_fp32, train_fp32, probe), the card's ``nvidia-smi`` line and, last,
-``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
-nothing falls back to the CPU.
+tag_fp32, train_fp32, tag_dymn, train_dymn, train_dp_dymn, probe), the
+card's ``nvidia-smi`` line and, last, ``{"ok": true, "device": {...}}``.
+Any failure raises and exits non-zero; nothing falls back to the CPU.
 """
 
 from __future__ import annotations
@@ -77,7 +93,7 @@ sys.path.insert(0, HERE)
 
 from efficientat_tpu_torch.data import encode, load_waveform  # noqa: E402
 from efficientat_tpu_torch.infer.tag import Tagger  # noqa: E402
-from efficientat_tpu_torch.models.mn import MN  # noqa: E402
+from efficientat_tpu_torch.models.dymn import DynamicConv  # noqa: E402
 from efficientat_tpu_torch.models.registry import (  # noqa: E402
     build_model,
     get_model_config,
@@ -107,6 +123,7 @@ from efficientat_tpu_torch.train.loop import (  # noqa: E402
     LossConfig,
     StepRandom,
     make_optimizer,
+    model_forward,
     task_loss,
     train_step,
 )
@@ -208,6 +225,21 @@ KERNEL_GROUPS = (
 )
 
 
+# DyMN's groups: its depthwise convs are the batch-into-groups fold; its
+# 1x1 DynamicConvs are batched GEMMs (cuBLAS names), as are att @ banks and
+# the head; cuDNN runs the static convs (stem, tail, ContextGen's 1x1s)
+DYMN_KERNEL_GROUPS = (
+    ("k1", ("mel_kernel",)),
+    ("batchnorm", ("bn_", "batch_norm", "batchnorm")),
+    ("depthwise_fold", ("conv_depthwise",)),
+    ("dense_conv", ("conv", "fprop", "dgrad", "wgrad", "implicit", "cudnn")),
+    ("gemm", ("gemm", "gemv", "cutlass", "xmma")),
+    ("copy", ("memcpy", "memset")),
+    ("reduce", ("reduce",)),
+    ("elementwise", ("elementwise", "catarray", "softmax", "pool")),
+)
+
+
 def phase(tag, /, **fields):
     print(f"[{tag}] " + " ".join(f"{k}={v}" for k, v in fields.items()),
           flush=True)
@@ -223,15 +255,17 @@ def reset_k1_launches():
     mel_kernel.LAUNCHES.update(dict.fromkeys(mel_kernel.LAUNCHES, 0))
 
 
-def device_profile(fn, calls=3):
+def device_profile(fn, calls=3, groups=None):
     """Device time of ``fn``, from ``torch.profiler``'s kernel and copy rows
-    over ``calls`` calls after a warm-up: ms a call by group of
-    KERNEL_GROUPS (the rest under "other"), the busy ms a call (the union of
-    the rows) and the idle share of the span from the first row's start to
-    the last one's end."""
+    over ``calls`` calls after a warm-up: ms a call by group of ``groups``
+    (KERNEL_GROUPS by default; the rest under "other"), the busy ms a call
+    (the union of the rows), the idle share of the span from the first
+    row's start to the last one's end, and the PyTorch ops that launched
+    the most device time (their own kernels, ms a call)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    groups = groups or KERNEL_GROUPS
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -241,11 +275,11 @@ def device_profile(fn, calls=3):
     rows = sorted((e.time_range.start, e.time_range.end, e.name)
                   for e in prof.events() if e.device_type == DeviceType.CUDA)
     check(rows, "the profiler saw no device time")
-    ms = dict.fromkeys([g for g, _ in KERNEL_GROUPS] + ["other"], 0.0)
+    ms = dict.fromkeys([g for g, _ in groups] + ["other"], 0.0)
     other = {}
     busy, reach = 0.0, float("-inf")
     for start, end, name in rows:
-        group = next((g for g, keys in KERNEL_GROUPS
+        group = next((g for g, keys in groups
                       if any(k in name.lower() for k in keys)), "other")
         ms[group] += (end - start) / 1e3 / calls
         if group == "other":
@@ -255,10 +289,14 @@ def device_profile(fn, calls=3):
             busy += end - max(start, reach)
             reach = end
     span = reach - rows[0][0]
+    ops = sorted(((getattr(e, "self_device_time_total", 0) / 1e3 / calls, e.key)
+                  for e in prof.key_averages() if e.device_type == DeviceType.CPU),
+                 reverse=True)
     return {"busy_ms": busy / 1e3 / calls, "idle_share": 1 - busy / span,
             "rows_a_call": len(rows) / calls,
             **{f"{g}_ms": v for g, v in ms.items()},
-            "other_top": json.dumps(sorted(other.items(), key=lambda kv: -kv[1])[:4])}
+            "other_top": json.dumps(sorted(other.items(), key=lambda kv: -kv[1])[:4]),
+            "ops_top": json.dumps([(k, round(v, 4)) for v, k in ops[:8] if v > 0])}
 
 
 def selftest_waves():
@@ -299,17 +337,26 @@ def seeded_weights(name="mn10_as", seed=0):
     (0, 1) without saturating. Upstream's own init,
     which ``Tagger(pretrained=False)`` uses, draws depthwise convs by fan-out
     and gives every prob 0.5 at this depth: a card-versus-CPU comparison on
-    it would prove little."""
+    it would prove little. A DyMN's banks are drawn by the fan-in of one
+    bank, times the square root of their count: a near-uniform attention
+    averages them."""
     g = torch.Generator().manual_seed(seed)
-    sd = build_model(name).state_dict()
+    model = build_model(name)
+    banks = {f"{n}.weight": m for n, m in model.named_modules()
+             if isinstance(m, DynamicConv)}
+    sd = model.state_dict()
     for key, v in sd.items():
         if key.endswith("num_batches_tracked"):
             continue
         if key.endswith("running_var"):
             sd[key] = 1.0 + 0.1 * torch.rand(v.shape, generator=g)
         elif v.dim() == 1:  # BN scale/shift, running mean, biases
-            base = 1.0 if key.endswith(".1.weight") else 0.0
+            base = 1.0 if key.endswith((".1.weight", "_norm.weight")) else 0.0
             sd[key] = base + 0.1 * torch.randn(v.shape, generator=g)
+        elif key in banks:  # (1, 1, K, O * I/g * k * k)
+            m = banks[key]
+            fan_in = v.shape[-1] // m.out_channels
+            sd[key] = torch.randn(v.shape, generator=g) * (2.0 * m.k / fan_in) ** 0.5
         else:  # conv (O, I/g, kh, kw): kaiming fan-in; Linear (O, I): small
             gain = 2.0 if v.dim() == 4 else 0.1
             sd[key] = torch.randn(v.shape, generator=g) * (gain / v[0].numel()) ** 0.5
@@ -330,9 +377,9 @@ def audioset_configs():
             LossConfig(kind="bce", mixup_alpha=0.3, kd_lambda=0.1))
 
 
-def step_inputs(seed):
-    """Weights, a batch of STEP_CLIPS clips and the step's draws, all from
-    ``seed``: every process that asks gets the same."""
+def step_inputs(seed, name="mn10_as"):
+    """Weights of ``name``, a batch of STEP_CLIPS clips and the step's
+    draws, all from ``seed``: every process that asks gets the same."""
     rng = np.random.default_rng(seed)
     batch = {"wave": train_waves(STEP_CLIPS, seed, STEP_SAMPLES),
              "target": (rng.random((STEP_CLIPS, 527)) > 0.9).astype(np.float32),
@@ -340,25 +387,26 @@ def step_inputs(seed):
              "teacher_valid": np.ones(STEP_CLIPS, np.float32)}
     mel_cfg, loss_cfg = audioset_configs()
     draws = StepRandom(seed).draw(mel_cfg, loss_cfg, STEP_CLIPS, STEP_SAMPLES)
-    return seeded_weights("mn10_as", seed), batch, draws
+    return seeded_weights(name, seed), batch, draws
 
 
-def _step_model(sd, device):
-    """Full-width mn10_as with dropout 0 (two devices cannot draw the same
-    dropout bits), loaded from ``sd``."""
-    cfg = dataclasses.replace(get_model_config("mn10_as").model_cfg, dropout=0.0)
-    model = MN(cfg)
+def _step_model(sd, name="mn10_as"):
+    """The full-width registry model ``name`` with dropout 0 (two devices
+    cannot draw the same dropout bits), loaded from ``sd``."""
+    cfg = dataclasses.replace(get_model_config(name).model_cfg, dropout=0.0)
+    model = build_model(cfg)
     model.load_state_dict(sd, strict=True)
     return model
 
 
-def run_step(sd, batch, draws, device, dp=None, dft_precision=None):
-    """One ``train_step`` (Adam, the audioset preset's loss) from ``sd`` on
-    ``batch`` (this rank's rows under ``dp``). Returns the loss, the model
-    input, the gradients and buffers (on the CPU) and the K1 launches in
-    the step's precision."""
+def run_step(sd, batch, draws, device, dp=None, dft_precision=None,
+             name="mn10_as", temperature=1.0):
+    """One ``train_step`` (Adam, the audioset preset's loss) of ``name``
+    (a DyMN at ``temperature``) from ``sd`` on ``batch`` (this rank's rows
+    under ``dp``). Returns the loss, the model input, the gradients and
+    buffers (on the CPU) and the K1 launches in the step's precision."""
     mel_cfg, loss_cfg = audioset_configs()
-    model = _step_model(sd, device)
+    model = _step_model(sd, name)
     if dp is not None:
         convert_global_bn(model)
     model.to(device)
@@ -371,7 +419,8 @@ def run_step(sd, batch, draws, device, dp=None, dft_precision=None):
     tensors = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
     reset_k1_launches()
     metrics = train_step(net, opt, None, mel_cfg, loss_cfg, tensors, draws,
-                         dp=dp, dft_precision=dft_precision)
+                         dp=dp, dft_precision=dft_precision,
+                         temperature=temperature)
     launches = mel_kernel.LAUNCHES[dft_precision or "bf16x3"]
     return {"loss": float(metrics["train_loss"]), "x": seen["x"],
             "launches": launches,
@@ -380,15 +429,15 @@ def run_step(sd, batch, draws, device, dp=None, dft_precision=None):
                         if not n.endswith("num_batches_tracked")}}
 
 
-def grads_at(sd, x, batch, mixup, device):
-    """Gradients of mn10_as in train mode and the KD loss at the model
+def grads_at(sd, x, batch, mixup, device, name="mn10_as", temperature=1.0):
+    """Gradients of ``name`` in train mode and the KD loss at the model
     input ``x``, as ``train_step`` takes them after the mel."""
     _, loss_cfg = audioset_configs()
-    model = _step_model(sd, device).to(device).train()
+    model = _step_model(sd, name).to(device).train()
     t = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
     perm, lam = (torch.from_numpy(np.array(a)).to(device) for a in mixup)
     partner = {k: t[k][perm] for k in ("target", "teacher")}
-    logits, _ = model(x.to(device))
+    logits, _ = model_forward(model, x.to(device), temperature)
     loss, _ = task_loss(loss_cfg, logits.float(), t, (lam, partner))
     loss.backward()
     return {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
@@ -472,26 +521,29 @@ def phase_train_k1(device, card):
     return out
 
 
-def phase_train(device):
-    """7. ``train audioset`` through ``run_train`` on the card at full width,
-    fp32 and --bf16; the export loads into the ``Tagger``; then one step
-    on the card against the same step on the CPU. Returns K1's launches,
-    bf16x3 in ``run_train`` and fp32 in the card's step."""
-    work = os.path.join(HERE, "build", "chip_smoke")
+def phase_train(device, name="mn10_as", flags=((), ("--bf16",)), tag="train",
+                temperature=1.0):
+    """7. ``train audioset --model_name name`` through ``run_train`` on the
+    card at full width, once with each set of ``flags``; the export loads
+    into the ``Tagger``; then one step on the card against the same step
+    on the CPU (a DyMN at ``temperature``). Returns K1's launches, bf16x3
+    in ``run_train`` and fp32 in the card's step."""
+    work = os.path.join(HERE, "build", "chip_smoke", tag)
     clips = 3 * TRAIN_BATCH
     eval_batches = -(-(clips // 2) // TRAIN_BATCH)  # synthetic eval: clips / 2
     total = 0
-    for bf16 in (False, True):
-        name = "bf16" if bf16 else "fp32"
-        export_dir = os.path.join(work, f"export_{name}")
-        argv = ["--synthetic", str(clips), "--batch_size", str(TRAIN_BATCH),
-                "--n_epochs", "1", "--num_workers", "8", "--device", device.type,
-                "--ckpt_dir", os.path.join(work, f"ckpt_{name}"),
-                "--export", os.path.join(export_dir, get_model_config("mn10_as").file),
-                "--experiment_name", f"chip_smoke_train_{name}"]
+    for extra in flags:
+        run = "_".join(f.lstrip("-") for f in extra) or "fp32"
+        export_dir = os.path.join(work, f"export_{run}")
+        argv = ["--model_name", name, "--synthetic", str(clips),
+                "--batch_size", str(TRAIN_BATCH), "--n_epochs", "1",
+                "--num_workers", "8", "--device", device.type,
+                "--ckpt_dir", os.path.join(work, f"ckpt_{run}"),
+                "--export", os.path.join(export_dir, get_model_config(name).file),
+                "--experiment_name", f"chip_smoke_{tag}_{run}", *extra]
         reset_k1_launches()
         t0 = time.perf_counter()
-        result = run_train("audioset", argv + (["--bf16"] if bf16 else []))
+        result = run_train("audioset", argv)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = mel_kernel.LAUNCHES["bf16x3"]
@@ -499,17 +551,16 @@ def phase_train(device):
         rec = result.history[-1]
         losses = {k: rec[k] for k in ("train_loss", "label_loss",
                                       "distillation_loss", "val_loss")}
-        phase("train", task="audioset", model="mn10_as", batch=TRAIN_BATCH,
-              bf16=bf16, steps=result.step, k1_launches=launches,
-              eval_batches=eval_batches, seconds=seconds, mAP=rec["mAP"],
-              **losses)
+        phase(tag, task="audioset", model=name, batch=TRAIN_BATCH, run=run,
+              steps=result.step, k1_launches=launches, eval_batches=eval_batches,
+              seconds=seconds, mAP=rec["mAP"], **losses)
         check(result.step == 3, f"train audioset took {result.step} steps, not 3")
         check(launches >= result.step + eval_batches,
               "train audioset did not launch K1 at every step")
         check(all(np.isfinite(v) for v in losses.values()), "non-finite loss")
         check(all(p.device == device for p in result.model.parameters()),
               "the model left the card")
-        tagger = Tagger("mn10_as", model_dir=export_dir, device=device)
+        tagger = Tagger(name, model_dir=export_dir, device=device)
         probs = tagger.predict(train_waves(4, seed=7))
         check(probs.shape == (4, 527) and bool(np.isfinite(probs).all()),
               "the Tagger on the exported weights")
@@ -518,13 +569,17 @@ def phase_train(device):
 
     # one step from the same weights and draws on the card and on the CPU,
     # the mel DFT in fp32 on both
-    sd, batch, draws = step_inputs(seed=1)
-    on_card = run_step(sd, batch, draws, device, dft_precision="fp32")
-    on_cpu = run_step(sd, batch, draws, torch.device("cpu"))
+    sd, batch, draws = step_inputs(seed=1, name=name)
+    on_card = run_step(sd, batch, draws, device, dft_precision="fp32", name=name,
+                       temperature=temperature)
+    on_cpu = run_step(sd, batch, draws, torch.device("cpu"), name=name,
+                      temperature=temperature)
     x_gap = float((on_card["x"] - on_cpu["x"]).abs().max())
-    step_checks("train_vs_cpu", on_card, on_cpu,
-                grads_at(sd, on_card["x"], batch, draws.mixup, "cpu"),
-                clips=STEP_CLIPS, seconds=STEP_SAMPLES // SR, x_gap=x_gap,
+    step_checks(f"{tag}_vs_cpu", on_card, on_cpu,
+                grads_at(sd, on_card["x"], batch, draws.mixup, "cpu", name=name,
+                         temperature=temperature),
+                model=name, temperature=temperature, clips=STEP_CLIPS,
+                seconds=STEP_SAMPLES // SR, x_gap=x_gap,
                 bound_x=TOL_STEP_X, k1_launches=on_card["launches"])
     check(on_card["launches"] == 1, "the card's step did not launch K1 fp32")
     check(x_gap <= TOL_STEP_X, "model inputs of the card's and the CPU's steps")
@@ -666,13 +721,16 @@ def phase_train_dp(device):
             "ms": ranks[0]["ms"], "plain_ms": ranks[0]["plain_ms"]}
 
 
-def phase_train_times(device, card):
-    """9. The train step at B=120, 10 s clips, full-width mn10_as, fp32 and
-    bf16 autocast: its time and clips/s, and its split into mel (K1),
-    forward+backward and the optimizer (CUDA events)."""
+def phase_train_times(device, card, name="mn10_as", variants=((False, False), (True, False)),
+                      temperature=1.0, groups=None, tag="train"):
+    """9. The train step at B=120, 10 s clips, full-width ``name`` (a DyMN
+    at ``temperature``), for each (bf16 autocast, remat) of ``variants``:
+    its time and clips/s, its split into mel (K1), forward+backward and the
+    optimizer (CUDA events), its peak memory and its device time by kernel
+    group."""
     mel_cfg, loss_cfg = audioset_configs()
-    model = build_model("mn10_as")  # the preset's model, dropout 0.2
-    model.load_state_dict(seeded_weights("mn10_as", 9), strict=True)
+    model = build_model(name)  # the preset's model, dropout 0.2
+    model.load_state_dict(seeded_weights(name, 9), strict=True)
     model.to(device)
     opt = make_optimizer(model.parameters(), 8e-4)
     rng = np.random.default_rng(9)
@@ -690,15 +748,17 @@ def phase_train_times(device, card):
             batch["wave"], mel_cfg, training=True, draws=draws.mel)
 
     x = apply_mixup(mel()[:, None], perm, lam)
-    for bf16 in (False, True):
+    for bf16, remat in variants:
+        model.cfg = dataclasses.replace(model.cfg, remat=remat)
+
         def step():
             train_step(model, opt, None, mel_cfg, loss_cfg, batch, draws,
-                       bf16=bf16)
+                       bf16=bf16, temperature=temperature)
 
         def forward_backward():
             opt.zero_grad(set_to_none=True)
             with torch.autocast("cuda", dtype=torch.bfloat16, enabled=bf16):
-                logits, _ = model(x)
+                logits, _ = model_forward(model, x, temperature)
             task_loss(loss_cfg, logits.float(), batch, mix)[0].backward()
 
         torch.cuda.reset_peak_memory_stats()
@@ -707,13 +767,13 @@ def phase_train_times(device, card):
         mel_ms = median_ms(mel, iters=5)
         fb_ms = median_ms(forward_backward, iters=5)
         opt_ms = median_ms(opt.step, iters=5)
-        phase("train_time", model="mn10_as", batch=TRAIN_BATCH, bf16=bf16,
+        phase(f"{tag}_time", model=name, batch=TRAIN_BATCH, bf16=bf16, remat=remat,
               step_ms=step_ms, clips_per_s=TRAIN_BATCH / step_ms * 1e3,
               mel_ms=mel_ms, forward_backward_ms=fb_ms, optimizer_ms=opt_ms,
               rest_ms=step_ms - mel_ms - fb_ms - opt_ms, peak_gb=peak_gb,
               tf32=False, card=repr(card))
-        phase("train_profile", model="mn10_as", batch=TRAIN_BATCH, bf16=bf16,
-              **device_profile(step), card=repr(card))
+        phase(f"{tag}_profile", model=name, batch=TRAIN_BATCH, bf16=bf16, remat=remat,
+              **device_profile(step, groups=groups), card=repr(card))
 
 
 # ---------------------------------------------------------------- the probe
@@ -893,6 +953,244 @@ def phase_probe(device, card):
              "variant": PROBE_ROW[kernel], "launches": launches[kernel],
              "library_ms": None, **rows[kernel, PROBE_ROW[kernel]]}
             for kernel in ("P1", "P2", "P3")]
+
+
+# ---------------------------------------------------------------------- DyMN
+
+DYMN, DYMN_IM = "dymn10_as", "dymn10_im"  # the _im name serves at t_max 30
+# B=256: the fold's largest group count, 256 clips x 960 channels
+DYMN_BIG_BATCH = 256
+# train audioset --model_name dymn10_as from scratch: t_max 30, epoch 0
+DYMN_TRAIN_TEMPERATURE = 30.0
+DYMN_BLOCKS = (1, 12)  # the DynamicConvs timed alone: an early and a late block
+
+
+def dynamic_conv_times(model, mel, temperature, card, rows, train):
+    """Each DynamicConv of blocks DYMN_BLOCKS alone, at the shapes the model
+    gives it on ``rows`` clips of ``mel`` (forward pre-hooks): its time,
+    and its core alone (the fold's conv2d, or the pointwise bmm, on the
+    mixed kernels made beforehand). Serving: forward in fp32; training:
+    forward+backward in fp32 and under bf16 autocast."""
+    shapes, hooks = {}, []
+
+    def keep(key):
+        def hook(conv, inp):
+            shapes[key] = (conv, inp[0].shape, inp[1].shape)
+        return hook
+
+    for i in DYMN_BLOCKS:
+        for name, conv in model.layers[i].named_children():
+            if isinstance(conv, DynamicConv):
+                hooks.append(conv.register_forward_pre_hook(keep((i, name))))
+    with torch.inference_mode():
+        model(mel[:rows], temperature)
+    for h in hooks:
+        h.remove()
+    g = torch.Generator(device=mel.device).manual_seed(11)
+    for (i, name), (conv, x_shape, h_shape) in shapes.items():
+        x = torch.randn(x_shape, device=mel.device, generator=g)
+        h_c = torch.randn(h_shape, device=mel.device, generator=g)
+        b, c, f, t = x_shape
+        with torch.no_grad():
+            att = torch.softmax(conv.residuals(h_c) / temperature, dim=-1)
+            wb = att @ conv.weight.reshape(conv.k, -1)
+        if conv.depthwise:
+            ks = conv.kernel_size
+            xf, wf = x.reshape(1, b * c, f, t), wb.reshape(b * c, 1, ks, ks)
+
+            def core():
+                return torch.nn.functional.conv2d(
+                    xf, wf, None, conv.stride, (ks - 1) // 2 * conv.dilation,
+                    conv.dilation, groups=b * c)
+        else:
+            wp, xp = wb.reshape(b, conv.out_channels, c), x.reshape(b, c, f * t)
+
+            def core():
+                return torch.bmm(wp, xp)
+        fields = dict(block=i, conv=name, form="depthwise_fold" if conv.depthwise
+                      else "pointwise_bmm", x=tuple(x_shape), out=conv.out_channels,
+                      kernel=conv.kernel_size, stride=conv.stride)
+        if conv.depthwise:
+            fields["groups"] = b * c
+        if not train:
+            with torch.inference_mode():
+                phase("dymn_conv_time", mode="serving", **fields,
+                      fp32_ms=median_ms(lambda: conv(x, h_c, temperature)),
+                      core_fp32_ms=median_ms(core), card=repr(card))
+            continue
+        xg = x.clone().requires_grad_(True)
+        ms = {}
+        for bf16 in (False, True):
+            def forward_backward():
+                with torch.autocast("cuda", dtype=torch.bfloat16, enabled=bf16):
+                    y = conv(xg, h_c, temperature)
+                y.float().sum().backward()
+            ms["bf16" if bf16 else "fp32"] = median_ms(forward_backward)
+        conv.zero_grad(set_to_none=True)
+        phase("dymn_conv_time", mode="training", **fields,
+              forward_backward_fp32_ms=ms["fp32"],
+              forward_backward_bf16_ms=ms["bf16"], card=repr(card))
+
+
+def phase_dymn_slice(device, card, batch, coded):
+    """11. DyMN serving through ``Tagger.predict``: ``dymn10_as`` at B=64
+    of 10 s clips as f32, int16 and mu-law (K1 at every predict, finite
+    probs); card against CPU in fp32 on 4 clips, for seeded init, a seeded
+    checkpoint file, and a seeded ``dymn10_im`` file served at its t_max
+    30; then model and pipeline times at B=64 and B=256 with their device
+    profiles, and each DynamicConv of blocks 1 and 12 alone. Returns K1's
+    launches on the path."""
+    tagger = Tagger(DYMN, pretrained=False, device=device, seed=0)
+    model = tagger.members[0]
+    reset_k1_launches()
+    probs = {name: tagger.predict(w) for name, w in coded.items()}
+    launches = mel_kernel.LAUNCHES["bf16x3"]
+    phase("dymn_slice", model=DYMN, batch=BATCH, seconds=CLIP // SR,
+          temperature=model.cfg.t_max, k1_launches=launches)
+    check(launches >= len(coded), "the DyMN path did not launch K1")
+    for name, pr in probs.items():
+        check(pr.shape == (BATCH, 527), f"DyMN probs shape {pr.shape}")
+        check(bool(np.isfinite(pr).all()), f"non-finite DyMN probs ({name})")
+        phase("dymn_slice_probs", codec=name, shape=pr.shape, min=float(pr.min()),
+              max=float(pr.max()), vs_f32=float(np.abs(pr - probs["f32"]).max()))
+
+    model_dir = os.path.join(HERE, "build", "chip_smoke", "dymn")
+    synth_checkpoint(model_dir, DYMN, seed=3)
+    synth_checkpoint(model_dir, DYMN_IM, seed=4)
+    pairs = {
+        "init_seed0": [Tagger(DYMN, pretrained=False, device=d, seed=0,
+                              dft_precision="fp32") for d in (device, "cpu")],
+        "seeded_file": [Tagger(DYMN, model_dir=model_dir, device=d,
+                               dft_precision="fp32") for d in (device, "cpu")],
+        "seeded_file_im": [Tagger(DYMN_IM, model_dir=model_dir, device=d,
+                                  dft_precision="fp32") for d in (device, "cpu")],
+    }
+    im = pairs["seeded_file_im"][0].members[0]
+    check(im.cfg.t_max == 30.0, f"{DYMN_IM} serves at {im.cfg.t_max}, not 30")
+    reset_k1_launches()
+    for weights, (on_card, on_cpu) in pairs.items():
+        for name, w in coded.items():
+            card_probs = on_card.predict(w[:4])
+            dev = float(np.abs(card_probs - on_cpu.predict(w[:4])).max())
+            phase("dymn_slice_vs_cpu", weights=weights,
+                  temperature=on_card.members[0].cfg.t_max,
+                  codec=name, clips=4, max_abs=dev, bound=TOL_CARD_VS_CPU,
+                  probs_std=float(card_probs.std()))
+            check(dev <= TOL_CARD_VS_CPU,
+                  f"DyMN card vs CPU probs ({weights}, {name})")
+    fp32_launches = mel_kernel.LAUNCHES["fp32"]
+    check(fp32_launches == len(pairs) * len(coded),
+          "the card's fp32 DyMN Taggers did not launch K1 fp32 once a predict")
+    # what serving dymn10_im at forward's default temperature, 1, would change
+    cfg, t_max = tagger.mel_cfg, model.cfg.t_max
+    banks = kaldi_mel_banks(cfg.n_mels, cfg.n_fft, cfg.sr, cfg.fmin,
+                            cfg.effective_fmax, device=device)
+    mel = mel_kernel.stft_log_mel(torch.from_numpy(batch[:4]).to(device), banks,
+                                  cfg, "fp32")[:, None]
+    with torch.inference_mode():
+        gap = float((torch.sigmoid(im(mel, 30.0)[0])
+                     - torch.sigmoid(im(mel, 1.0)[0])).abs().max())
+    phase("dymn_slice_vs_cpu_k1", precision="fp32", k1_launches=fp32_launches,
+          im_probs_t30_vs_t1=gap)
+    del pairs, im, mel
+    torch.cuda.empty_cache()
+
+    # times: B=64 and B=256 (the same clips rolled by 1-3 s)
+    big = np.concatenate([np.roll(batch, k * SR, axis=1)
+                          for k in range(DYMN_BIG_BATCH // BATCH)])
+    widest = max(m.out_channels for m in model.modules()
+                 if isinstance(m, DynamicConv) and m.depthwise)
+    for rows, waves in ((BATCH, batch), (DYMN_BIG_BATCH, big)):
+        xb = torch.from_numpy(waves).to(device)
+        with torch.inference_mode():
+            mel = mel_kernel.stft_log_mel(xb, banks, cfg, "bf16x3")[:, None]
+            model_ms = median_ms(lambda: model(mel, t_max))
+        pipe_ms = median_ms(lambda: tagger.predict(waves), iters=5)
+        phase("dymn_slice_time", model=DYMN, batch=rows, dft_precision="bf16x3",
+              widest_fold_groups=rows * widest, model_ms=model_ms,
+              pipeline_ms=pipe_ms, clips_per_s=rows / pipe_ms * 1e3, card=repr(card))
+        phase("dymn_slice_profile", model=DYMN, batch=rows,
+              **device_profile(lambda: tagger.predict(waves),
+                               groups=DYMN_KERNEL_GROUPS), card=repr(card))
+        if rows == BATCH:
+            dynamic_conv_times(model, mel, t_max, card, BATCH, train=False)
+        else:
+            dynamic_conv_times(model, mel, DYMN_TRAIN_TEMPERATURE, card, TRAIN_BATCH,
+                               train=True)
+        del xb, mel
+    del tagger, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _dymn_dp_rank(rank, port, work, device):
+    """One of DP_WORLD ranks of ``train audioset --model_name dymn10_as``
+    on ``device``, in the environment torchrun gives it; its K1 launches
+    counted from 0."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank),
+                      WORLD_SIZE=str(DP_WORLD), LOCAL_WORLD_SIZE=str(DP_WORLD),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    argv = ["--model_name", DYMN, "--synthetic", str(DP_TRAIN_STEPS * TRAIN_BATCH),
+            "--batch_size", str(TRAIN_BATCH), "--n_epochs", "1",
+            "--num_workers", "4", "--device", device.type,
+            "--ckpt_dir", os.path.join(work, "ckpt"),
+            "--experiment_name", "chip_smoke_dymn_train_dp"]
+    reset_k1_launches()
+    train = run_train("audioset", argv)
+    torch.cuda.synchronize()
+    torch.save({"launches": mel_kernel.LAUNCHES["bf16x3"], "steps": train.step,
+                "train_loss": train.history[-1]["train_loss"],
+                "global_bn": sum(type(m).__name__ == "GlobalBatchNorm2d"
+                                 for m in train.model.modules())},
+               os.path.join(work, f"rank{rank}.pt"))
+
+
+def phase_dymn_train_dp(device):
+    """13. ``train audioset --model_name dymn10_as`` on DP_WORLD ranks as
+    ``torchrun --nproc_per_node 2`` starts them, on cuda:0 over gloo:
+    K1-dp at every step, every BatchNorm (ContextGen's too) global. Returns
+    the ranks' K1 launches."""
+    work = os.path.join(HERE, "build", "chip_smoke", "dymn_dp")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    ctx = multiprocessing.get_context("spawn")
+    port = _free_port()
+    procs = [ctx.Process(target=_dymn_dp_rank, args=(r, port, work, device))
+             for r in range(DP_WORLD)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=300)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    check([p.exitcode for p in procs] == [0] * DP_WORLD,
+          f"DyMN DDP ranks exited with {[p.exitcode for p in procs]}")
+    train = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+             for r in range(DP_WORLD)]
+    n_bn = sum(isinstance(m, nn.BatchNorm2d) for m in build_model(DYMN).modules())
+    phase("dymn_train_dp", task="audioset", model=DYMN, world=DP_WORLD,
+          global_batch=TRAIN_BATCH, steps=[t["steps"] for t in train],
+          k1_launches=[t["launches"] for t in train],
+          global_bn=[t["global_bn"] for t in train], batchnorms=n_bn,
+          train_loss=[t["train_loss"] for t in train],
+          seconds=time.perf_counter() - t0)
+    check(all(t["steps"] == DP_TRAIN_STEPS for t in train),
+          f"DyMN on {DP_WORLD} ranks did not take {DP_TRAIN_STEPS} steps")
+    check(all(t["launches"] >= DP_TRAIN_STEPS for t in train),
+          "a DyMN rank did not launch K1 at every step")
+    check(all(t["global_bn"] == n_bn for t in train),
+          "a DyMN BatchNorm was not made global")
+    check(all(np.isfinite(t["train_loss"]) for t in train)
+          and train[0]["train_loss"] == train[1]["train_loss"],
+          "the DyMN ranks' train losses are not finite or not equal")
+    return sum(t["launches"] for t in train)
 
 
 def main():
@@ -1083,12 +1381,36 @@ def main():
     kernels.append({**kernels[0], "path": "train_fp32", **k1_train["fp32"],
                     "launches": step_fp32_launches})
 
+    # 10. the probe path
+    probe_rows = phase_probe(device, card)
+
+    # 11-13. DyMN: serving, training in one process and on two ranks. K1's
+    # calls there have the shapes of the MN paths' (the wave in, 128 mels
+    # out), so its rows take phases 5 and 6's times, and K1-dp's phase 8's
+    dymn_tag_launches = phase_dymn_slice(device, card, batch, coded)
+    dymn_train_launches, _ = phase_train(
+        device, DYMN, flags=((), ("--bf16",), ("--bf16", "--remat")), tag="dymn_train",
+        temperature=DYMN_TRAIN_TEMPERATURE)
+    phase_train_times(device, card, DYMN, variants=((False, False), (True, False),
+                                                    (True, True)),
+                      temperature=DYMN_TRAIN_TEMPERATURE, groups=DYMN_KERNEL_GROUPS,
+                      tag="dymn_train")
+    dymn_dp_launches = phase_dymn_train_dp(device)
+    kernels.append({**kernels[0], "path": "tag_dymn", "launches": dymn_tag_launches})
+    kernels.append({**kernels[0], "path": "train_dymn", **k1_train["bf16x3"],
+                    "launches": dymn_train_launches})
+    kernels.append({**kernels[0], "name": "mel_kernel_dp", "path": "train_dp_dymn",
+                    "replaces": "efficientat_tpu/ops/mel_pallas.py:347", **dp,
+                    "launches": dymn_dp_launches})
+
     # each K1 row's bound and cuBLAS yardstick, at the clips a launch and
     # the precision of its times
     cfg = MelConfig()
     sizes = {"tag": (BATCH, "bf16x3"), "train": (TRAIN_BATCH, "bf16x3"),
              "train_dp": (DP_MEL_BATCH // DP_WORLD, "bf16x3"),
              "tag_fp32": (BATCH, "fp32"), "train_fp32": (TRAIN_BATCH, "fp32")}
+    sizes.update(tag_dymn=sizes["tag"], train_dymn=sizes["train"],
+                 train_dp_dymn=sizes["train_dp"])
     for row in kernels:
         batch_rows, prec = sizes[row["path"]]
         passes = DFT_PASSES[prec]
@@ -1104,8 +1426,7 @@ def main():
           bf16x3_bound_ms=rows["tag"]["bound_ms"], gemm_kind=GEMM_KIND[0],
           card=repr(card))
 
-    # 10. the probe path
-    kernels.extend(phase_probe(device, card))
+    kernels.extend(probe_rows)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,10 @@ reference surface: upstream inference.py:15-63).
 
 One ``predict`` call: the batch goes to the device through a pinned host
 buffer, is decoded there (f32 / int16 / mu-law uint8), turned into log-mels
-by ``log_mel_spectrogram_fused`` (K1 on CUDA), run through every member,
-and the members' logits are averaged before the sigmoid.
+by ``log_mel_spectrogram_fused`` (K1 on CUDA), run through every member
+(a DyMN at its ``cfg.t_max``, the final temperature of its training), and
+the members' logits are averaged before the sigmoid. The whole batch runs
+at once: the JAX Tagger's DyMN micro-batching is a TPU workaround.
 """
 
 from __future__ import annotations
@@ -15,17 +17,25 @@ from typing import List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from torch import nn
+
 from efficientat_tpu_torch.data.wavecodec import decode
-from efficientat_tpu_torch.models.mn import init_weights
+from efficientat_tpu_torch.models.dymn import DyMN
 from efficientat_tpu_torch.models.registry import build_model, get_model_config
 from efficientat_tpu_torch.ops.mel_kernel import log_mel_spectrogram_fused
 from efficientat_tpu_torch.utils.labels import AUDIOSET_LABELS
 
 
-class Tagger:
-    """Audio tagger over one MN model or an averaged ensemble of them.
+def _member_logits(model: nn.Module, mel: torch.Tensor) -> torch.Tensor:
+    if isinstance(model, DyMN):
+        return model(mel, model.cfg.t_max)[0]
+    return model(mel)[0]
 
-    names: registry name(s), e.g. ``"mn10_as"``.
+
+class Tagger:
+    """Audio tagger over one MN or DyMN model or an averaged ensemble of them.
+
+    names: registry name(s), e.g. ``"mn10_as"`` or ``"dymn10_as"``.
     pretrained: load ``<model_dir>/<release file>`` for every member; with
         ``False`` member ``i`` gets upstream's init drawn from
         ``torch.Generator`` seeded ``seed + i`` on the CPU.
@@ -66,8 +76,8 @@ class Tagger:
 
                 model = load_pretrained(name, model_dir, num_classes=num_classes)
             else:
-                model = init_weights(build_model(name, num_classes=num_classes),
-                                     torch.Generator().manual_seed(seed + i))
+                model = build_model(name, num_classes=num_classes,
+                                    generator=torch.Generator().manual_seed(seed + i))
                 warnings.warn(f"{name}: using random weights (pretrained=False)")
             self.members.append(model.to(self.device).eval())
         self._pinned: Optional[torch.Tensor] = None  # last batch's host buffer
@@ -97,7 +107,7 @@ class Tagger:
             mel = log_mel_spectrogram_fused(x, self.mel_cfg,
                                             dft_precision=self.dft_precision)
             mel = mel[:, None]  # (B, 1, n_mels, frames)
-            logits = sum(model(mel)[0] for model in self.members)
+            logits = sum(_member_logits(model, mel) for model in self.members)
             probs = torch.sigmoid(logits / len(self.members))
             return probs.cpu().numpy()
 

@@ -1,3 +1,4 @@
+from efficientat_tpu_torch.models.dymn import DyMN, DyMNConfig, dyconv_temperature
 from efficientat_tpu_torch.models.mn import MN, MNConfig, init_weights, mn_block_table
 from efficientat_tpu_torch.models.registry import (
     REGISTRY,
@@ -7,11 +8,14 @@ from efficientat_tpu_torch.models.registry import (
 )
 
 __all__ = [
+    "DyMN",
+    "DyMNConfig",
     "MN",
     "MNConfig",
     "ModelSpec",
     "REGISTRY",
     "build_model",
+    "dyconv_temperature",
     "get_model_config",
     "init_weights",
     "mn_block_table",

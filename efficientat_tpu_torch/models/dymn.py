@@ -1,0 +1,334 @@
+"""DyMN — Dynamic MobileNet audio tagger in NCHW (port of efficientat_tpu/models/dymn.py).
+
+The MN skeleton (stem, 15 blocks, 1x1 tail, head) with dynamic blocks
+(upstream models/dymn/model.py and dy_block.py): each ``DYBlock`` computes a
+shared context (``ContextGen``), then expand DynamicConv 1x1 -> BN -> act ->
+depthwise DynamicConv kxk -> BN -> DyReLU-B -> coordinate attention ->
+project DynamicConv 1x1 -> BN (+ residual). Module names follow the upstream
+checkpoints (``in_c``, ``layers.{i}``, ``out_c``, ``classifier``), so a
+release ``.pt`` loads with ``load_state_dict(strict=True)``.
+
+``DynamicConv`` mixes its K weight banks per sample with a softmax over the
+context (``softmax(att(h_c) / temperature)``, in fp32):
+- 1x1: ``wb = att @ banks`` of shape (B, O, I), then one ``torch.bmm`` over
+  the flattened (F, T) of the NCHW input;
+- depthwise: batch folded into the conv groups, the reference's CUDA form:
+  ``conv2d(x.reshape(1, B*C, F, T), wb.reshape(B*C, 1, k, k), groups=B*C)``.
+  In NCHW both reshapes are views. Under data parallelism each rank folds
+  its own rows.
+
+The temperature anneals per epoch in training (``DyMNConfig.temperature``)
+and is a runtime float: ``forward(x, temperature)``. Serving runs at
+``cfg.t_max``, the final temperature of the checkpoint's training.
+
+The JAX package's TPU lowerings (``pw_form`` shared_out / shared_in,
+``layout="ftbc"``, ``dyconv_compute``, the channel-multiplier depthwise
+form, the ``shard_map`` fold) and ``time_valid`` masking are not ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from efficientat_tpu_torch.models import mn
+from efficientat_tpu_torch.models.layers import (
+    ACTIVATIONS,
+    BN_EPS,
+    BN_MOMENTUM,
+    BlockConfig,
+    ConvNormAct,
+    FullyConvHead,
+    InvertedResidual,
+    MlpHead,
+    remat_call,
+)
+from efficientat_tpu_torch.utils.common import make_divisible
+
+
+def dyconv_temperature(epoch: int, t_max: float = 30.0, t_min: float = 1.0,
+                       t0_slope: float = 1.0, t1_slope: float = 0.02) -> float:
+    """Per-epoch DynamicConv softmax temperature (dy_block.py:133-139)."""
+    t0 = t_max - t0_slope * epoch
+    t1 = 1 + t1_slope * (t_max - 1) / t0_slope - t1_slope * epoch
+    return max(t0, t1, t_min)
+
+
+def _bn(channels: int) -> nn.BatchNorm2d:
+    return nn.BatchNorm2d(channels, eps=BN_EPS, momentum=BN_MOMENTUM)
+
+
+class DynamicConv(nn.Module):
+    """K-bank dynamic convolution, pointwise (kernel 1) or depthwise
+    (groups == channels). ``weight`` has the checkpoint's flat shape
+    (1, 1, K, O * I/groups * k * k); ``residuals.0`` is the attention Linear."""
+
+    def __init__(self, in_channels: int, out_channels: int, context_dim: int,
+                 kernel_size: int = 1, stride: int = 1, dilation: int = 1,
+                 k: int = 4):
+        super().__init__()
+        self.depthwise = kernel_size > 1
+        if self.depthwise and in_channels != out_channels:
+            raise ValueError("a depthwise DynamicConv has as many outputs as inputs")
+        self.out_channels = out_channels
+        self.kernel_size, self.stride, self.dilation = kernel_size, stride, dilation
+        self.k = k
+        per_bank = out_channels * (1 if self.depthwise else in_channels) * kernel_size ** 2
+        self.residuals = nn.Sequential(nn.Linear(context_dim, k))
+        self.weight = nn.Parameter(torch.empty(1, 1, k, per_bank))
+
+    @property
+    def bank_std(self) -> float:
+        """Upstream's kaiming normal (fan-out) std of one bank."""
+        return math.sqrt(2.0 / (self.out_channels * self.kernel_size ** 2))
+
+    def forward(self, x: torch.Tensor, h_c: torch.Tensor,
+                temperature: float) -> torch.Tensor:
+        logits = self.residuals(h_c)
+        # the softmax in fp32 at least (under autocast too), then the
+        # compute dtype
+        att = torch.softmax(logits.to(torch.promote_types(logits.dtype, torch.float32))
+                            / temperature, dim=-1).to(logits.dtype)
+        wb = att @ self.weight.reshape(self.k, -1)  # (B, O * I/g * k * k)
+        b, c, f, t = x.shape
+        if not self.depthwise:
+            y = torch.bmm(wb.reshape(b, self.out_channels, c), x.reshape(b, c, f * t))
+            return y.reshape(b, self.out_channels, f, t)
+        ks = self.kernel_size
+        y = F.conv2d(x.reshape(1, b * c, f, t), wb.reshape(b * c, 1, ks, ks),
+                     None, self.stride, (ks - 1) // 2 * self.dilation,
+                     self.dilation, groups=b * c)
+        return y.reshape(b, c, y.shape[2], y.shape[3])
+
+
+class StaticConv(nn.Module):
+    """A static conv in a DynamicConv's place (``no_dyconv``; upstream's
+    ``DynamicWrapper``, hence the key ``<name>.module.weight``)."""
+
+    def __init__(self, module: nn.Conv2d):
+        super().__init__()
+        self.module = module
+
+    def forward(self, x, h_c, temperature):
+        return self.module(x)
+
+
+class ContextGen(nn.Module):
+    """The block's shared context (dy_block.py:214-254): the frequency- and
+    time-pooled sequences, concatenated as (B, C, F+T, 1), through a 1x1
+    conv, BatchNorm and Hardswish; ``h_c`` is their mean, and each branch
+    (average-pooled k3 when the block strides) is projected to the expanded
+    width for coordinate attention."""
+
+    def __init__(self, in_channels: int, context_dim: int, exp_channels: int,
+                 stride: int = 1):
+        super().__init__()
+        self.joint_conv = nn.Conv2d(in_channels, context_dim, 1, bias=False)
+        self.joint_norm = _bn(context_dim)
+        self.joint_act = nn.Hardswish()
+        self.conv_f = nn.Conv2d(context_dim, exp_channels, 1)
+        self.conv_t = nn.Conv2d(context_dim, exp_channels, 1)
+        self.stride = stride
+
+    def forward(self, x: torch.Tensor):
+        """x (B, C, F, T) -> h_c (B, H), g_cf (B, exp, F', 1), g_ct (B, exp, 1, T')."""
+        f, t = x.shape[2], x.shape[3]
+        cf = x.mean(dim=3, keepdim=True)                     # (B, C, F, 1)
+        ct = x.mean(dim=2, keepdim=True).transpose(2, 3)     # (B, C, T, 1)
+        g = self.joint_act(self.joint_norm(self.joint_conv(torch.cat([cf, ct], dim=2))))
+        h_cf, h_ct = torch.split(g, [f, t], dim=2)
+        h_ct = h_ct.transpose(2, 3)                          # (B, H, 1, T)
+        h_c = g.mean(dim=(2, 3))
+        if self.stride > 1:
+            h_cf = F.avg_pool2d(h_cf, (3, 1), (self.stride, 1), (1, 0))
+            h_ct = F.avg_pool2d(h_ct, (1, 3), (1, self.stride), (0, 1))
+        return h_c, self.conv_f(h_cf), self.conv_t(h_ct)
+
+
+class DyReLUB(nn.Module):
+    """Dynamic ReLU B (dy_block.py:142-188): theta = 2 sigmoid(W h_c) - 1
+    as (B, C, 2M); coefs = theta * [1]*M+[0.5]*M + [1, 0, ...];
+    out = max over m of x * a_m + b_m."""
+
+    def __init__(self, channels: int, context_dim: int, m: int = 2):
+        super().__init__()
+        self.channels, self.m = channels, m
+        self.coef_net = nn.Sequential(nn.Linear(context_dim, 2 * m * channels))
+
+    def forward(self, x: torch.Tensor, h_c: torch.Tensor) -> torch.Tensor:
+        m = self.m
+        theta = 2.0 * torch.sigmoid(self.coef_net(h_c)) - 1.0
+        theta = theta.reshape(-1, self.channels, 1, 1, 2 * m)  # (B, C, 1, 1, 2M)
+        # theta * lambdas + init_v, term by term (no constant tensors to copy
+        # to the device): the slopes a_m, then the intercepts b_m
+        a = torch.cat([theta[..., :1] + 1.0, theta[..., 1:m]], dim=-1)
+        b = 0.5 * theta[..., m:]
+        if m == 2:  # two FMAs and a maximum, as upstream specialises
+            return torch.maximum(x * a[..., 0] + b[..., 0], x * a[..., 1] + b[..., 1])
+        return (x[..., None] * a + b).amax(dim=-1)
+
+
+def coord_att(x: torch.Tensor, g_cf: torch.Tensor, g_ct: torch.Tensor) -> torch.Tensor:
+    """Coordinate attention: x * sigmoid(g_cf) * sigmoid(g_ct) (dy_block.py:191-201)."""
+    return x * torch.sigmoid(g_cf) * torch.sigmoid(g_ct)
+
+
+# Which of the 15 blocks are dynamic for use_dy_blocks="replace_se"
+# (models/dymn/model.py:228-229): the 8 positions that have SE in MNv3.
+_REPLACE_SE_MASK = (False, False, False, True, True, True, False, False,
+                    False, False, True, True, True, True, True)
+
+
+@dataclasses.dataclass(frozen=True)
+class DyMNConfig:
+    """Constructor surface of the reference get_model (models/dymn/model.py:289-361)."""
+
+    num_classes: int = 527
+    width_mult: float = 1.0
+    strides: Tuple[int, int, int, int] = (2, 2, 2, 2)
+    head_type: str = "mlp"  # mlp | fully_convolutional
+    context_ratio: int = 4
+    max_context_size: int = 128
+    min_context_size: int = 32
+    dyrelu_k: int = 2
+    dyconv_k: int = 4
+    no_dyrelu: bool = False
+    no_dyconv: bool = False
+    no_ca: bool = False
+    use_dy_blocks: str = "all"  # all | replace_se
+    reduced_tail: bool = False
+    dilated: bool = False
+    in_conv_kernel: int = 3
+    in_conv_stride: int = 2
+    in_channels: int = 1
+    dropout: float = 0.2
+    # temperature schedule (T_max, T_min, T0_slope, T1_slope); with a
+    # pretrained model T_max is the pretraining's final temperature
+    # (models/dymn/model.py:336-342)
+    t_max: float = 30.0
+    t_min: float = 1.0
+    t0_slope: float = 1.0
+    t1_slope: float = 0.02
+    # recompute each block's activations in the backward pass (remat_call)
+    remat: bool = False
+
+    def block_table(self):
+        return mn.mn_block_table(self.width_mult, self.reduced_tail, self.dilated,
+                                 self.strides)
+
+    def dy_mask(self) -> Tuple[bool, ...]:
+        if self.use_dy_blocks == "all":
+            return (True,) * 15
+        if self.use_dy_blocks == "replace_se":
+            return _REPLACE_SE_MASK
+        raise NotImplementedError(f"use_dy_blocks={self.use_dy_blocks}")
+
+    def temperature(self, epoch: int) -> float:
+        return dyconv_temperature(epoch, self.t_max, self.t_min,
+                                  self.t0_slope, self.t1_slope)
+
+    def context_dim(self, cnf: BlockConfig) -> int:
+        """A dynamic block's context size H (dy_block.py:276-281)."""
+        lo = make_divisible(self.min_context_size * self.width_mult, 8)
+        hi = make_divisible(self.max_context_size * self.width_mult, 8)
+        return min(max(make_divisible(cnf.expanded_channels // self.context_ratio, 8),
+                       lo), hi)
+
+
+class DYBlock(nn.Module):
+    """Dynamic inverted residual block (dy_block.py:257-409)."""
+
+    def __init__(self, cnf: BlockConfig, cfg: DyMNConfig):
+        super().__init__()
+        h = cfg.context_dim(cnf)
+        act = ACTIVATIONS[cnf.activation]
+        stride = 1 if cnf.dilation > 1 else cnf.stride
+        exp, k = cnf.expanded_channels, cfg.dyconv_k
+        self.use_res = cnf.use_res
+        self.dyrelu = not cfg.no_dyrelu
+        self.ca = not cfg.no_ca
+        self.context_gen = ContextGen(cnf.input_channels, h, exp, stride)
+        self.expand = exp != cnf.input_channels
+        if self.expand:
+            self.exp_conv = (
+                StaticConv(nn.Conv2d(cnf.input_channels, exp, 1, bias=False))
+                if cfg.no_dyconv else DynamicConv(cnf.input_channels, exp, h, k=k))
+            self.exp_norm = _bn(exp)
+            self.exp_act = act()
+        pad = (cnf.kernel - 1) // 2 * cnf.dilation
+        self.depth_conv = (
+            StaticConv(nn.Conv2d(exp, exp, cnf.kernel, stride, pad, cnf.dilation,
+                                 groups=exp, bias=False))
+            if cfg.no_dyconv else
+            DynamicConv(exp, exp, h, cnf.kernel, stride, cnf.dilation, k=k))
+        self.depth_norm = _bn(exp)
+        self.depth_act = DyReLUB(exp, h, cfg.dyrelu_k) if self.dyrelu else act()
+        self.proj_conv = (
+            StaticConv(nn.Conv2d(exp, cnf.out_channels, 1, bias=False))
+            if cfg.no_dyconv else DynamicConv(exp, cnf.out_channels, h, k=k))
+        self.proj_norm = _bn(cnf.out_channels)
+
+    def forward(self, x: torch.Tensor, temperature: float) -> torch.Tensor:
+        inp = x
+        h_c, g_cf, g_ct = self.context_gen(x)
+        if self.expand:
+            x = self.exp_act(self.exp_norm(self.exp_conv(x, h_c, temperature)))
+        x = self.depth_norm(self.depth_conv(x, h_c, temperature))
+        x = self.depth_act(x, h_c) if self.dyrelu else self.depth_act(x)
+        if self.ca:
+            x = coord_att(x, g_cf, g_ct)
+        x = self.proj_norm(self.proj_conv(x, h_c, temperature))
+        return x + inp if self.use_res else x
+
+
+class DyMN(nn.Module):
+    def __init__(self, cfg: DyMNConfig):
+        super().__init__()
+        self.cfg = cfg
+        table, last_channel = cfg.block_table()
+        self.in_c = ConvNormAct(cfg.in_channels, table[0].input_channels,
+                                cfg.in_conv_kernel, cfg.in_conv_stride)
+        # static blocks carry no SE (upstream hardwires use_se=False for
+        # them, dy_block.py:30)
+        self.layers = nn.ModuleList(
+            DYBlock(cnf, cfg) if dy else InvertedResidual(cnf, se_dims=None)
+            for cnf, dy in zip(table, cfg.dy_mask()))
+        c_tail = 6 * table[-1].out_channels
+        self.out_c = ConvNormAct(table[-1].out_channels, c_tail, 1)
+        if cfg.head_type == "mlp":
+            self.classifier = MlpHead(c_tail, last_channel, cfg.num_classes,
+                                      cfg.dropout)
+        elif cfg.head_type == "fully_convolutional":
+            self.classifier = FullyConvHead(c_tail, cfg.num_classes)
+        else:
+            raise NotImplementedError(
+                f"Head '{cfg.head_type}' unknown. Must be one of: 'mlp', "
+                f"'fully_convolutional'")
+
+    def forward(self, x: torch.Tensor, temperature: float = 1.0
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """x: (B, C_in, F, T) -> (logits (B, classes), embedding (B, C_feat)).
+        Pass ``cfg.temperature(epoch)`` in training and ``cfg.t_max`` to serve."""
+        x = self.in_c(x)
+        for block in self.layers:
+            args = (x, temperature) if isinstance(block, DYBlock) else (x,)
+            x = remat_call(block, *args) if self.cfg.remat else block(*args)
+        x = self.out_c(x)
+        return self.classifier(x), x.mean(dim=(2, 3))
+
+
+@torch.no_grad()
+def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """``mn.init_weights`` (convs, Linears, BatchNorm) and, for every
+    DynamicConv, each bank drawn kaiming normal (fan-out), all from
+    ``generator`` on the CPU."""
+    mn.init_weights(model, generator)
+    for m in model.modules():
+        if isinstance(m, DynamicConv):
+            m.weight.copy_(torch.randn(m.weight.shape, generator=generator) * m.bank_std)
+    return model

@@ -13,11 +13,13 @@ defaults, eps 1e-5 and momentum 0.1 (models/mn/model.py:183).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from efficientat_tpu_torch.utils.common import cnn_out_size, make_divisible
 
@@ -154,6 +156,33 @@ class InvertedResidual(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = self.block(x)
         return out + x if self.use_res else out
+
+
+@contextlib.contextmanager
+def _buffers_kept(module: nn.Module):
+    """Restore every buffer of ``module`` on exit: a BatchNorm run again in
+    training mode would update its running statistics a second time."""
+    saved = [(b, b.clone()) for b in module.buffers()]
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for b, value in saved:
+                b.copy_(value)
+
+
+def remat_call(block: nn.Module, *args):
+    """``block(*args)``; in training with autograd on, its activations are
+    recomputed in the backward pass (``torch.utils.checkpoint``, the
+    counterpart of flax's ``nn.remat``). The recompute leaves the block's
+    buffers as the forward left them, so each BatchNorm updates its running
+    statistics once a step, as under ``nn.remat``. ``use_reentrant=False``,
+    which DDP needs."""
+    if not (block.training and torch.is_grad_enabled()):
+        return block(*args)
+    return checkpoint(block, *args, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(),
+                                          _buffers_kept(block)))
 
 
 class MlpHead(nn.Sequential):

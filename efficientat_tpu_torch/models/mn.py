@@ -23,6 +23,7 @@ from efficientat_tpu_torch.models.layers import (
     InvertedResidual,
     MlpHead,
     MultiHeadAttentionPooling,
+    remat_call,
 )
 from efficientat_tpu_torch.utils.common import cnn_out_size, make_divisible
 
@@ -82,6 +83,8 @@ class MNConfig:
     in_conv_stride: int = 2
     in_channels: int = 1
     dropout: float = 0.2
+    # recompute each block's activations in the backward pass (remat_call)
+    remat: bool = False
 
     def block_table(self):
         return mn_block_table(self.width_mult, self.reduced_tail, self.dilated,
@@ -131,7 +134,11 @@ class MN(nn.Module):
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """x: (B, C_in, F, T) -> (logits (B, classes), embedding (B, C_feat))."""
-        x = self.features(x)
+        stem, *blocks, tail = self.features
+        x = stem(x)
+        for block in blocks:
+            x = remat_call(block, x) if self.cfg.remat else block(x)
+        x = tail(x)
         return self.classifier(x), x.mean(dim=(2, 3))
 
 

@@ -1,15 +1,18 @@
-"""Checkpoint hub: name -> (MN config, mel config, release file)
+"""Checkpoint hub: name -> (MN or DyMN config, mel config, release file)
 (port of efficientat_tpu/models/registry.py).
 
-Every MN name of the JAX registry is here with its own ``MelConfig``. DyMN
-names are not ported yet and raise ``KeyError`` saying so.
+Every name of the JAX registry is here with its own ``MelConfig``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Union
 
+import torch
+from torch import nn
+
+from efficientat_tpu_torch.models.dymn import DyMN, DyMNConfig, init_weights
 from efficientat_tpu_torch.models.mn import MN, MNConfig
 from efficientat_tpu_torch.ops.melspec import MelConfig
 from efficientat_tpu_torch.utils.common import NAME_TO_WIDTH
@@ -22,7 +25,7 @@ MODEL_DIR = "resources"
 class ModelSpec:
     name: str
     file: str  # filename on the release page
-    model_cfg: MNConfig
+    model_cfg: Union[MNConfig, DyMNConfig]
     mel_cfg: MelConfig = MelConfig()
 
     @property
@@ -35,6 +38,14 @@ def _mn(name, file, *, head="mlp", strides=(2, 2, 2, 2), mel=None):
                      MNConfig(width_mult=NAME_TO_WIDTH(name), head_type=head,
                               strides=tuple(strides)),
                      mel or MelConfig())
+
+
+def _dymn(name, file, *, use_dy_blocks="all", t_max=1.0):
+    """DyMN: AudioSet checkpoints finished training at temperature 1.0,
+    ImageNet ones at 30.0 (models/dymn/model.py:336-340)."""
+    return ModelSpec(name, file,
+                     DyMNConfig(width_mult=NAME_TO_WIDTH(name),
+                                use_dy_blocks=use_dy_blocks, t_max=t_max))
 
 
 _SPECS = [
@@ -80,6 +91,19 @@ _SPECS = [
         head="fully_convolutional", strides=(2, 2, 2, 1)),
     _mn("mn10_as_fc_s2211", "mn10_as_fc_s2211_mAP_466.pt",
         head="fully_convolutional", strides=(2, 2, 1, 1)),
+    # DyMN, ImageNet (final temperature 30)
+    _dymn("dymn04_im", "dymn04_im.pt", t_max=30.0),
+    _dymn("dymn10_im", "dymn10_im.pt", t_max=30.0),
+    _dymn("dymn20_im", "dymn20_im.pt", t_max=30.0),
+    # DyMN, AudioSet
+    _dymn("dymn04_as", "dymn04_as.pt"),
+    _dymn("dymn10_as", "dymn10_as.pt"),
+    _dymn("dymn20_as", "dymn20_as_mAP_493.pt"),
+    _dymn("dymn20_as(1)", "dymn20_as.pt"),
+    _dymn("dymn20_as(2)", "dymn20_as_mAP_489.pt"),
+    _dymn("dymn20_as(3)", "dymn20_as_mAP_490.pt"),
+    _dymn("dymn04_replace_se_as", "dymn04_replace_se_as.pt", use_dy_blocks="replace_se"),
+    _dymn("dymn10_replace_se_as", "dymn10_replace_se_as.pt", use_dy_blocks="replace_se"),
 ]
 
 REGISTRY = {s.name: s for s in _SPECS}
@@ -87,18 +111,21 @@ REGISTRY = {s.name: s for s in _SPECS}
 
 def get_model_config(name: str) -> ModelSpec:
     if name not in REGISTRY:
-        if name.startswith("dymn"):
-            raise KeyError(f"'{name}' is a DyMN model; DyMN is not ported to "
-                           "efficientat_tpu_torch yet")
         raise KeyError(f"Model name '{name}' unknown. Known: {sorted(REGISTRY)}")
     return REGISTRY[name]
 
 
-def build_model(name_or_cfg, num_classes: Optional[int] = None) -> MN:
-    """An MN module (CPU, torch's default init) for a registry name or an
-    ``MNConfig``; ``num_classes`` overrides the config's class count."""
+def build_model(name_or_cfg, num_classes: Optional[int] = None,
+                generator: Optional[torch.Generator] = None) -> nn.Module:
+    """An MN or DyMN module on the CPU for a registry name or a config;
+    ``num_classes`` overrides the config's class count. With ``generator``
+    the weights are upstream's init drawn from it (``dymn.init_weights``,
+    which is ``mn.init_weights`` plus DyMN's banks), else torch's default."""
     cfg = (get_model_config(name_or_cfg).model_cfg
            if isinstance(name_or_cfg, str) else name_or_cfg)
     if num_classes is not None and num_classes != cfg.num_classes:
         cfg = dataclasses.replace(cfg, num_classes=num_classes)
-    return MN(cfg)
+    model = DyMN(cfg) if isinstance(cfg, DyMNConfig) else MN(cfg)
+    if generator is not None:
+        init_weights(model, generator)
+    return model

@@ -11,9 +11,15 @@ must divide), runs K1 on them (K1-dp), and the ranks normalise BatchNorm over
 the global batch and average their gradients (``parallel/ddp.py``); rank 0
 evaluates, logs and writes checkpoints.
 
-Not ported yet, and refused with an error: ``--remat``, DyMN names,
-``--variable_eval_length``, and ``--pretrained`` with a class count other
-than the checkpoint's (classifier-head surgery).
+``--model_name dymn*`` trains a DyMN: its DynamicConv temperature follows
+``DyMNConfig.temperature(epoch)`` (from ``t_max`` 30, or
+``--pretrain_final_temp`` for a ``--pretrained`` one) and each epoch's eval
+runs at that epoch's temperature, ``--eval_only`` at ``t_max``. ``--remat``
+recomputes each block's activations in the backward pass, for MN and DyMN.
+
+Not ported yet, and refused with an error: ``--variable_eval_length``, and
+``--pretrained`` with a class count other than the checkpoint's
+(classifier-head surgery).
 """
 
 from __future__ import annotations
@@ -55,7 +61,8 @@ def _build_parser(spec):
     p.add_argument("--bf16", action="store_true", default=False,
                    help="autocast the model to bfloat16 (the mel stays fp32)")
     p.add_argument("--remat", action="store_true", default=False,
-                   help="not ported yet: raises")
+                   help="recompute each block's activations in the backward "
+                        "pass (torch.utils.checkpoint)")
     p.add_argument("--int16_waves", action="store_true", default=False,
                    help="alias for --wave_codec i16")
     p.add_argument("--wave_codec", choices=["f32", "i16", "mulaw8"],
@@ -91,12 +98,11 @@ def _mel_config(args):
 
 def _build_model(spec, args) -> nn.Module:
     """Reference model selection (ex_audioset.py:61-70), on the CPU."""
-    from efficientat_tpu_torch.models.mn import MN, MNConfig, init_weights
+    from efficientat_tpu_torch.models.dymn import DyMNConfig
+    from efficientat_tpu_torch.models.mn import MNConfig
+    from efficientat_tpu_torch.models.registry import build_model
 
     name = args.model_name
-    if name.startswith("dymn"):
-        raise NotImplementedError(f"{name}: DyMN is not ported to "
-                                  "efficientat_tpu_torch yet")
     strides, se_agg = args.strides, args.se_agg
     if args.pretrained:
         from efficientat_tpu_torch.models.convert import load_pretrained
@@ -109,18 +115,35 @@ def _build_model(spec, args) -> nn.Module:
                 f"task {spec.num_classes}: classifier-head surgery is not "
                 "ported yet")
         weights = load_pretrained(name).state_dict()
+        cfg = dataclasses.replace(cfg, remat=args.remat)
         if strides is not None:  # strides change no parameter shape
             cfg = dataclasses.replace(cfg, strides=tuple(strides))
-        if se_agg is not None:
+        if isinstance(cfg, DyMNConfig):
+            cfg = dataclasses.replace(cfg, t_max=args.pretrain_final_temp)
+        elif se_agg is not None:
             cfg = dataclasses.replace(cfg, se_agg=se_agg)
-        model = MN(cfg)
+        model = build_model(cfg)
         model.load_state_dict(weights, strict=True)
         return model
-    cfg = MNConfig(num_classes=spec.num_classes, width_mult=args.model_width,
-                   head_type=args.head_type, se_dims=args.se_dims,
-                   se_agg=se_agg or "max",
-                   strides=tuple(strides or (2, 2, 2, 2)))
-    return init_weights(MN(cfg), torch.Generator().manual_seed(args.seed))
+    if name.startswith("dymn"):
+        cfg = DyMNConfig(num_classes=spec.num_classes, width_mult=args.model_width,
+                         strides=tuple(strides or (2, 2, 2, 2)), remat=args.remat)
+    else:
+        cfg = MNConfig(num_classes=spec.num_classes, width_mult=args.model_width,
+                       head_type=args.head_type, se_dims=args.se_dims,
+                       se_agg=se_agg or "max",
+                       strides=tuple(strides or (2, 2, 2, 2)), remat=args.remat)
+    return build_model(cfg, generator=torch.Generator().manual_seed(args.seed))
+
+
+def _temperature(model: nn.Module, epoch: Optional[int]) -> float:
+    """A DyMN's DynamicConv temperature at ``epoch`` (``t_max`` for None);
+    1.0, which an MN ignores, otherwise."""
+    from efficientat_tpu_torch.models.dymn import DyMN
+
+    if not isinstance(model, DyMN):
+        return 1.0
+    return model.cfg.t_max if epoch is None else model.cfg.temperature(epoch)
 
 
 class _RankRows:
@@ -178,13 +201,14 @@ def _eval_metrics(spec, logits, targets):
     return {"mAP": m_ap, "ROC": m_roc, "val_loss": float(bce.mean())}
 
 
-def _run_eval(spec, model, mel_cfg, eval_loader, device, bf16):
+def _run_eval(spec, model, mel_cfg, eval_loader, device, bf16, temperature):
     from efficientat_tpu_torch.train.loop import eval_step
 
     all_logits, all_targets = [], []
     for batch in eval_loader.epoch(0):
         wave = torch.from_numpy(np.ascontiguousarray(_host_wave(batch)))
-        logits = eval_step(model, mel_cfg, wave.to(device), bf16=bf16)
+        logits = eval_step(model, mel_cfg, wave.to(device), bf16=bf16,
+                           temperature=temperature)
         all_logits.append(logits.cpu().numpy())
         t = np.asarray(batch["target"])
         all_targets.append(t if t.ndim > 0 else t[None])
@@ -220,9 +244,6 @@ def run_train(task_name: str, argv):
 
     spec = TASKS[task_name]
     args = _build_parser(spec).parse_args(argv)
-    if args.remat:
-        raise NotImplementedError("--remat is not ported to "
-                                  "efficientat_tpu_torch yet")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda, but no CUDA device is visible; "
                            "pass --device cpu to train on the CPU")
@@ -270,7 +291,7 @@ def run_train(task_name: str, argv):
         metrics = None
         if rank == 0:
             metrics = _run_eval(spec, model, mel_cfg, eval_loader, device,
-                                args.bf16)
+                                args.bf16, _temperature(model, None))
             logger.log(metrics)
             logger.close()
         _leave_group(dp, created_group)
@@ -320,20 +341,22 @@ def run_train(task_name: str, argv):
         # rank, epoch), so a resumed run repeats an uninterrupted one
         torch.manual_seed(int(np.random.SeedSequence(
             [args.seed, rank, epoch]).generate_state(1)[0]))
+        temperature = _temperature(model, epoch)
         epoch_metrics = []
         for batch in train_loader.epoch(epoch):
             draws = rand.draw(mel_cfg, loss_cfg, args.batch_size,
                               batch["wave"].shape[1])
             metrics = train_step(net, optimizer, scheduler, mel_cfg, loss_cfg,
                                  _prepare_batch(batch, spec, teacher, device),
-                                 draws, bf16=args.bf16, dp=dp)
+                                 draws, bf16=args.bf16, dp=dp,
+                                 temperature=temperature)
             epoch_metrics.append({k: float(v) for k, v in metrics.items()})
             step += 1
         record = {k: float(np.mean([m[k] for m in epoch_metrics]))
                   for k in (epoch_metrics[0] if epoch_metrics else {})}
         if rank == 0:
             record.update(_run_eval(spec, model, mel_cfg, eval_loader, device,
-                                    args.bf16))
+                                    args.bf16, temperature))
             record.update(learning_rate=scheduler.get_last_lr()[0], epoch=epoch)
             logger.log(record, step=epoch)
             save_checkpoint(ckpt_dir, {

@@ -22,7 +22,11 @@ can hand the port the JAX key's draws. Under data parallelism
 mixstyle act on the gathered global batch, as they do under the JAX mesh.
 
 ``bf16`` autocasts the model only; the mel stays fp32, as upstream keeps
-its front end out of autocast (models/preprocess.py:56-57).
+its front end out of autocast (models/preprocess.py:56-57), and so does a
+DyMN's attention softmax.
+
+A DyMN takes the DynamicConv ``temperature`` of the epoch
+(``DyMNConfig.temperature``) in both steps; an MN ignores it.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from efficientat_tpu_torch.data.wavecodec import decode
+from efficientat_tpu_torch.models.dymn import DyMN
 from efficientat_tpu_torch.ops.mel_kernel import log_mel_spectrogram_fused
 from efficientat_tpu_torch.ops.melspec import MelConfig, MelDraws, draw_mel_augment
 from efficientat_tpu_torch.parallel.ddp import (
@@ -160,11 +165,19 @@ def task_loss(loss_cfg: LossConfig, logits: torch.Tensor,
     return loss, {"label_loss": label_loss, "distillation_loss": soft}
 
 
+def model_forward(model: nn.Module, x: torch.Tensor, temperature: float):
+    """``model(x)``, with ``temperature`` for a DyMN, also behind its
+    ``DistributedDataParallel`` wrapper (JAX loop.py:78-83)."""
+    inner = model.module if isinstance(model, nn.parallel.DistributedDataParallel) else model
+    return model(x, temperature) if isinstance(inner, DyMN) else model(x)
+
+
 def train_step(model: nn.Module, optimizer: torch.optim.Optimizer, scheduler,
                mel_cfg: MelConfig, loss_cfg: LossConfig,
                batch: Dict[str, torch.Tensor], draws: StepDraws, *,
                bf16: bool = False, dp: Optional[DataParallel] = None,
-               dft_precision: Optional[str] = None) -> Dict[str, torch.Tensor]:
+               dft_precision: Optional[str] = None,
+               temperature: float = 1.0) -> Dict[str, torch.Tensor]:
     """One optimizer step on ``batch`` (this rank's rows, on the model's
     device: ``wave`` f32 / int16 / uint8, ``target``, and for KD ``teacher``
     and ``teacher_valid``) with ``draws`` made for the global batch.
@@ -194,7 +207,7 @@ def train_step(model: nn.Module, optimizer: torch.optim.Optimizer, scheduler,
         mix = (torch.from_numpy(np.array(lam[rows])).to(x.device), partner)
 
     with torch.autocast(x.device.type, dtype=torch.bfloat16, enabled=bf16):
-        logits, _ = model(x)
+        logits, _ = model_forward(model, x, temperature)
     loss, aux = task_loss(loss_cfg, logits.float(), batch, mix)
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
@@ -207,11 +220,12 @@ def train_step(model: nn.Module, optimizer: torch.optim.Optimizer, scheduler,
 
 @torch.no_grad()
 def eval_step(model: nn.Module, mel_cfg: MelConfig, wave: torch.Tensor, *,
-              bf16: bool = False, dft_precision: Optional[str] = None) -> torch.Tensor:
+              bf16: bool = False, dft_precision: Optional[str] = None,
+              temperature: float = 1.0) -> torch.Tensor:
     """Logits (B, classes) fp32 of the model in eval mode on ``wave``."""
     model.eval()
     mel = log_mel_spectrogram_fused(decode(wave), mel_cfg,
                                     dft_precision=dft_precision)
     with torch.autocast(mel.device.type, dtype=torch.bfloat16, enabled=bf16):
-        logits, _ = model(mel[:, None])
+        logits, _ = model_forward(model, mel[:, None], temperature)
     return logits.float()

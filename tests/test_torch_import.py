@@ -30,6 +30,7 @@ SLICE_MODULES = [
     "efficientat_tpu_torch.infer.tag",
     "efficientat_tpu_torch.models",
     "efficientat_tpu_torch.models.convert",
+    "efficientat_tpu_torch.models.dymn",
     "efficientat_tpu_torch.models.layers",
     "efficientat_tpu_torch.models.mn",
     "efficientat_tpu_torch.models.registry",

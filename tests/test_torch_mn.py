@@ -112,19 +112,23 @@ def test_concurrent_se_matches_flax(se_agg):
                                rtol=0, atol=1e-6)
 
 
+# the JAX DyMNConfig fields of TPU lowerings the port leaves out
+DYMN_UNPORTED = ("pw_form", "layout", "dyconv_compute")
+
+
 @pytest.mark.parametrize("name", sorted(jreg.REGISTRY))
 def test_registry_matches_jax(name):
     jspec = jreg.REGISTRY[name]
-    if isinstance(jspec.model_cfg, jmn.MNConfig):
-        spec = treg.get_model_config(name)
-        assert spec.file == jspec.file
-        assert dataclasses.asdict(spec.model_cfg) == {
-            k: v for k, v in dataclasses.asdict(jspec.model_cfg).items()
-            if k != "remat"}
-        assert dataclasses.asdict(spec.mel_cfg) == dataclasses.asdict(jspec.mel_cfg)
-    else:
-        with pytest.raises(KeyError, match="DyMN"):
-            treg.get_model_config(name)
+    spec = treg.get_model_config(name)
+    assert spec.file == jspec.file
+    assert type(spec.model_cfg).__name__ == type(jspec.model_cfg).__name__
+    assert dataclasses.asdict(spec.model_cfg) == {
+        k: v for k, v in dataclasses.asdict(jspec.model_cfg).items()
+        if k not in DYMN_UNPORTED}
+    assert dataclasses.asdict(spec.mel_cfg) == dataclasses.asdict(jspec.mel_cfg)
+    with torch.device("meta"):  # every name builds, without allocating
+        model = treg.build_model(name)
+    assert type(model).__name__ == type(jspec.model_cfg).__name__[:-len("Config")]
 
 
 def test_init_weights_seeded():

@@ -117,14 +117,76 @@ def test_cli_main_dispatches_train(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("extra,error,match", [
-    (["--remat"], NotImplementedError, "remat"),
-    (["--model_name", "dymn10_as"], NotImplementedError, "DyMN"),
     (["--variable_eval_length"], NotImplementedError, "time_valid"),
 ])
 def test_unported_options_raise(tmp_path, extra, error, match):
     task = "fsd50k" if "--variable_eval_length" in extra else "esc50"
     with pytest.raises(error, match=match):
         run_train(task, _argv(tmp_path, "--n_epochs", "1", *extra))
+
+
+@pytest.mark.parametrize("name,extra", [
+    ("mn04_as", ["--remat"]), ("dymn04_as", []), ("dymn04_as", ["--remat"])],
+    ids=["mn_remat", "dymn", "dymn_remat"])
+def test_dymn_and_remat_train_export_tagger(tmp_path, name, extra):
+    export = tmp_path / get_model_config(name).file
+    result = run_train("esc50", _argv(tmp_path, "--n_epochs", "1", "--model_name",
+                                      name, "--export", str(export), *extra))
+    assert result.step == 2 and np.isfinite(result.history[0]["train_loss"])
+    assert type(result.model).__name__ == ("DyMN" if name.startswith("dymn") else "MN")
+    assert result.model.cfg.remat == ("--remat" in extra)
+    tagger = Tagger(name, num_classes=50, model_dir=str(tmp_path), device="cpu")
+    for (key, want), got in zip(result.model.state_dict().items(),
+                                tagger.members[0].state_dict().values()):
+        torch.testing.assert_close(got, want, rtol=0, atol=0, msg=key)
+    wave = (np.random.default_rng(0).normal(size=(2, 32000)) * 0.1).astype(np.float32)
+    probs = tagger.predict(wave)
+    assert probs.shape == (2, 50) and np.isfinite(probs).all()
+
+
+def _spy_temperatures(monkeypatch):
+    """Record the DynamicConv temperature of every train and eval step."""
+    from efficientat_tpu_torch.train import loop
+
+    seen = {"train": [], "eval": []}
+    for kind, fn in (("train", loop.train_step), ("eval", loop.eval_step)):
+        def spy(*args, temperature, _fn=fn, _kind=kind, **kwargs):
+            seen[_kind].append(temperature)
+            return _fn(*args, temperature=temperature, **kwargs)
+        monkeypatch.setattr(loop, f"{kind}_step", spy)
+    return seen
+
+
+def test_dymn_temperature_follows_the_epoch(tmp_path, monkeypatch):
+    # t_max 30: epochs 0-2 train and evaluate at 30, 29 and 28
+    # (DyMNConfig.temperature); --eval_only evaluates at t_max
+    seen = _spy_temperatures(monkeypatch)
+    export = tmp_path / "w.pt"
+    run_train("esc50", _argv(tmp_path, "--n_epochs", "3", "--model_name", "dymn04_as",
+                             "--export", str(export)))
+    assert seen["train"] == [30.0, 30.0, 29.0, 29.0, 28.0, 28.0]
+    evals = len(seen["eval"]) // 3
+    assert seen["eval"] == [30.0] * evals + [29.0] * evals + [28.0] * evals
+    seen["eval"].clear()
+    run_evaluate("esc50", ["--synthetic", "4", "--batch_size", "2", *SMALL,
+                           "--model_name", "dymn04_as", "--weights", str(export)])
+    assert seen["eval"] and set(seen["eval"]) == {30.0}
+
+
+def test_pretrained_dymn_starts_at_pretrain_final_temp(tmp_path, monkeypatch):
+    # a --pretrained DyMN's schedule starts from --pretrain_final_temp
+    from efficientat_tpu_torch.models.registry import build_model
+
+    spec = get_model_config("dymn04_as")
+    (tmp_path / "resources").mkdir()
+    torch.save(build_model("dymn04_as", generator=torch.Generator().manual_seed(0))
+               .state_dict(), tmp_path / "resources" / spec.file)
+    seen = _spy_temperatures(monkeypatch)
+    result = run_train("audioset", _argv(tmp_path, "--n_epochs", "2", "--model_name",
+                                         "dymn04_as", "--pretrained",
+                                         "--pretrain_final_temp", "2.0"))
+    assert result.model.cfg.t_max == 2.0
+    assert seen["train"] == [2.0, 2.0, 1.0, 1.0]
 
 
 def test_cuda_device_without_a_card_raises(tmp_path, monkeypatch):

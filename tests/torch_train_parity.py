@@ -62,9 +62,11 @@ def step_draws(key, step, mel_cfg, loss_cfg, batch, n_samples) -> StepDraws:
 
 # ------------------------------------------------------------ one train step
 #
-# One state dict (torch_oracle.make_mn_state_dict) feeds flax through
-# convert_mn and the port through load_state_dict(strict=True). Dropout is 0
-# on both sides: the port cannot replay JAX's dropout bits.
+# One state dict (torch_oracle.make_mn_state_dict or make_dymn_state_dict)
+# feeds flax through convert_mn / convert_dymn and the port through
+# load_state_dict(strict=True). Dropout is 0 on both sides: the port cannot
+# replay JAX's dropout bits. Each helper takes the model config (MN's by
+# default) and, for a DyMN, the DynamicConv temperature.
 #
 # The loss and the new BatchNorm statistics come from the two whole steps.
 # The gradients are compared on ONE model input, the one the port's step fed
@@ -80,11 +82,14 @@ import dataclasses  # noqa: E402
 
 from torch import nn  # noqa: E402
 
-from efficientat_tpu_torch.models.mn import MN, MNConfig  # noqa: E402
+from efficientat_tpu_torch.models.dymn import DyMNConfig  # noqa: E402
+from efficientat_tpu_torch.models.mn import MNConfig  # noqa: E402
+from efficientat_tpu_torch.models.registry import build_model  # noqa: E402
 from efficientat_tpu_torch.ops.melspec import MelConfig  # noqa: E402
 from efficientat_tpu_torch.train.loop import LossConfig  # noqa: E402
 
 MODEL_CFG = MNConfig(width_mult=0.4, num_classes=10, dropout=0.0)
+DYMN_CFG = DyMNConfig(width_mult=0.4, num_classes=10, dropout=0.0)
 # the audioset preset's front end: fmin/fmax jitter on, no SpecAugment masks
 # (test_torch_train_mel.py holds the masks). A mask makes whole regions of
 # the input equal, and an activation that crosses a kink there crosses it
@@ -110,10 +115,27 @@ RTOL_GRAD_TENSOR = 5e-2
 ATOL_STATS = 1e-5
 
 
-def state_dict(seed=0):
-    from torch_oracle import make_mn_state_dict
+def jax_config(cfg):
+    """The JAX package's config of a port config."""
+    from efficientat_tpu.models import dymn as jdymn
+    from efficientat_tpu.models import mn as jmn
 
-    return make_mn_state_dict(MODEL_CFG, seed=seed)
+    jcls = jdymn.DyMNConfig if isinstance(cfg, DyMNConfig) else jmn.MNConfig
+    return jcls(**dataclasses.asdict(cfg))
+
+
+def state_dict(seed=0, cfg=MODEL_CFG):
+    from torch_oracle import make_dymn_state_dict, make_mn_state_dict
+
+    make = make_dymn_state_dict if isinstance(cfg, DyMNConfig) else make_mn_state_dict
+    return make(jax_config(cfg), seed=seed)
+
+
+def from_flax(variables, cfg):
+    from efficientat_tpu_torch.models.convert import from_flax_dymn, from_flax_mn
+
+    return (from_flax_dymn if isinstance(cfg, DyMNConfig) else from_flax_mn)(
+        variables, cfg)
 
 
 def make_batch(n, seed=0):
@@ -126,14 +148,14 @@ def make_batch(n, seed=0):
     }
 
 
-def _flax(sd):
+def _flax(sd, cfg):
     import jax.numpy as jnp
 
-    from efficientat_tpu.models import mn as jmn
-    from efficientat_tpu.models.convert import convert_mn
+    from efficientat_tpu.models.convert import convert
+    from efficientat_tpu.models.registry import build_model as jax_build_model
 
-    jcfg = jmn.MNConfig(**dataclasses.asdict(MODEL_CFG))
-    return jmn.MN(jcfg), jax.tree.map(jnp.asarray, convert_mn(
+    jcfg = jax_config(cfg)
+    return jax_build_model(jcfg)[0], jax.tree.map(jnp.asarray, convert(
         {k: v.numpy() for k, v in sd.items()}, jcfg))
 
 
@@ -143,7 +165,7 @@ def _jax_loss_cfg():
     return jloop.LossConfig(**dataclasses.asdict(LOSS_CFG))
 
 
-def jax_step(sd, batch, key, mesh=None):
+def jax_step(sd, batch, key, mesh=None, cfg=MODEL_CFG, temperature=1.0):
     """The JAX ``make_train_step`` on the CPU (a ``mesh`` shards the batch).
     Returns (loss, the new BN statistics as port state-dict entries)."""
     import jax.numpy as jnp
@@ -151,9 +173,8 @@ def jax_step(sd, batch, key, mesh=None):
 
     from efficientat_tpu.ops import melspec as jmel
     from efficientat_tpu.train import loop as jloop
-    from efficientat_tpu_torch.models.convert import from_flax_mn
 
-    model, variables = _flax(sd)
+    model, variables = _flax(sd, cfg)
     state = jloop.TrainState.create(apply_fn=model.apply,
                                     params=variables["params"],
                                     batch_stats=variables["batch_stats"],
@@ -162,56 +183,65 @@ def jax_step(sd, batch, key, mesh=None):
         model, jmel.MelConfig(**dataclasses.asdict(MEL_CFG)), _jax_loss_cfg(),
         mesh)
     if mesh is None:
-        new, metrics = jax.jit(step)(state, batch, key, jnp.float32(1.0))
+        new, metrics = jax.jit(step)(state, batch, key, jnp.float32(temperature))
     else:
         from efficientat_tpu.parallel import shard_batch
         from efficientat_tpu.parallel.mesh import replicate
 
         jt, _ = jloop.jit_steps(step, lambda *a: None, mesh, donate_state=False)
         new, metrics = jt(replicate(state, mesh), shard_batch(batch, mesh), key,
-                          jnp.float32(1.0))
+                          jnp.float32(temperature))
     stats = jax.tree.map(np.asarray, new.batch_stats)
-    return float(metrics["train_loss"]), from_flax_mn(
+    return float(metrics["train_loss"]), from_flax(
         {"params": jax.tree.map(np.asarray, new.params), "batch_stats": stats},
-        MODEL_CFG)
+        cfg)
 
 
-def jax_grads_at(sd, x, batch, mixup):
+def jax_grads_at(sd, x, batch, mixup, cfg=MODEL_CFG, temperature=1.0,
+                 jit_grad=True):
     """Loss and gradients (port layout) of the functions the JAX step
     differentiates (``_model_forward`` in train mode, ``_task_loss``) at the
-    model input ``x`` (B, 1, F, T), with the step's mixup draws."""
+    model input ``x`` (B, 1, F, T), with the step's mixup draws, as the step
+    does: ``jit(value_and_grad(loss))``. ``jit_grad=False`` differentiates the
+    compiled loss, ``value_and_grad(jit(loss))``: at some inputs XLA:CPU's
+    compiled value-and-gradient of DyMN is not the loss's derivative
+    (tests/test_torch_dymn.py)."""
     import jax.numpy as jnp
 
     from efficientat_tpu.train import loop as jloop
-    from efficientat_tpu_torch.models.convert import from_flax_mn
 
-    model, variables = _flax(sd)
+    model, variables = _flax(sd, cfg)
     perm, lam = (jnp.asarray(a) for a in mixup)
     xj = jnp.asarray(np.ascontiguousarray(x.transpose(0, 2, 3, 1)))
     bj = jax.tree.map(jnp.asarray, batch)
 
     def loss_fn(params):
         logits, _, _ = jloop._model_forward(model, params, variables["batch_stats"],
-                                            xj, True, 1.0, jax.random.PRNGKey(0))
+                                            xj, True, temperature,
+                                            jax.random.PRNGKey(0))
         return jloop._task_loss(_jax_loss_cfg(), logits, bj, perm, lam)[0]
 
-    loss, grads = jax.jit(jax.value_and_grad(loss_fn))(variables["params"])
-    return float(loss), from_flax_mn(
+    grad_fn = (jax.jit(jax.value_and_grad(loss_fn)) if jit_grad
+               else jax.value_and_grad(jax.jit(loss_fn)))
+    loss, grads = grad_fn(variables["params"])
+    return float(loss), from_flax(
         {"params": jax.tree.map(np.asarray, grads),
          "batch_stats": jax.tree.map(np.asarray, variables["batch_stats"])},
-        MODEL_CFG)
+        cfg)
 
 
-def port_step(sd, batch, draws, dp=None, device="cpu"):
+def port_step(sd, batch, draws, dp=None, device="cpu", cfg=MODEL_CFG,
+              temperature=1.0):
     """The port's ``train_step`` with SGD on ``batch`` (this rank's rows
-    under ``dp``). Returns a dict: loss, grads, buffers, the model input x
-    and the count of values each BatchNorm normalised over on this rank."""
+    under ``dp``). Returns a dict: loss, grads, buffers, the model input x,
+    the logits and the count of values each BatchNorm normalised over on
+    this rank."""
     import torch
 
     from efficientat_tpu_torch.parallel.ddp import convert_global_bn
     from efficientat_tpu_torch.train.loop import train_step
 
-    model = MN(MODEL_CFG)
+    model = build_model(cfg)
     model.load_state_dict(sd, strict=True)
     if dp is not None and dp.world > 1:
         convert_global_bn(model)
@@ -219,6 +249,8 @@ def port_step(sd, batch, draws, dp=None, device="cpu"):
     out = {"counts": {}}
     model.register_forward_pre_hook(
         lambda m, inp: out.__setitem__("x", inp[0].detach().cpu().numpy()))
+    model.register_forward_hook(
+        lambda m, inp, res: out.__setitem__("logits", res[0].detach().cpu()))
     for name, mod in model.named_modules():
         if isinstance(mod, nn.BatchNorm2d):
             mod.register_forward_pre_hook(
@@ -232,28 +264,28 @@ def port_step(sd, batch, draws, dp=None, device="cpu"):
     tensors = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
                for k, v in batch.items()}
     metrics = train_step(net, opt, None, MEL_CFG, LOSS_CFG, tensors, draws,
-                         dp=dp)
+                         dp=dp, temperature=temperature)
     out["loss"] = float(metrics["train_loss"])
     out["grads"] = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
     out["buffers"] = {n: b.detach().cpu() for n, b in model.named_buffers()}
     return out
 
 
-def port_grads_at(sd, x, batch, mixup):
+def port_grads_at(sd, x, batch, mixup, cfg=MODEL_CFG, temperature=1.0):
     """Loss and gradients of the port's one-process model and loss at the
     model input ``x``, as ``train_step`` takes them after the mel."""
     import torch
 
-    from efficientat_tpu_torch.train.loop import task_loss
+    from efficientat_tpu_torch.train.loop import model_forward, task_loss
 
-    model = MN(MODEL_CFG)
+    model = build_model(cfg)
     model.load_state_dict(sd, strict=True)
     model.train()
     perm, lam = mixup
     tensors = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items()}
     partner = {k: tensors[k][torch.from_numpy(np.array(perm))]
                for k in ("target", "teacher")}
-    logits, _ = model(torch.from_numpy(x))
+    logits, _ = model_forward(model, torch.from_numpy(x), temperature)
     loss, _ = task_loss(LOSS_CFG, logits, tensors,
                         (torch.from_numpy(np.array(lam)), partner))
     loss.backward()
