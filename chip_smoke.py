@@ -63,10 +63,30 @@ and DyMN (``dymn10_as``, full width, seeded weights), after the probe:
 13. ``train audioset --model_name dymn10_as`` on two gloo ranks of cuda:0
     as torchrun starts them: K1-dp at every step, every BatchNorm global.
 
+and the rest of serving and exact-length eval, full width, seeded weights:
+
+14. windowed tagging, ``EATagger.tag_audio_window(path, 10, 2.5)`` on a
+    seeded 60 s WAV (21 windows, one batch) for ``dymn10_as`` and
+    ``mn10_as``: K1 once a call, card against CPU, chunks of 8 windows
+    against one batch, audio-seconds/s with the file's decode left out;
+15. the ensemble ``Tagger(["mn40_as_ext", "dymn20_as"])`` at B=32: clips/s,
+    the probs against its members' mean logits, card against CPU at B=2;
+16. the bf16 Tagger (``dtype=torch.bfloat16``, the mel fp32): ``mn10_as``
+    at B=64 and ``dymn10_as`` at B=256, clips/s beside the fp32 Tagger's,
+    probs within the bf16 bound of the fp32 Tagger's;
+17. ``train esc50 --pretrained --model_name mn10_as`` from a seeded
+    527-class file: the head drawn fresh with 50 classes, every other
+    tensor from the file, one epoch of 2 steps;
+18. exact-length eval: 8 clips of 3-10 s through ``bucket_pad_collate`` and
+    ``eval_step(..., time_valid=...)`` (K1 fp32), ``mn10_as`` and
+    ``dymn10_as``: each row against its clip alone at batch 1 and against
+    the CPU; then ``mn10_as_mels_256`` through the Tagger, K1 counted.
+
 Then one JSON line on the kernels, per path (tag, train, train_dp,
-tag_fp32, train_fp32, tag_dymn, train_dymn, train_dp_dymn, probe), the
-card's ``nvidia-smi`` line and, last, ``{"ok": true, "device": {...}}``.
-Any failure raises and exits non-zero; nothing falls back to the CPU.
+tag_fp32, train_fp32, tag_dymn, train_dymn, train_dp_dymn, tag_windowed,
+tag_ensemble2, tag_bf16, eval_variable, probe), the card's ``nvidia-smi``
+line and, last, ``{"ok": true, "device": {...}}``. Any failure raises and
+exits non-zero; nothing falls back to the CPU.
 """
 
 from __future__ import annotations
@@ -91,8 +111,12 @@ from torch import nn
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
+import efficientat_tpu_torch.data as port_data  # noqa: E402
 from efficientat_tpu_torch.data import encode, load_waveform  # noqa: E402
+from efficientat_tpu_torch.data.core import bucket_pad_collate  # noqa: E402
 from efficientat_tpu_torch.infer.tag import Tagger  # noqa: E402
+from efficientat_tpu_torch.infer.windowed import EATagger, window_signal  # noqa: E402
+from efficientat_tpu_torch.models.convert import load_pretrained  # noqa: E402
 from efficientat_tpu_torch.models.dymn import DynamicConv  # noqa: E402
 from efficientat_tpu_torch.models.registry import (  # noqa: E402
     build_model,
@@ -122,6 +146,7 @@ from efficientat_tpu_torch.train.cli import run_train  # noqa: E402
 from efficientat_tpu_torch.train.loop import (  # noqa: E402
     LossConfig,
     StepRandom,
+    eval_step,
     make_optimizer,
     model_forward,
     task_loss,
@@ -1193,6 +1218,342 @@ def phase_dymn_train_dp(device):
     return sum(t["launches"] for t in train)
 
 
+# ------------------------------------------- windowed, ensembles, bf16, eval
+
+WINDOW_SECONDS, WINDOW_HOP = 10.0, 2.5  # 60 s -> 21 windows, one batch
+WINDOWED_MODELS = (DYMN, "mn10_as")
+SURGERY_MODEL = "mn10_as"
+EVAL_MODELS = ("mn10_as", DYMN)
+WINDOW_CHUNK = 8                        # max_batch of the chunked call
+# the same windows in chunks of WINDOW_CHUNK against one batch: the same
+# rows, convs run at another batch size
+TOL_CHUNKS = 1e-5
+ENSEMBLE2 = ("mn40_as_ext", "dymn20_as")
+ENSEMBLE_BATCH = 32
+# the Tagger's probs against the sigmoid of its members' mean logits,
+# members run alone with the same weights on the same card
+TOL_ENSEMBLE_MEAN = 1e-6
+# bf16 autocast Tagger against the fp32 one: tests/test_torch_tag.py's
+# bound, set from one CPU measurement (port bf16 against JAX bf16 3.7e-3,
+# port bf16 against port fp32 4.1e-4, width 0.4)
+TOL_BF16 = 1e-2
+BF16_CELLS = (("mn10_as", BATCH), (DYMN, DYMN_BIG_BATCH))
+# 8 clips of 3-10 s for the masked eval; none lies within 513 samples of
+# the 10 s bucket (bucket_pad_collate would add a bucket)
+EVAL_SECONDS = (3.0, 4.3, 5.1, 6.7, 7.2, 8.9, 9.5, 10.0)
+# a padded masked row against its clip alone at batch 1, both on the card
+# with K1 fp32: the same valid frames, convs at another batch and length
+TOL_BATCH1 = 1e-4
+
+
+def all_probs(rows):
+    """tag_audio_window rows with every label -> (windows, labels) probs,
+    columns in label order."""
+    order = {lab: j for j, (lab, _) in enumerate(sorted(rows[0]["tags"]))}
+    out = np.zeros((len(rows), len(order)))
+    for i, r in enumerate(rows):
+        for lab, p in r["tags"]:
+            out[i, order[lab]] = p
+    return out
+
+
+def write_scene(path, seconds=60):
+    """A seeded 32 kHz int16 WAV: the demo clip tiled to ``seconds``, each
+    10 s with its own gain and seeded noise."""
+    import wave as wavfile
+
+    demo = load_waveform(DEMO, target_sr=SR)[:CLIP]
+    rng = np.random.default_rng(12)
+    parts = [np.clip(demo * rng.uniform(0.3, 1.0) + rng.normal(size=CLIP) * 0.01, -1, 1)
+             for _ in range(seconds * SR // CLIP)]
+    pcm = (np.concatenate(parts) * 32767).astype("<i2")
+    with wavfile.open(path, "wb") as f:
+        f.setnchannels(1)
+        f.setsampwidth(2)
+        f.setframerate(SR)
+        f.writeframes(pcm.tobytes())
+
+
+class decoded:
+    """``load_waveform`` answers ``path`` from memory inside the block, so a
+    timed ``tag_audio_window`` leaves the file's decode out."""
+
+    def __init__(self, path, wave):
+        self.path, self.wave = path, wave
+
+    def __enter__(self):
+        self.load = port_data.load_waveform
+        port_data.load_waveform = lambda path, target_sr=SR: (
+            self.wave if path == self.path else self.load(path, target_sr))
+
+    def __exit__(self, *exc):
+        port_data.load_waveform = self.load
+
+
+def phase_windowed(device, card):
+    """14. ``EATagger.tag_audio_window(path, 10, 2.5)`` on a seeded 60 s WAV
+    (21 windows, one batch) for ``dymn10_as`` and ``mn10_as`` with seeded
+    checkpoint files: K1 counted; the rows' probs on the card (DFT fp32)
+    within TOL_CARD_VS_CPU of the CPU's; chunks of WINDOW_CHUNK equal to one
+    batch; audio-seconds/s of the whole call with the file's decode left out
+    (its time printed beside). Returns K1's launches on the path."""
+    work = os.path.join(HERE, "build", "chip_smoke", "windowed")
+    os.makedirs(work, exist_ok=True)
+    path = os.path.join(work, "scene60.wav")
+    write_scene(path)
+    t0 = time.perf_counter()
+    wave = load_waveform(path, target_sr=SR)
+    decode_ms = (time.perf_counter() - t0) * 1e3
+    n_windows = len(window_signal(wave, int(WINDOW_SECONDS * SR), int(WINDOW_HOP * SR)))
+    total = 0
+    for name in WINDOWED_MODELS:
+        synth_checkpoint(work, name, seed=13)
+        tagger = EATagger(name, model_dir=work, device=device)
+        labels = len(tagger.labels)
+        reset_k1_launches()
+        rows = tagger.tag_audio_window(path, WINDOW_SECONDS, WINDOW_HOP)
+        launches = mel_kernel.LAUNCHES["bf16x3"]
+        total += launches
+        whole = all_probs(tagger.tag_audio_window(path, WINDOW_SECONDS, WINDOW_HOP,
+                                                  top_k=labels))
+        chunked = all_probs(tagger.tag_audio_window(path, WINDOW_SECONDS, WINDOW_HOP,
+                                                    top_k=labels, max_batch=WINDOW_CHUNK))
+        chunk_gap = float(np.abs(chunked - whole).max())
+        on_card = all_probs(EATagger(name, model_dir=work, device=device,
+                                     dft_precision="fp32").tag_audio_window(
+            path, WINDOW_SECONDS, WINDOW_HOP, top_k=labels))
+        on_cpu = all_probs(EATagger(name, model_dir=work, device="cpu").tag_audio_window(
+            path, WINDOW_SECONDS, WINDOW_HOP, top_k=labels))
+        cpu_gap = float(np.abs(on_card - on_cpu).max())
+        with decoded(path, wave), torch.inference_mode():
+            call_ms = median_ms(lambda: tagger.tag_audio_window(
+                path, WINDOW_SECONDS, WINDOW_HOP), iters=5)
+            # the call's parts: the windows cut on the host, and the predict
+            t0 = time.perf_counter()
+            windows = window_signal(wave, int(WINDOW_SECONDS * SR), int(WINDOW_HOP * SR))
+            windows_ms = (time.perf_counter() - t0) * 1e3
+            predict_ms = median_ms(lambda: tagger.predict(windows), iters=5)
+            profile = device_profile(lambda: tagger.tag_audio_window(
+                path, WINDOW_SECONDS, WINDOW_HOP),
+                groups=DYMN_KERNEL_GROUPS if name == DYMN else None)
+        phase("windowed", model=name, audio_seconds=len(wave) / SR, windows=len(rows),
+              window_s=WINDOW_SECONDS, hop_s=WINDOW_HOP, k1_launches=launches,
+              vs_cpu=cpu_gap, bound_cpu=TOL_CARD_VS_CPU, chunk=WINDOW_CHUNK,
+              chunked_vs_whole=chunk_gap, bound_chunks=TOL_CHUNKS, call_ms=call_ms,
+              audio_sec_per_s=len(wave) / SR / call_ms * 1e3,
+              windows_host_ms=windows_ms, predict_ms=predict_ms,
+              decode_ms_excluded=decode_ms, probs_std=float(whole.std()),
+              first_window=json.dumps(rows[0]["tags"][:3]), card=repr(card))
+        phase("windowed_profile", model=name, windows=len(rows), **profile,
+              card=repr(card))
+        check(len(rows) == n_windows == 21, f"{name}: {len(rows)} windows, not 21")
+        check(launches == 1, f"{name}: the windowed call launched K1 {launches} times")
+        check(cpu_gap <= TOL_CARD_VS_CPU, f"{name}: windowed probs card vs CPU")
+        check(chunk_gap <= TOL_CHUNKS, f"{name}: chunked windows vs one batch")
+        del tagger
+        torch.cuda.empty_cache()
+    return total
+
+
+def member_logits(tagger, waves):
+    """The logits of each member of ``tagger`` in its ``predict(waves)``,
+    recorded by forward hooks."""
+    seen = []
+    hooks = [m.register_forward_hook(lambda mod, inp, out: seen.append(out[0].float()))
+             for m in tagger.members]
+    try:
+        probs = tagger.predict(waves)
+    finally:
+        for h in hooks:
+            h.remove()
+    return probs, [x.double().cpu() for x in seen]
+
+
+def phase_ensemble2(device, card, batch):
+    """15. ``Tagger(["mn40_as_ext", "dymn20_as"])`` at B=32 of 10 s clips:
+    clips/s and its profile, K1 counted; the probs equal the sigmoid of the
+    mean of the members' logits, each member run alone with the same seeded
+    init on the card; card against CPU at B=2 (DFT fp32, seeded files).
+    Returns K1's launches on the path."""
+    waves = batch[:ENSEMBLE_BATCH]
+    tagger = Tagger(list(ENSEMBLE2), pretrained=False, device=device, seed=0)
+    reset_k1_launches()
+    probs, logits = member_logits(tagger, waves)
+    launches = mel_kernel.LAUNCHES["bf16x3"]
+    singles = [member_logits(Tagger(name, pretrained=False, device=device, seed=i),
+                             waves)[1][0] for i, name in enumerate(ENSEMBLE2)]
+    member_gap = max(float((a - b).abs().max()) for a, b in zip(logits, singles))
+    mean_gap = float(np.abs(probs - torch.sigmoid(sum(singles) / 2).numpy()).max())
+    pipe_ms = median_ms(lambda: tagger.predict(waves), iters=5)
+    profile = device_profile(lambda: tagger.predict(waves), groups=DYMN_KERNEL_GROUPS)
+    del tagger
+    torch.cuda.empty_cache()
+    model_dir = os.path.join(HERE, "build", "chip_smoke", "ensemble2")
+    for i, name in enumerate(ENSEMBLE2):
+        synth_checkpoint(model_dir, name, seed=14 + i)
+    on_card, on_cpu = (Tagger(list(ENSEMBLE2), model_dir=model_dir, device=d,
+                              dft_precision="fp32") for d in (device, "cpu"))
+    card_probs = on_card.predict(waves[:2])
+    cpu_gap = float(np.abs(card_probs - on_cpu.predict(waves[:2])).max())
+    phase("ensemble2", members=json.dumps(ENSEMBLE2), batch=ENSEMBLE_BATCH,
+          seconds=CLIP // SR, k1_launches=launches, pipeline_ms=pipe_ms,
+          clips_per_s=ENSEMBLE_BATCH / pipe_ms * 1e3, members_vs_alone=member_gap,
+          probs_vs_mean_of_members=mean_gap, bound_mean=TOL_ENSEMBLE_MEAN,
+          vs_cpu_b2=cpu_gap, bound_cpu=TOL_CARD_VS_CPU,
+          probs_std_b2=float(card_probs.std()), card=repr(card))
+    phase("ensemble2_profile", batch=ENSEMBLE_BATCH, **profile, card=repr(card))
+    check(launches == 1, f"the ensemble launched K1 {launches} times, not once")
+    check(probs.shape == (ENSEMBLE_BATCH, 527) and bool(np.isfinite(probs).all()),
+          "ensemble probs")
+    check(mean_gap <= TOL_ENSEMBLE_MEAN and member_gap <= TOL_ENSEMBLE_MEAN,
+          "the ensemble is not the mean of its members' logits")
+    check(cpu_gap <= TOL_CARD_VS_CPU, "ensemble probs card vs CPU")
+    del on_card, on_cpu
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_tag_bf16(device, card, batch):
+    """16. ``Tagger(dtype=torch.bfloat16)``: ``mn10_as`` at B=64 and
+    ``dymn10_as`` at B=256 with seeded checkpoint files; clips/s against the
+    fp32 Tagger's in turns, the profile, K1 counted (the mel stays fp32,
+    bf16x3 DFT); probs within TOL_BF16 of the fp32 Tagger's on the card.
+    Returns K1's launches on the path."""
+    model_dir = os.path.join(HERE, "build", "chip_smoke", "bf16")
+    big = np.concatenate([np.roll(batch, k * SR, axis=1)
+                          for k in range(DYMN_BIG_BATCH // BATCH)])
+    total = 0
+    for name, rows in BF16_CELLS:
+        synth_checkpoint(model_dir, name, seed=15)
+        waves = batch if rows == BATCH else big
+        bf16 = Tagger(name, model_dir=model_dir, device=device, dtype=torch.bfloat16)
+        fp32 = Tagger(name, model_dir=model_dir, device=device)
+        reset_k1_launches()
+        got = bf16.predict(waves)
+        launches = mel_kernel.LAUNCHES["bf16x3"]
+        total += launches
+        gap = float(np.abs(got - fp32.predict(waves)).max())
+        runs = {"fp32": [], "bf16": []}
+        for which in ("fp32", "bf16", "bf16", "fp32"):
+            tagger = bf16 if which == "bf16" else fp32
+            runs[which].append(median_ms(lambda: tagger.predict(waves), iters=5))
+        groups = DYMN_KERNEL_GROUPS if name == DYMN else None
+        phase("tag_bf16", model=name, batch=rows, k1_launches=launches,
+              vs_fp32=gap, bound=TOL_BF16, pipeline_ms=runs["bf16"],
+              fp32_pipeline_ms=runs["fp32"],
+              clips_per_s=rows / statistics.mean(runs["bf16"]) * 1e3,
+              fp32_clips_per_s=rows / statistics.mean(runs["fp32"]) * 1e3,
+              probs_std=float(got.std()), card=repr(card))
+        phase("tag_bf16_profile", model=name, batch=rows,
+              **device_profile(lambda: bf16.predict(waves), groups=groups), card=repr(card))
+        check(launches == 1, f"{name}: the bf16 Tagger launched K1 {launches} times")
+        check(bool(np.isfinite(got).all()), f"{name}: non-finite bf16 probs")
+        check(0.0 < gap <= TOL_BF16, f"{name}: bf16 probs vs fp32 ({gap})")
+        del bf16, fp32
+        torch.cuda.empty_cache()
+    return total
+
+
+def phase_train_surgery(device):
+    """17. ``train esc50 --pretrained --model_name mn10_as`` on the card from
+    a seeded 527-class file in ``resources/``: the head is dropped and drawn
+    fresh with 50 classes, every other tensor loads from the file; then one
+    epoch of 2 steps and the eval, K1 counted. Returns K1's launches."""
+    work = os.path.join(HERE, "build", "chip_smoke", "surgery")
+    shutil.rmtree(work, ignore_errors=True)
+    synth_checkpoint(os.path.join(work, "resources"), SURGERY_MODEL, seed=16)
+    file_sd = torch.load(os.path.join(work, "resources",
+                                      get_model_config(SURGERY_MODEL).file))
+    model = load_pretrained(SURGERY_MODEL, os.path.join(work, "resources"),
+                            num_classes=50)
+    kept = [k for k in file_sd if not k.startswith("classifier.5.")]
+    equal = all(torch.equal(model.state_dict()[k], file_sd[k]) for k in kept)
+    head = tuple(model.classifier[5].weight.shape)
+    cwd = os.getcwd()
+    os.chdir(work)  # --pretrained reads resources/, the logger writes runs/
+    try:
+        reset_k1_launches()
+        t0 = time.perf_counter()
+        result = run_train("esc50", [
+            "--pretrained", "--model_name", SURGERY_MODEL, "--synthetic", "64",
+            "--batch_size", "32", "--n_epochs", "1", "--num_workers", "8",
+            "--device", device.type, "--ckpt_dir", "ckpt",
+            "--experiment_name", "chip_smoke_surgery"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    launches = mel_kernel.LAUNCHES["bf16x3"]
+    rec = result.history[-1]
+    phase("train_surgery", task="esc50", model=SURGERY_MODEL, file_classes=527,
+          head=head, tensors_from_file=len(kept), all_equal=equal, steps=result.step,
+          k1_launches=launches, train_loss=rec["train_loss"],
+          accuracy=rec["accuracy"], seconds=seconds)
+    check(equal and len(kept) == len(file_sd) - 2,
+          "surgery: a non-head tensor differs from the file")
+    check(head == (50, model.classifier[5].weight.shape[1]), f"surgery head {head}")
+    check(result.model.classifier[5].out_features == 50, "the trained head")
+    check(result.step == 2 and np.isfinite(rec["train_loss"]), "train esc50 --pretrained")
+    check(launches >= result.step + 1, "train esc50 did not launch K1 at every step")
+    return launches
+
+
+def eval_clips():
+    rng = np.random.default_rng(17)
+    return [(rng.normal(size=int(s * SR)) * 0.1).astype(np.float32)
+            for s in EVAL_SECONDS]
+
+
+def phase_eval_variable(device, card):
+    """18. Exact-length eval: 8 seeded clips of 3-10 s through
+    ``bucket_pad_collate`` and ``eval_step(..., time_valid=...)`` on the
+    card (K1 fp32), ``mn10_as`` and ``dymn10_as`` with seeded weights: each
+    row within TOL_BATCH1 of its clip alone at batch 1, unpadded, on the
+    card, and within TOL_CARD_VS_CPU of the CPU's masked batch. Returns K1's
+    launches on the path (the masked batches)."""
+    clips = eval_clips()
+    batch = bucket_pad_collate(SR)([{"wave": w} for w in clips])
+    cfg = MelConfig()
+    tv = torch.from_numpy((batch["wave_samples"].astype(np.int64) - 1) // cfg.hopsize + 1)
+    wave = torch.from_numpy(batch["wave"])
+    total = 0
+    for name in EVAL_MODELS:
+        model = build_model(name)
+        model.load_state_dict(seeded_weights(name, 18), strict=True)
+        temperature = getattr(model.cfg, "t_max", 1.0)
+        model.to(device)
+
+        def masked():
+            return eval_step(model, cfg, wave.to(device), dft_precision="fp32",
+                             temperature=temperature, time_valid=tv.to(device))
+
+        reset_k1_launches()
+        got = masked().cpu()
+        launches = mel_kernel.LAUNCHES["fp32"]
+        total += launches
+        alone = torch.cat([eval_step(model, cfg, torch.from_numpy(c[None]).to(device),
+                                     dft_precision="fp32", temperature=temperature).cpu()
+                           for c in clips])
+        batch1_gap = float((got - alone).abs().max())
+        unmasked_gap = float((eval_step(model, cfg, wave.to(device), dft_precision="fp32",
+                                        temperature=temperature).cpu() - alone).abs().max())
+        step_ms = median_ms(masked, iters=5)
+        on_cpu = eval_step(model.cpu(), cfg, wave, temperature=temperature, time_valid=tv)
+        cpu_gap = float((got - on_cpu).abs().max())
+        phase("eval_variable", model=name, clips=len(clips), padded_to=tuple(wave.shape),
+              time_valid=tv.tolist(), k1_launches=launches, vs_batch1=batch1_gap,
+              bound_batch1=TOL_BATCH1, unmasked_vs_batch1=unmasked_gap,
+              vs_cpu=cpu_gap, bound_cpu=TOL_CARD_VS_CPU, step_ms=step_ms,
+              logits_std=float(got.std()), card=repr(card))
+        check(launches == 1, f"{name}: the masked eval launched K1 {launches} times")
+        check(batch1_gap <= TOL_BATCH1, f"{name}: masked rows vs batch 1")
+        check(unmasked_gap > TOL_BATCH1, f"{name}: the mask changed nothing")
+        check(cpu_gap <= TOL_CARD_VS_CPU, f"{name}: masked eval card vs CPU")
+        del model
+        torch.cuda.empty_cache()
+    return total
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -1403,6 +1764,47 @@ def main():
                     "replaces": "efficientat_tpu/ops/mel_pallas.py:347", **dp,
                     "launches": dymn_dp_launches})
 
+    # 14-18. windowed tagging, the two-model ensemble, the bf16 Tagger, the
+    # pretrained head surgery and exact-length eval; K1's rows take times
+    # measured here at each path's batch (tools.time_k1, 10 s clips)
+    new_paths = {
+        "tag_windowed": (phase_windowed(device, card), 21, "bf16x3"),
+        "tag_ensemble2": (phase_ensemble2(device, card, batch), ENSEMBLE_BATCH, "bf16x3"),
+        "tag_bf16": (phase_tag_bf16(device, card, batch), DYMN_BIG_BATCH, "bf16x3"),
+        "eval_variable": (phase_eval_variable(device, card), len(EVAL_SECONDS), "fp32"),
+    }
+    k1_at = {}
+    for path, (path_launches, rows_a_launch, prec) in new_paths.items():
+        if (rows_a_launch, prec) not in k1_at:
+            rec = time_k1.time_k1(rows_a_launch, cfg.n_mels, prec, turns=1)
+            check(rec["max_abs"] <= TOL_KERNEL_VS_PLAIN[prec],
+                  f"K1 {prec} vs plain at B={rows_a_launch}")
+            phase("k1_time", **rec, card=repr(card))
+            k1_at[rows_a_launch, prec] = rec
+        rec = k1_at[rows_a_launch, prec]
+        kernels.append({**kernels[0], "path": path, "launches": path_launches,
+                        "max_abs_err": rec["max_abs"],
+                        "ms": statistics.mean(rec["kernel_ms"]),
+                        "plain_ms": statistics.mean(rec["plain_ms"])})
+
+    phase_train_surgery(device)  # K1 in training mode: its launches on its line
+
+    # a 256-mel registry model through the Tagger: one launch a predict
+    mels_256 = {}
+    for prec in ("bf16x3", "fp32"):
+        tagger = Tagger("mn10_as_mels_256", pretrained=False, device=device,
+                        dft_precision=prec)
+        reset_k1_launches()
+        probs = tagger.predict(batch)
+        mels_256[prec] = mel_kernel.LAUNCHES[prec]
+        check(bool(np.isfinite(probs).all()), "mn10_as_mels_256 probs")
+    phase("tag_mels_256", model="mn10_as_mels_256", batch=BATCH,
+          k1_launches=json.dumps(mels_256))
+    check(all(n == 1 for n in mels_256.values()),
+          f"the 256-mel Tagger's K1 launches {mels_256}")
+    del tagger
+    torch.cuda.empty_cache()
+
     # each K1 row's bound and cuBLAS yardstick, at the clips a launch and
     # the precision of its times
     cfg = MelConfig()
@@ -1411,6 +1813,7 @@ def main():
              "tag_fp32": (BATCH, "fp32"), "train_fp32": (TRAIN_BATCH, "fp32")}
     sizes.update(tag_dymn=sizes["tag"], train_dymn=sizes["train"],
                  train_dp_dymn=sizes["train_dp"])
+    sizes.update({path: (rows, prec) for path, (_, rows, prec) in new_paths.items()})
     for row in kernels:
         batch_rows, prec = sizes[row["path"]]
         passes = DFT_PASSES[prec]

@@ -8,13 +8,16 @@ its module layout and names, so every counterpart sits at the same path:
   (``csrc/mel_kernel.cu``) replaces the Pallas TPU kernel, and the probe
   variants of it on the tensor cores (``ops.mel_probe``,
   ``csrc/mel_probe_kernel.cu``);
-- ``models``: MN (MobileNetV3) in NCHW with the upstream checkpoint key
-  names, its registry and the checkpoint loaders;
+- ``models``: MN (MobileNetV3) and DyMN in NCHW with the upstream
+  checkpoint key names, ensembles, the registry and the checkpoint loaders
+  (with classifier-head surgery);
 - ``data``: audio I/O, wave transport (host encode, device decode), the
   datasets and the loader;
-- ``infer.tag``: single-clip tagging (``Tagger``), and ``cli`` around it;
+- ``infer``: single-clip tagging (``Tagger``, fp32 or bf16) and windowed
+  tagging (``tag_audio_window``, ``EATagger``), and ``cli`` around them;
 - ``train``, ``parallel``: the train step, its tasks and data parallelism;
-- ``tools.probe_mel_kernel``: the probe of the fused log-mel variants.
+- ``tools``: the probe of the fused log-mel variants, and timers of K1
+  (``time_k1``) and of the serving and train paths (``time_paths``).
 
 This package imports ``torch`` and never ``jax``, ``flax`` or anything of
 the JAX package: the numpy host code it needs (``utils.common``,

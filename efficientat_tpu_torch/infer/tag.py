@@ -5,8 +5,15 @@ One ``predict`` call: the batch goes to the device through a pinned host
 buffer, is decoded there (f32 / int16 / mu-law uint8), turned into log-mels
 by ``log_mel_spectrogram_fused`` (K1 on CUDA), run through every member
 (a DyMN at its ``cfg.t_max``, the final temperature of its training), and
-the members' logits are averaged before the sigmoid. The whole batch runs
-at once: the JAX Tagger's DyMN micro-batching is a TPU workaround.
+the members' logits are averaged in fp32 before the sigmoid. The whole
+batch runs at once: the JAX Tagger's DyMN micro-batching is a TPU
+workaround.
+
+``dtype=torch.bfloat16`` runs the members under ``torch.autocast``; the mel
+stays fp32 (K1 at ``dft_precision``, outside the autocast), as upstream
+keeps its front end out of autocast (models/preprocess.py:56-57). Autocast
+rounds the convs' and Linears' operands to bf16 and keeps BatchNorm in fp32,
+where the JAX Tagger's flax ``dtype`` computes BatchNorm in bf16 too.
 """
 
 from __future__ import annotations
@@ -42,6 +49,8 @@ class Tagger:
     device: where the models run; nothing is placed anywhere else.
     dft_precision: the mel DFT precision on the card, ``"bf16x3"`` (default)
         or ``"fp32"``.
+    dtype: the members' compute dtype, ``torch.float32`` (default) or a
+        lower one that they run in under ``torch.autocast``.
     """
 
     def __init__(
@@ -54,11 +63,13 @@ class Tagger:
         dft_precision: Optional[str] = None,
         seed: int = 0,
         labels: Sequence[str] = AUDIOSET_LABELS,
+        dtype: torch.dtype = torch.float32,
     ):
         if isinstance(names, str):
             names = [names]
         self.device = torch.device(device)
         self.dft_precision = dft_precision
+        self.dtype = dtype
         self.labels = list(labels)
         self.mel_cfg = get_model_config(names[0]).mel_cfg
         for name in names[1:]:
@@ -107,7 +118,10 @@ class Tagger:
             mel = log_mel_spectrogram_fused(x, self.mel_cfg,
                                             dft_precision=self.dft_precision)
             mel = mel[:, None]  # (B, 1, n_mels, frames)
-            logits = sum(_member_logits(model, mel) for model in self.members)
+            with torch.autocast(self.device.type, dtype=self.dtype,
+                                enabled=self.dtype != torch.float32):
+                logits = [_member_logits(model, mel) for model in self.members]
+            logits = sum(lg.float() for lg in logits)
             probs = torch.sigmoid(logits / len(self.members))
             return probs.cpu().numpy()
 

@@ -1,4 +1,5 @@
 from efficientat_tpu_torch.models.dymn import DyMN, DyMNConfig, dyconv_temperature
+from efficientat_tpu_torch.models.ensemble import Ensemble
 from efficientat_tpu_torch.models.mn import MN, MNConfig, init_weights, mn_block_table
 from efficientat_tpu_torch.models.registry import (
     REGISTRY,
@@ -10,6 +11,7 @@ from efficientat_tpu_torch.models.registry import (
 __all__ = [
     "DyMN",
     "DyMNConfig",
+    "Ensemble",
     "MN",
     "MNConfig",
     "ModelSpec",

@@ -6,15 +6,20 @@
 - ``from_flax_mn`` and ``from_flax_dymn`` are the exact inverses of the JAX
   package's ``convert_mn`` and ``convert_dymn``: flax ``{"params",
   "batch_stats"}`` (numpy) -> the port's state dict, so a model trained or
-  converted on the JAX side loads here.
+  converted on the JAX side loads here; ``from_flax_ensemble`` maps a flax
+  ``Ensemble``'s ``member{i}`` subtrees through them.
 
-Classifier-head surgery (a changed class count) is not ported yet.
+Classifier-head surgery, as the reference loaders do it
+(models/mn/model.py:292-310, models/dymn/model.py:270-278): when the file's
+class count differs from the requested one, the head's class-sized layers
+are dropped by head type and keep their fresh init; everything else loads
+strictly.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -22,6 +27,7 @@ from torch import nn
 
 from efficientat_tpu_torch.models.dymn import DyMNConfig
 from efficientat_tpu_torch.models.mn import MNConfig
+from efficientat_tpu_torch.models.ensemble import Ensemble
 from efficientat_tpu_torch.models.registry import (
     MODEL_DIR,
     build_model,
@@ -158,25 +164,80 @@ def from_flax_dymn(variables: Mapping[str, Any],
     return sd
 
 
+def from_flax_ensemble(variables: Mapping[str, Any],
+                       configs: Sequence[Union[MNConfig, DyMNConfig]]
+                       ) -> Dict[str, torch.Tensor]:
+    """Flax ``Ensemble`` variables -> the state dict of the port's
+    ``Ensemble(configs)``: member ``i``'s flax subtree ``member{i}`` through
+    ``from_flax_mn`` / ``from_flax_dymn``, under ``members.{i}.``."""
+    sd: Dict[str, torch.Tensor] = {}
+    for i, cfg in enumerate(configs):
+        sub = {col: tree[f"member{i}"] for col, tree in variables.items()}
+        member = (from_flax_dymn(sub, cfg) if isinstance(cfg, DyMNConfig)
+                  else from_flax_mn(sub, cfg))
+        sd.update({f"members.{i}.{k}": v for k, v in member.items()})
+    return sd
+
+
+# the class-sized layers of each head, which surgery drops
+# (efficientat_tpu/models/convert.py:83-100, :136-145)
+HEAD_KEYS = {
+    "mlp": ("classifier.5.",),
+    "fully_convolutional": ("classifier.0.", "classifier.1."),
+    "multihead_attention_pooling": ("classifier.subspace_proj.",
+                                    "classifier.head_weight"),
+}
+
+
+def checkpoint_classes(sd: Mapping[str, Any], head_type: str) -> int:
+    """The class count stored in a reference state dict, -1 where the head
+    is missing (efficientat_tpu/models/convert.py:274; an attention-pooling
+    head's count comes from its projection and head-weight shapes)."""
+    if head_type == "mlp" and "classifier.5.bias" in sd:
+        return sd["classifier.5.bias"].shape[0]
+    if head_type == "fully_convolutional" and "classifier.1.bias" in sd:
+        return sd["classifier.1.bias"].shape[0]
+    if (head_type == "multihead_attention_pooling"
+            and "classifier.head_weight" in sd
+            and "classifier.subspace_proj.weight" in sd):
+        heads = sd["classifier.head_weight"].shape[1]
+        return sd["classifier.subspace_proj.weight"].shape[0] // (2 * heads)
+    return -1
+
+
 def load_pretrained(name: str, model_dir: str = MODEL_DIR,
-                    num_classes: Optional[int] = None) -> nn.Module:
+                    num_classes: Optional[int] = None, seed: int = 0) -> nn.Module:
     """Build the registry model ``name`` on the CPU and load
-    ``<model_dir>/<release file>`` into it with ``strict=True``.
-    ``num_classes`` other than the checkpoint file's class count raises
-    ``NotImplementedError``: classifier-head surgery is not ported yet."""
+    ``<model_dir>/<release file>`` into it.
+
+    With the file's class count, every tensor loads with ``strict=True``.
+    With another ``num_classes``, the head's class-sized layers
+    (``HEAD_KEYS``: an mlp head's ``classifier.5``, the fully-convolutional
+    head's conv and BatchNorm with its statistics, an attention-pooling
+    head's projection and head weight) are dropped from the file and keep
+    upstream's init drawn from ``torch.Generator().manual_seed(seed)``;
+    every other tensor must load."""
     spec = get_model_config(name)
     path = os.path.join(model_dir, spec.file)
     if not os.path.isfile(path):
         raise FileNotFoundError(
             f"checkpoint {path} not found: place the release file "
             f"{spec.url} there (nothing is downloaded)")
-    model = build_model(name, num_classes=num_classes)
     sd = torch.load(path, map_location="cpu", weights_only=True)
-    for key, v in model.state_dict().items():
-        if key.startswith("classifier.") and key in sd and sd[key].shape != v.shape:
-            raise NotImplementedError(
-                f"{path} has another class count than {num_classes} ({key}: "
-                f"{tuple(sd[key].shape)}, not {tuple(v.shape)}): "
-                "classifier-head surgery is not ported yet")
-    model.load_state_dict(sd, strict=True)
+    cfg = spec.model_cfg
+    classes = cfg.num_classes if num_classes is None else num_classes
+    if checkpoint_classes(sd, cfg.head_type) == classes:
+        model = build_model(name, num_classes=classes)
+        model.load_state_dict(sd, strict=True)
+        return model
+    model = build_model(name, num_classes=classes,
+                        generator=torch.Generator().manual_seed(seed))
+    head = HEAD_KEYS[cfg.head_type]
+    kept = {k: v for k, v in sd.items() if not k.startswith(head)}
+    missing, unexpected = model.load_state_dict(kept, strict=False)
+    if unexpected or any(not k.startswith(head) for k in missing):
+        raise RuntimeError(
+            f"{path} does not fit {name} outside its head: missing "
+            f"{[k for k in missing if not k.startswith(head)]}, "
+            f"unexpected {unexpected}")
     return model

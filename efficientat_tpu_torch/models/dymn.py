@@ -21,16 +21,20 @@ The temperature anneals per epoch in training (``DyMNConfig.temperature``)
 and is a runtime float: ``forward(x, temperature)``. Serving runs at
 ``cfg.t_max``, the final temperature of the checkpoint's training.
 
+``forward(x, temperature, time_valid)`` evaluates each row of a padded
+batch at its own length, as MN does (``layers.time_mask``); ContextGen then
+pools the valid frames only.
+
 The JAX package's TPU lowerings (``pw_form`` shared_out / shared_in,
 ``layout="ftbc"``, ``dyconv_compute``, the channel-multiplier depthwise
-form, the ``shard_map`` fold) and ``time_valid`` masking are not ported.
+form, the ``shard_map`` fold) are not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -46,7 +50,10 @@ from efficientat_tpu_torch.models.layers import (
     FullyConvHead,
     InvertedResidual,
     MlpHead,
+    conv_out_count,
+    masked_time_mean,
     remat_call,
+    time_mask,
 )
 from efficientat_tpu_torch.utils.common import make_divisible
 
@@ -135,15 +142,32 @@ class ContextGen(nn.Module):
         self.conv_t = nn.Conv2d(context_dim, exp_channels, 1)
         self.stride = stride
 
-    def forward(self, x: torch.Tensor):
-        """x (B, C, F, T) -> h_c (B, H), g_cf (B, exp, F', 1), g_ct (B, exp, 1, T')."""
+    def forward(self, x: torch.Tensor, time_valid: Optional[torch.Tensor] = None):
+        """x (B, C, F, T) -> h_c (B, H), g_cf (B, exp, F', 1), g_ct (B, exp, 1, T').
+
+        ``time_valid`` (B,): the frequency branch averages the valid frames,
+        the padded time positions are zeroed after the joint conv (the zeros
+        an exact-length clip's pooling would pad with) and ``h_c`` averages
+        the F + time_valid valid positions."""
         f, t = x.shape[2], x.shape[3]
-        cf = x.mean(dim=3, keepdim=True)                     # (B, C, F, 1)
+        if time_valid is None:
+            cf = x.mean(dim=3, keepdim=True)                 # (B, C, F, 1)
+        else:
+            x = time_mask(x, time_valid)
+            cf = x.sum(dim=3, keepdim=True) / time_valid.to(x.dtype)[:, None, None, None]
         ct = x.mean(dim=2, keepdim=True).transpose(2, 3)     # (B, C, T, 1)
         g = self.joint_act(self.joint_norm(self.joint_conv(torch.cat([cf, ct], dim=2))))
+        if time_valid is None:
+            h_c = g.mean(dim=(2, 3))
+        else:
+            valid = torch.cat([torch.ones((x.shape[0], f), dtype=torch.bool,
+                                          device=x.device),
+                               torch.arange(t, device=x.device) < time_valid[:, None]],
+                              dim=1)                         # (B, F + T)
+            g = g * valid[:, None, :, None].to(g.dtype)
+            h_c = g.sum(dim=(2, 3)) / (f + time_valid).to(g.dtype)[:, None]
         h_cf, h_ct = torch.split(g, [f, t], dim=2)
         h_ct = h_ct.transpose(2, 3)                          # (B, H, 1, T)
-        h_c = g.mean(dim=(2, 3))
         if self.stride > 1:
             h_cf = F.avg_pool2d(h_cf, (3, 1), (self.stride, 1), (1, 0))
             h_ct = F.avg_pool2d(h_ct, (1, 3), (1, self.stride), (0, 1))
@@ -245,9 +269,10 @@ class DYBlock(nn.Module):
 
     def __init__(self, cnf: BlockConfig, cfg: DyMNConfig):
         super().__init__()
+        self.cnf = cnf
         h = cfg.context_dim(cnf)
         act = ACTIVATIONS[cnf.activation]
-        stride = 1 if cnf.dilation > 1 else cnf.stride
+        stride = cnf.conv_stride
         exp, k = cnf.expanded_channels, cfg.dyconv_k
         self.use_res = cnf.use_res
         self.dyrelu = not cfg.no_dyrelu
@@ -273,11 +298,16 @@ class DYBlock(nn.Module):
             if cfg.no_dyconv else DynamicConv(exp, cnf.out_channels, h, k=k))
         self.proj_norm = _bn(cnf.out_channels)
 
-    def forward(self, x: torch.Tensor, temperature: float) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, temperature: float,
+                time_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``time_valid`` (B,): valid input frames; the context pools them
+        only and the depthwise conv's input is masked."""
         inp = x
-        h_c, g_cf, g_ct = self.context_gen(x)
+        h_c, g_cf, g_ct = self.context_gen(x, time_valid)
         if self.expand:
             x = self.exp_act(self.exp_norm(self.exp_conv(x, h_c, temperature)))
+        if time_valid is not None:
+            x = time_mask(x, time_valid)
         x = self.depth_norm(self.depth_conv(x, h_c, temperature))
         x = self.depth_act(x, h_c) if self.dyrelu else self.depth_act(x)
         if self.ca:
@@ -310,16 +340,30 @@ class DyMN(nn.Module):
                 f"Head '{cfg.head_type}' unknown. Must be one of: 'mlp', "
                 f"'fully_convolutional'")
 
-    def forward(self, x: torch.Tensor, temperature: float = 1.0
+    def forward(self, x: torch.Tensor, temperature: float = 1.0,
+                time_valid: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """x: (B, C_in, F, T) -> (logits (B, classes), embedding (B, C_feat)).
-        Pass ``cfg.temperature(epoch)`` in training and ``cfg.t_max`` to serve."""
+        Pass ``cfg.temperature(epoch)`` in training and ``cfg.t_max`` to serve.
+        ``time_valid`` (B,): valid INPUT mel frames of each row, as in
+        ``MN.forward``."""
+        tv = None
+        if time_valid is not None:
+            x = time_mask(x, time_valid)
+            tv = conv_out_count(time_valid, self.cfg.in_conv_kernel,
+                                self.cfg.in_conv_stride)
         x = self.in_c(x)
         for block in self.layers:
             args = (x, temperature) if isinstance(block, DYBlock) else (x,)
+            if tv is not None:
+                args += (tv,)
             x = remat_call(block, *args) if self.cfg.remat else block(*args)
+            if tv is not None:
+                tv = block.cnf.time_count(tv)
         x = self.out_c(x)
-        return self.classifier(x), x.mean(dim=(2, 3))
+        if tv is None:
+            return self.classifier(x), x.mean(dim=(2, 3))
+        return self.classifier(x, tv), masked_time_mean(x, tv)
 
 
 @torch.no_grad()

@@ -9,6 +9,13 @@ BN; ``InvertedResidual.block``; ``ConcurrentSEBlock.conc_se_layers.k.fc1/fc2``;
 BatchNorm: eps 1e-3, momentum 0.01 in the backbone (upstream
 models/mn/model.py:114-115); the fully-convolutional head keeps torch's
 defaults, eps 1e-5 and momentum 0.1 (models/mn/model.py:183).
+
+Exact-length evaluation of a bucket-padded batch (``time_valid``, the
+number of valid time frames of each row): the padded frames are zeroed
+before every op that mixes time positions (``time_mask``) and left out of
+every mean over time (``masked_time_mean`` and the SE squeeze), so each row
+equals its clip run alone at its own length, to fp32 rounding. In NCHW the
+time axis is the last one.
 """
 
 from __future__ import annotations
@@ -30,6 +37,28 @@ ACTIVATIONS = {"RE": nn.ReLU, "HS": nn.Hardswish}
 
 # axis of (B, C, F, T) each SE dimension letter gates
 _SE_AXES = {"c": 1, "f": 2, "t": 3}
+
+
+def time_mask(x: torch.Tensor, time_valid: torch.Tensor) -> torch.Tensor:
+    """Zero (B, C, F, T) ``x`` beyond ``time_valid[b]`` frames along T, so
+    a conv sees in the padded region the zeros its own padding would give
+    an exact-length clip."""
+    mask = torch.arange(x.shape[3], device=x.device) < time_valid[:, None]
+    return x * mask[:, None, None, :].to(x.dtype)
+
+
+def conv_out_count(t, kernel: int, stride: int, dilation: int = 1):
+    """Output positions of a torch-padded conv given ``t`` valid inputs;
+    elementwise on ints or integer tensors."""
+    pad = (kernel - 1) // 2 * dilation
+    return (t + 2 * pad - dilation * (kernel - 1) - 1) // stride + 1
+
+
+def masked_time_mean(x: torch.Tensor, time_valid: torch.Tensor) -> torch.Tensor:
+    """Mean over (F, T) of (B, C, F, T) ``x``, counting the first
+    ``time_valid[b]`` frames of each row: (B, C)."""
+    denom = (x.shape[2] * time_valid).to(x.dtype)[:, None]
+    return time_mask(x, time_valid).sum(dim=(2, 3)) / denom
 
 
 class ConvNormAct(nn.Sequential):
@@ -60,9 +89,18 @@ class SqueezeExcitation(nn.Module):
         self.fc1 = nn.Linear(input_dim, squeeze_dim)
         self.fc2 = nn.Linear(squeeze_dim, input_dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                time_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``time_valid``: x is zero beyond it (``time_mask``); a squeeze
+        over time then averages the valid frames only. The time-gated SE
+        does not reduce over time, so it needs no mask."""
         reduce = tuple(a for a in (1, 2, 3) if a != self.se_axis)
-        scale = x.mean(dim=reduce)
+        if time_valid is None or self.se_axis == 3:
+            scale = x.mean(dim=reduce)
+        else:
+            # the reduced axis besides time: F for the channel SE, C for F's
+            other = x.shape[2] if self.se_axis == 1 else x.shape[1]
+            scale = x.sum(dim=reduce) / (other * time_valid).to(x.dtype)[:, None]
         scale = torch.sigmoid(self.fc2(torch.relu(self.fc1(scale))))
         shape = [x.shape[0], 1, 1, 1]
         shape[self.se_axis] = scale.shape[1]
@@ -84,8 +122,9 @@ class ConcurrentSEBlock(nn.Module):
             SqueezeExcitation(dims[d], make_divisible(dims[d] // se_r, 8),
                               _SE_AXES[d]) for d in se_dims)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        outs = [se(x) for se in self.conc_se_layers]
+    def forward(self, x: torch.Tensor,
+                time_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+        outs = [se(x, time_valid) for se in self.conc_se_layers]
         if len(outs) == 1:
             return outs[0]
         stacked = torch.stack(outs, dim=0)
@@ -126,6 +165,15 @@ class BlockConfig:
     def use_res(self) -> bool:
         return self.stride == 1 and self.input_channels == self.out_channels
 
+    @property
+    def conv_stride(self) -> int:
+        """The depthwise conv's stride: a dilated block runs at stride 1."""
+        return 1 if self.dilation > 1 else self.stride
+
+    def time_count(self, t):
+        """Valid output frames of the block given ``t`` valid input frames."""
+        return conv_out_count(t, self.kernel, self.conv_stride, self.dilation)
+
 
 class InvertedResidual(nn.Module):
     """expand 1x1 -> depthwise kxk -> [SE] -> project 1x1, residual iff
@@ -136,25 +184,39 @@ class InvertedResidual(nn.Module):
                  se_agg: str = "max", se_r: int = 4, f_dim: int = 0,
                  t_dim: int = 0):
         super().__init__()
+        self.cnf = cnf
         self.use_res = cnf.use_res
         act = ACTIVATIONS[cnf.activation]
         layers = []
-        if cnf.expanded_channels != cnf.input_channels:
+        self.expand = cnf.expanded_channels != cnf.input_channels
+        if self.expand:
             layers.append(ConvNormAct(cnf.input_channels, cnf.expanded_channels,
                                       1, act=act))
-        stride = 1 if cnf.dilation > 1 else cnf.stride
         layers.append(ConvNormAct(cnf.expanded_channels, cnf.expanded_channels,
-                                  cnf.kernel, stride, cnf.dilation,
+                                  cnf.kernel, cnf.conv_stride, cnf.dilation,
                                   groups=cnf.expanded_channels, act=act))
-        if cnf.use_se and se_dims:
+        self.se = bool(cnf.use_se and se_dims)
+        if self.se:
             layers.append(ConcurrentSEBlock(cnf.expanded_channels, f_dim, t_dim,
                                             se_dims, se_agg, se_r))
         layers.append(ConvNormAct(cnf.expanded_channels, cnf.out_channels, 1,
                                   act=None))
         self.block = nn.Sequential(*layers)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = self.block(x)
+    def forward(self, x: torch.Tensor,
+                time_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``time_valid`` (B,): valid input frames. The depthwise conv's
+        input and output are masked and the SE squeezes the valid frames."""
+        if time_valid is None:
+            out = self.block(x)
+        else:
+            layers = iter(self.block)
+            out = next(layers)(x) if self.expand else x
+            tv_out = self.cnf.time_count(time_valid)
+            out = time_mask(next(layers)(time_mask(out, time_valid)), tv_out)
+            if self.se:
+                out = next(layers)(out, tv_out)
+            out = next(layers)(out)
         return out + x if self.use_res else out
 
 
@@ -200,6 +262,15 @@ class MlpHead(nn.Sequential):
             nn.Linear(last_channel, num_classes),
         )
 
+    def forward(self, x: torch.Tensor,
+                time_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if time_valid is None:
+            return super().forward(x)
+        x = masked_time_mean(x, time_valid)
+        for layer in list(self)[2:]:
+            x = layer(x)
+        return x
+
 
 class FullyConvHead(nn.Sequential):
     """1x1 conv (no bias) -> BatchNorm (torch defaults) -> global avg-pool."""
@@ -211,6 +282,12 @@ class FullyConvHead(nn.Sequential):
             nn.AdaptiveAvgPool2d(1),
             nn.Flatten(1),
         )
+
+    def forward(self, x: torch.Tensor,
+                time_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if time_valid is None:
+            return super().forward(x)
+        return masked_time_mean(self[1](self[0](x)), time_valid)
 
 
 class MultiHeadAttentionPooling(nn.Module):
@@ -229,13 +306,18 @@ class MultiHeadAttentionPooling(nn.Module):
         self.head_weight = nn.Parameter(
             torch.full((1, num_heads, 1), 1.0 / num_heads))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                time_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``time_valid``: the padded frames get no attention."""
         x = x.mean(dim=2).transpose(1, 2)  # (B, T, C)
         b, n, _ = x.shape
         proj = self.subspace_proj(x).reshape(b, n, 2, self.num_heads, self.out_dim)
         att = proj[:, :, 0].transpose(1, 2)  # (B, heads, T, out)
         val = proj[:, :, 1].transpose(1, 2)
         att = torch.clamp(torch.sigmoid(att), self.epsilon, 1.0 - self.epsilon)
+        if time_valid is not None:
+            valid = torch.arange(n, device=x.device) < time_valid[:, None]
+            att = att * valid[:, None, :, None].to(att.dtype)
         att = att / att.sum(dim=2, keepdim=True)
         out = (att * val).sum(dim=2)  # (B, heads, out)
         return (out * self.head_weight).sum(dim=1)

@@ -4,14 +4,15 @@ Stem conv k3 s2 -> 15 inverted-residual blocks -> 1x1 conv to 6x the last
 block's channels -> one of three heads (mlp / fully_convolutional /
 multihead_attention_pooling), as upstream models/mn/model.py:73-271.
 ``forward`` takes (B, 1, F, T) log-mels and returns ``(logits, embedding)``,
-the embedding being the mean of the final feature map over (F, T).
+the embedding being the mean of the final feature map over (F, T); with
+``time_valid`` it evaluates each row at its own length (``layers``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -23,7 +24,10 @@ from efficientat_tpu_torch.models.layers import (
     InvertedResidual,
     MlpHead,
     MultiHeadAttentionPooling,
+    conv_out_count,
+    masked_time_mean,
     remat_call,
+    time_mask,
 )
 from efficientat_tpu_torch.utils.common import cnn_out_size, make_divisible
 
@@ -132,14 +136,29 @@ class MN(nn.Module):
                 f"Head '{cfg.head_type}' unknown. Must be one of: 'mlp', "
                 f"'fully_convolutional', 'multihead_attention_pooling'")
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """x: (B, C_in, F, T) -> (logits (B, classes), embedding (B, C_feat))."""
+    def forward(self, x: torch.Tensor, time_valid: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """x: (B, C_in, F, T) -> (logits (B, classes), embedding (B, C_feat)).
+
+        ``time_valid`` (B,): valid INPUT mel frames of each row; each stage
+        derives its own count (``conv_out_count``), and the output equals
+        each row's clip run alone at its length, to fp32 rounding."""
         stem, *blocks, tail = self.features
+        tv = None
+        if time_valid is not None:
+            x = time_mask(x, time_valid)
+            tv = conv_out_count(time_valid, self.cfg.in_conv_kernel,
+                                self.cfg.in_conv_stride)
         x = stem(x)
         for block in blocks:
-            x = remat_call(block, x) if self.cfg.remat else block(x)
+            args = (x,) if tv is None else (x, tv)
+            x = remat_call(block, *args) if self.cfg.remat else block(*args)
+            if tv is not None:
+                tv = block.cnf.time_count(tv)
         x = tail(x)
-        return self.classifier(x), x.mean(dim=(2, 3))
+        if tv is None:
+            return self.classifier(x), x.mean(dim=(2, 3))
+        return self.classifier(x, tv), masked_time_mean(x, tv)
 
 
 @torch.no_grad()

@@ -17,9 +17,15 @@ evaluates, logs and writes checkpoints.
 runs at that epoch's temperature, ``--eval_only`` at ``t_max``. ``--remat``
 recomputes each block's activations in the backward pass, for MN and DyMN.
 
-Not ported yet, and refused with an error: ``--variable_eval_length``, and
-``--pretrained`` with a class count other than the checkpoint's
-(classifier-head surgery).
+``--pretrained`` loads ``resources/<release file>`` of ``--model_name``;
+when the task has another class count than the file (``train esc50
+--pretrained`` from a 527-class AudioSet file) the classifier head is
+dropped and drawn fresh from ``--seed`` (``models.convert.load_pretrained``).
+
+``--variable_eval_length`` (FSD50K) evaluates each clip at its own length:
+the eval batches are padded to a bucket (``data.core.bucket_pad_collate``)
+and the model masks each row beyond its valid frames (``time_valid``). The
+eval is not sharded over ranks, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -108,14 +114,10 @@ def _build_model(spec, args) -> nn.Module:
         from efficientat_tpu_torch.models.convert import load_pretrained
         from efficientat_tpu_torch.models.registry import get_model_config
 
-        cfg = get_model_config(name).model_cfg
-        if spec.num_classes != cfg.num_classes:
-            raise NotImplementedError(
-                f"--pretrained {name} has {cfg.num_classes} classes and the "
-                f"task {spec.num_classes}: classifier-head surgery is not "
-                "ported yet")
-        weights = load_pretrained(name).state_dict()
-        cfg = dataclasses.replace(cfg, remat=args.remat)
+        weights = load_pretrained(name, num_classes=spec.num_classes,
+                                  seed=args.seed).state_dict()
+        cfg = dataclasses.replace(get_model_config(name).model_cfg,
+                                  num_classes=spec.num_classes, remat=args.remat)
         if strides is not None:  # strides change no parameter shape
             cfg = dataclasses.replace(cfg, strides=tuple(strides))
         if isinstance(cfg, DyMNConfig):
@@ -202,13 +204,21 @@ def _eval_metrics(spec, logits, targets):
 
 
 def _run_eval(spec, model, mel_cfg, eval_loader, device, bf16, temperature):
+    """Eval metrics over ``eval_loader``. A batch of ``bucket_pad_collate``
+    carries ``wave_samples``, and each row is evaluated at its own
+    ``(wave_samples - 1) // hopsize + 1`` mel frames."""
     from efficientat_tpu_torch.train.loop import eval_step
 
     all_logits, all_targets = [], []
     for batch in eval_loader.epoch(0):
         wave = torch.from_numpy(np.ascontiguousarray(_host_wave(batch)))
+        time_valid = None
+        if "wave_samples" in batch:
+            samples = np.asarray(batch["wave_samples"], np.int64)
+            time_valid = torch.from_numpy((samples - 1) // mel_cfg.hopsize + 1)
+            time_valid = time_valid.to(device)
         logits = eval_step(model, mel_cfg, wave.to(device), bf16=bf16,
-                           temperature=temperature)
+                           temperature=temperature, time_valid=time_valid)
         all_logits.append(logits.cpu().numpy())
         t = np.asarray(batch["target"])
         all_targets.append(t if t.ndim > 0 else t[None])
@@ -228,7 +238,9 @@ def run_train(task_name: str, argv):
     ``TrainResult``, or the eval metrics with ``--eval_only``."""
     import torch.distributed as dist
 
-    from efficientat_tpu_torch.data.core import Loader, SequentialSampler
+    from efficientat_tpu_torch.data.core import (
+        Loader, SequentialSampler, bucket_pad_collate,
+    )
     from efficientat_tpu_torch.parallel import ddp
     from efficientat_tpu_torch.train.loop import (
         LossConfig, StepRandom, make_optimizer, train_step,
@@ -261,8 +273,10 @@ def run_train(task_name: str, argv):
     train_ds, sampler, eval_ds = build_datasets(spec, args,
                                                 eval_only=args.eval_only)
     eval_bs = min(args.batch_size, len(eval_ds))
+    collate = (bucket_pad_collate(args.resample_rate)
+               if getattr(args, "variable_eval_length", False) else None)
     eval_loader = Loader(eval_ds, eval_bs, num_threads=args.num_workers,
-                         seed=args.seed)
+                         seed=args.seed, collate_fn=collate)
     train_loader = None
     if train_ds is not None:
         sampler = sampler or SequentialSampler(len(train_ds))

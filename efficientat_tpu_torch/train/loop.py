@@ -165,11 +165,15 @@ def task_loss(loss_cfg: LossConfig, logits: torch.Tensor,
     return loss, {"label_loss": label_loss, "distillation_loss": soft}
 
 
-def model_forward(model: nn.Module, x: torch.Tensor, temperature: float):
+def model_forward(model: nn.Module, x: torch.Tensor, temperature: float,
+                  time_valid: Optional[torch.Tensor] = None):
     """``model(x)``, with ``temperature`` for a DyMN, also behind its
-    ``DistributedDataParallel`` wrapper (JAX loop.py:78-83)."""
+    ``DistributedDataParallel`` wrapper (JAX loop.py:78-83); ``time_valid``
+    evaluates each row at its own length."""
     inner = model.module if isinstance(model, nn.parallel.DistributedDataParallel) else model
-    return model(x, temperature) if isinstance(inner, DyMN) else model(x)
+    if isinstance(inner, DyMN):
+        return model(x, temperature, time_valid)
+    return model(x, time_valid)
 
 
 def train_step(model: nn.Module, optimizer: torch.optim.Optimizer, scheduler,
@@ -221,11 +225,17 @@ def train_step(model: nn.Module, optimizer: torch.optim.Optimizer, scheduler,
 @torch.no_grad()
 def eval_step(model: nn.Module, mel_cfg: MelConfig, wave: torch.Tensor, *,
               bf16: bool = False, dft_precision: Optional[str] = None,
-              temperature: float = 1.0) -> torch.Tensor:
-    """Logits (B, classes) fp32 of the model in eval mode on ``wave``."""
+              temperature: float = 1.0,
+              time_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Logits (B, classes) fp32 of the model in eval mode on ``wave``.
+
+    ``time_valid`` (B,), on the wave's device: valid INPUT mel frames of
+    each row of a padded batch (``data.core.bucket_pad_collate``); each
+    row's logits then equal its clip's alone at batch 1 (the reference's
+    exact-length eval, ex_fsd50k.py:73-77), to fp32 rounding."""
     model.eval()
     mel = log_mel_spectrogram_fused(decode(wave), mel_cfg,
                                     dft_precision=dft_precision)
     with torch.autocast(mel.device.type, dtype=torch.bfloat16, enabled=bf16):
-        logits, _ = model_forward(model, mel[:, None], temperature)
+        logits, _ = model_forward(model, mel[:, None], temperature, time_valid)
     return logits.float()

@@ -12,8 +12,8 @@ machine without the real data; ``--clip_seconds`` shortens its clips.
 The dataset modules are the port's copies of the JAX package's
 (``efficientat_tpu_torch.data.*``, numpy and h5py only), imported when a
 task needs them.
-``--variable_eval_length`` (FSD50K's exact-length eval) needs the model's
-``time_valid`` masking, which is not ported yet, and raises.
+``--variable_eval_length`` (FSD50K's exact-length eval) keeps each eval
+clip at its own length; ``train/cli.py`` pads a batch to a bucket and masks.
 """
 
 from __future__ import annotations
@@ -161,10 +161,6 @@ def build_datasets(spec: TaskSpec, args, eval_only: bool = False):
     the eval loader too (ex_audioset.py:259-282).
     """
     split = getattr(args, "split", None) or "val"
-    if getattr(args, "variable_eval_length", False):
-        raise NotImplementedError(
-            "--variable_eval_length needs the time_valid masking of the model, "
-            "which efficientat_tpu_torch does not port yet")
     if getattr(args, "synthetic", 0):
         n = args.synthetic
         seconds = getattr(args, "clip_seconds", None)

@@ -28,9 +28,11 @@ SLICE_MODULES = [
     "efficientat_tpu_torch.data.wavecodec",
     "efficientat_tpu_torch.infer",
     "efficientat_tpu_torch.infer.tag",
+    "efficientat_tpu_torch.infer.windowed",
     "efficientat_tpu_torch.models",
     "efficientat_tpu_torch.models.convert",
     "efficientat_tpu_torch.models.dymn",
+    "efficientat_tpu_torch.models.ensemble",
     "efficientat_tpu_torch.models.layers",
     "efficientat_tpu_torch.models.mn",
     "efficientat_tpu_torch.models.registry",
@@ -44,6 +46,7 @@ SLICE_MODULES = [
     "efficientat_tpu_torch.parallel.ddp",
     "efficientat_tpu_torch.tools",
     "efficientat_tpu_torch.tools.probe_mel_kernel",
+    "efficientat_tpu_torch.tools.time_paths",
     "efficientat_tpu_torch.train",
     "efficientat_tpu_torch.train.augment",
     "efficientat_tpu_torch.train.cli",

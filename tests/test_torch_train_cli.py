@@ -5,6 +5,7 @@ train, resume, export, then the ``Tagger`` loads the export."""
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 from efficientat_tpu_torch import cli
 from efficientat_tpu_torch.infer.tag import Tagger
@@ -20,16 +21,6 @@ SMALL = ["--model_width", "0.4", "--clip_seconds", "1", "--num_workers", "1",
 # task -> (classes, metric its eval reports)
 TASKS = {"esc50": (50, "accuracy"), "audioset": (527, "mAP"),
          "openmic": (20, "mAP"), "dcase20": (10, "accuracy")}
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    # the suite runs in several worker processes at once: torch's default
-    # of one thread a core oversubscribes the cores many times over
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(autouse=True)
@@ -114,15 +105,6 @@ def test_cli_main_dispatches_train(tmp_path, capsys):
     assert (tmp_path / "ckpt" / "epoch_000000.pt").exists()
     with pytest.raises(SystemExit):
         cli.main(["tag", "--no_such_flag"])
-
-
-@pytest.mark.parametrize("extra,error,match", [
-    (["--variable_eval_length"], NotImplementedError, "time_valid"),
-])
-def test_unported_options_raise(tmp_path, extra, error, match):
-    task = "fsd50k" if "--variable_eval_length" in extra else "esc50"
-    with pytest.raises(error, match=match):
-        run_train(task, _argv(tmp_path, "--n_epochs", "1", *extra))
 
 
 @pytest.mark.parametrize("name,extra", [
