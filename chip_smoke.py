@@ -82,11 +82,30 @@ and the rest of serving and exact-length eval, full width, seeded weights:
     ``dymn10_as``: each row against its clip alone at batch 1 and against
     the CPU; then ``mn10_as_mels_256`` through the Tagger, K1 counted.
 
+and the analysis tools, the profiler and member-parallel ensembles:
+
+19. complexity: ``tools.macs.count_macs`` and the module's parameter count
+    of ``mn10_as`` and ``dymn10_as`` at a 10 s clip, and the model FLOP rate
+    they imply at phases 5 and 11's model-alone times (2 x MACs x B / ms,
+    and its share of the fp32 peak), printed, not gated;
+20. ``cli.main(["profile", ...])`` on ``mn10_as``, B=16, 4 traced
+    predicts: the trace file loads and holds exactly 4 K1 kernel events, and
+    K1 launched 5 times (the warm-up predict is outside the trace); beside
+    it, the K1 events a bare ``torch.profiler.profile`` keeps;
+21. member-parallel serving: two gloo ranks on cuda:0 at data 1 x model 2,
+    four seeded full-width ``mn10_as`` members stacked, two a rank, on K1's
+    mel of 32 seeded 10 s clips on each rank; rank 0's mean logits against
+    one process's sequential mean of the members on the card (a bf16
+    control must miss the bound), and the call's ms (two ranks share one
+    card: not a scaling figure); a rank's two members in one process, the
+    loop the ensemble runs against ``torch.func.vmap`` over the members.
+
 Then one JSON line on the kernels, per path (tag, train, train_dp,
 tag_fp32, train_fp32, tag_dymn, train_dymn, train_dp_dymn, tag_windowed,
-tag_ensemble2, tag_bf16, eval_variable, probe), the card's ``nvidia-smi``
-line and, last, ``{"ok": true, "device": {...}}``. Any failure raises and
-exits non-zero; nothing falls back to the CPU.
+tag_ensemble2, tag_bf16, eval_variable, profile, tag_member_parallel,
+probe), the card's ``nvidia-smi`` line and, last,
+``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
+nothing falls back to the CPU.
 """
 
 from __future__ import annotations
@@ -107,11 +126,13 @@ import numpy as np
 import torch
 import torch.distributed as dist
 from torch import nn
+from torch.func import functional_call, vmap
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
 import efficientat_tpu_torch.data as port_data  # noqa: E402
+from efficientat_tpu_torch import cli as port_cli  # noqa: E402
 from efficientat_tpu_torch.data import encode, load_waveform  # noqa: E402
 from efficientat_tpu_torch.data.core import bucket_pad_collate  # noqa: E402
 from efficientat_tpu_torch.infer.tag import Tagger  # noqa: E402
@@ -123,6 +144,7 @@ from efficientat_tpu_torch.models.registry import (  # noqa: E402
     get_model_config,
 )
 from efficientat_tpu_torch.ops import _build, mel_kernel, mel_probe  # noqa: E402
+from efficientat_tpu_torch.ops.mel_kernel import log_mel_spectrogram_fused  # noqa: E402
 from efficientat_tpu_torch.ops.filterbank import kaldi_mel_banks  # noqa: E402
 from efficientat_tpu_torch.ops.melspec import (  # noqa: E402
     MelConfig,
@@ -139,7 +161,15 @@ from efficientat_tpu_torch.parallel.ddp import (  # noqa: E402
     DataParallel,
     convert_global_bn,
 )
+from efficientat_tpu_torch.parallel.ensemble import (  # noqa: E402
+    make_member_parallel_ensemble,
+    shard_member_params,
+    stack_member_params,
+)
+from efficientat_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
 from efficientat_tpu_torch.tools import probe_mel_kernel, time_k1  # noqa: E402
+from efficientat_tpu_torch.tools.complexity import count_module_params  # noqa: E402
+from efficientat_tpu_torch.tools.macs import count_macs  # noqa: E402
 from efficientat_tpu_torch.tools.probe_mel_kernel import median_ms  # noqa: E402
 from efficientat_tpu_torch.train.augment import apply_mixup  # noqa: E402
 from efficientat_tpu_torch.train.cli import run_train  # noqa: E402
@@ -1064,7 +1094,7 @@ def phase_dymn_slice(device, card, batch, coded):
     checkpoint file, and a seeded ``dymn10_im`` file served at its t_max
     30; then model and pipeline times at B=64 and B=256 with their device
     profiles, and each DynamicConv of blocks 1 and 12 alone. Returns K1's
-    launches on the path."""
+    launches on the path and the model's ms at each batch."""
     tagger = Tagger(DYMN, pretrained=False, device=device, seed=0)
     model = tagger.members[0]
     reset_k1_launches()
@@ -1125,11 +1155,12 @@ def phase_dymn_slice(device, card, batch, coded):
                           for k in range(DYMN_BIG_BATCH // BATCH)])
     widest = max(m.out_channels for m in model.modules()
                  if isinstance(m, DynamicConv) and m.depthwise)
+    model_times = {}
     for rows, waves in ((BATCH, batch), (DYMN_BIG_BATCH, big)):
         xb = torch.from_numpy(waves).to(device)
         with torch.inference_mode():
             mel = mel_kernel.stft_log_mel(xb, banks, cfg, "bf16x3")[:, None]
-            model_ms = median_ms(lambda: model(mel, t_max))
+            model_ms = model_times[rows] = median_ms(lambda: model(mel, t_max))
         pipe_ms = median_ms(lambda: tagger.predict(waves), iters=5)
         phase("dymn_slice_time", model=DYMN, batch=rows, dft_precision="bf16x3",
               widest_fold_groups=rows * widest, model_ms=model_ms,
@@ -1145,7 +1176,7 @@ def phase_dymn_slice(device, card, batch, coded):
         del xb, mel
     del tagger, model
     torch.cuda.empty_cache()
-    return launches
+    return launches, model_times
 
 
 def _dymn_dp_rank(rank, port, work, device):
@@ -1554,6 +1585,228 @@ def phase_eval_variable(device, card):
     return total
 
 
+# ------------------------------- complexity, profile, member-parallel serving
+
+PROFILE_BATCH, PROFILE_ITERS = 16, 4    # the profile subcommand's defaults
+MP_WORLD = 2                            # ranks: data 1 x model MP_WORLD
+MP_MEMBERS, MP_BATCH = 4, 32
+# rank 0's member-parallel mean logits against one process's sequential mean
+# of the same members on the same mel, both fp32 with TF32 off: the same
+# convs, run by vmap as one grouped conv over a rank's members, and the sum
+# in another order. The control, the same members under bf16 autocast, must
+# miss it
+TOL_MEMBER_PARALLEL = 1e-5
+
+
+def phase_complexity(card, model_ms):
+    """19. ``tools.macs.count_macs`` and the module's parameter count of
+    ``mn10_as`` and ``dymn10_as`` at a 10 s clip, and the model FLOP rate
+    they imply at ``model_ms[name, batch]``, the model-alone times of phases
+    5 and 11: 2 x MACs x batch / ms, and its share of the fp32 peak."""
+    for name in ("mn10_as", DYMN):
+        spec = get_model_config(name)
+        mel = spec.mel_cfg
+        macs = count_macs(spec.model_cfg, mel.n_mels, mel.num_frames(CLIP))
+        phase("complexity", model=name, seconds=CLIP // SR, macs_a_clip=macs,
+              params=count_module_params(name))
+        check(macs > 0, f"{name} MACs")
+        for (timed, rows), ms in model_ms.items():
+            if timed == name:
+                rate = 2 * macs * rows / (ms * 1e-3)
+                phase("complexity_rate", model=name, batch=rows, model_ms=ms,
+                      model_flop_per_s=rate, fp32_peak_share=rate / PEAK_FP32,
+                      card=repr(card))
+
+
+def phase_profile(device, card):
+    """20. ``cli.main(["profile", ...])`` on ``mn10_as`` at its defaults,
+    B=16 and 4 traced predicts: the trace file loads as JSON and holds one
+    K1 kernel event a traced predict; K1's count rose by 5 (the warm-up
+    predict runs outside the trace). Beside it, the K1 events that a bare
+    ``torch.profiler.profile`` of the same predicts keeps (``trace``'s
+    warm-up step is what keeps all of them). Returns K1's launches on the
+    path."""
+    log_dir = os.path.join(HERE, "build", "chip_smoke", "trace")
+    shutil.rmtree(log_dir, ignore_errors=True)
+    reset_k1_launches()
+    t0 = time.perf_counter()
+    port_cli.main(["profile", "--model_name", "mn10_as", "--batch_size",
+                   str(PROFILE_BATCH), "--iters", str(PROFILE_ITERS),
+                   "--log_dir", log_dir])
+    seconds = time.perf_counter() - t0
+    launches = mel_kernel.LAUNCHES["bf16x3"]
+    files = [f for f in os.listdir(log_dir) if f.endswith(".pt.trace.json")]
+    check(len(files) == 1, f"the profile wrote {files}")
+    path = os.path.join(log_dir, files[0])
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    k1 = [e for e in kernels if "mel_kernel_tc" in e.get("name", "")]
+    # the same predicts under a bare torch.profiler.profile, without the
+    # trace's warm-up step: the K1 events it keeps, printed, not gated
+    tagger = Tagger("mn10_as", pretrained=False, device=device)
+    waves = train_waves(PROFILE_BATCH, seed=0)
+    tagger.predict(waves)
+    bare = os.path.join(log_dir, "bare.json")
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_ITERS):
+            tagger.predict(waves)
+    prof.export_chrome_trace(bare)
+    with open(bare) as f:
+        bare_k1 = sum(e.get("cat") == "kernel" and "mel_kernel_tc" in e.get("name", "")
+                      for e in json.load(f)["traceEvents"])
+    del tagger
+    phase("profile", model="mn10_as", batch=PROFILE_BATCH, iters=PROFILE_ITERS,
+          trace=os.path.relpath(path, HERE), trace_mb=os.path.getsize(path) / 2**20,
+          events=len(events), kernel_events=len(kernels), k1_events=len(k1),
+          k1_names=json.dumps(sorted({e["name"] for e in k1})),
+          k1_event_ms=statistics.mean(e["dur"] for e in k1) / 1e3 if k1 else None,
+          k1_launches=launches, bare_profile_k1_events=bare_k1, seconds=seconds,
+          card=repr(card))
+    check(len(k1) == PROFILE_ITERS,
+          f"the trace holds {len(k1)} K1 kernel events, not {PROFILE_ITERS}")
+    check(launches == PROFILE_ITERS + 1,
+          f"profile launched K1 {launches} times, not {PROFILE_ITERS + 1}")
+    return launches
+
+
+def mp_inputs(device):
+    """The member-parallel phase's MP_MEMBERS seeded mn10_as members (weights
+    that keep their scale, ``seeded_weights``) and MP_BATCH seeded 10 s
+    clips, on ``device``."""
+    members = []
+    for i in range(MP_MEMBERS):
+        m = build_model("mn10_as")
+        m.load_state_dict(seeded_weights("mn10_as", seed=21 + i))
+        members.append(m.to(device).eval())
+    waves = torch.from_numpy(train_waves(MP_BATCH, seed=21)).to(device)
+    return members, waves
+
+
+def mp_mel(waves):
+    """The Tagger's front end on the card: K1 bf16x3, (B, 1, 128, 1000)."""
+    return log_mel_spectrogram_fused(waves, MelConfig(), backend="kernel")[:, None]
+
+
+def _mp_rank(rank, init, work, device):
+    """One of MP_WORLD gloo ranks on ``device`` at data 1 x model MP_WORLD:
+    its MP_MEMBERS / MP_WORLD members of the stack, the mel of its batch
+    from K1, the member-parallel mean; K1's launches in that call, then the
+    call's time with every rank calling in step."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(device)
+    dist.init_process_group("gloo", init_method=init, rank=rank, world_size=MP_WORLD)
+    try:
+        mesh = make_mesh(MP_WORLD, model_axis=MP_WORLD)
+        members, waves = mp_inputs(device)
+        stacked = shard_member_params(stack_member_params(members), mesh)
+        fn = make_member_parallel_ensemble(members[0], mesh, MP_MEMBERS)
+        del members
+
+        def serve():
+            with torch.inference_mode():
+                return fn(stacked, mp_mel(waves))
+
+        dist.barrier()
+        reset_k1_launches()
+        out = serve()
+        torch.cuda.synchronize()
+        launches = mel_kernel.LAUNCHES["bf16x3"]
+        dist.barrier()
+        ms = median_ms(serve)
+        torch.save({"out": out.cpu(), "launches": launches, "ms": ms,
+                    "members": next(iter(stacked.values())).shape[0],
+                    "layout": (mesh.data_index, mesh.model_index)},
+                   os.path.join(work, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_member_parallel(device, card):
+    """21. Member-parallel serving: MP_WORLD gloo ranks on ``device`` (NCCL
+    refuses two ranks on one card), started as phase 8 starts its ranks,
+    MP_MEMBERS full-width mn10_as members stacked, MP_MEMBERS / MP_WORLD a
+    rank, each rank's mel from K1; rank 0's mean logits against one
+    process's sequential mean of the same members on the card, and a bf16
+    control that must miss the bound. Returns K1's launches on the path."""
+    work = os.path.join(HERE, "build", "chip_smoke", "member_parallel")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    init = f"file://{os.path.join(work, 'rendezvous')}"
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_mp_rank, args=(r, init, work, device))
+             for r in range(MP_WORLD)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=300)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    check([p.exitcode for p in procs] == [0] * MP_WORLD,
+          f"member-parallel ranks exited with {[p.exitcode for p in procs]}")
+    seconds = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+             for r in range(MP_WORLD)]
+
+    members, waves = mp_inputs(device)
+
+    def sequential():
+        mel = mp_mel(waves)
+        return sum(m(mel)[0] for m in members) / MP_MEMBERS
+
+    # a rank's share of the members in one process: the loop that
+    # make_member_parallel_ensemble runs, against torch.func.vmap over the
+    # member axis
+    share = MP_MEMBERS // MP_WORLD
+    pair = stack_member_params(members[:share])
+    loop = make_member_parallel_ensemble(members[0], make_mesh(1), share)
+    vmapped = vmap(lambda p, x: functional_call(members[0], p, (x,))[0],
+                   in_dims=(0, None))
+    with torch.inference_mode():
+        want = sequential().cpu()
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            control = sequential().float().cpu()
+        seq_ms = median_ms(sequential)
+        mel = mp_mel(waves)
+        loop_ms = median_ms(lambda: loop(pair, mel))
+        vmap_ms = median_ms(lambda: vmapped(pair, mel).sum(0) / share)
+        vmap_gap = float((vmapped(pair, mel).sum(0) / share - loop(pair, mel)).abs().max())
+    got = ranks[0]["out"]
+    gap = float((got - want).abs().max())
+    control_gap = float((control - want).abs().max())
+    launches = [r["launches"] for r in ranks]
+    phase("member_parallel", model="mn10_as", members=MP_MEMBERS, batch=MP_BATCH,
+          layout=f"data 1 x model {MP_WORLD}", backend="gloo",
+          members_a_rank=[r["members"] for r in ranks], k1_launches=launches,
+          vs_sequential=gap, bound=TOL_MEMBER_PARALLEL, bf16_control=control_gap,
+          ranks_equal=bool(torch.equal(got, ranks[1]["out"])),
+          logits_std=float(want.std()), seconds=seconds)
+    phase("member_parallel_time", batch=MP_BATCH,
+          note="two ranks share one card, not a scaling figure",
+          call_ms_rank0=ranks[0]["ms"], call_ms_rank1=ranks[1]["ms"],
+          sequential_call_ms_one_process=seq_ms, rank_share_loop_ms=loop_ms,
+          rank_share_vmap_ms=vmap_ms, vmap_vs_loop=vmap_gap, card=repr(card))
+    check(got.shape == (MP_BATCH, 527) and bool(torch.isfinite(got).all()),
+          "member-parallel logits")
+    check([r["layout"] for r in ranks] == [(0, r) for r in range(MP_WORLD)],
+          "member-parallel layout")
+    check(all(r["members"] == MP_MEMBERS // MP_WORLD for r in ranks),
+          "members a rank")
+    check(torch.equal(got, ranks[1]["out"]), "the ranks' means differ")
+    check(gap <= TOL_MEMBER_PARALLEL, "member-parallel mean vs sequential mean")
+    check(control_gap > TOL_MEMBER_PARALLEL,
+          f"the bf16 control passes the member-parallel bound: {control_gap}")
+    check(launches == [1] * MP_WORLD, f"K1 launches on the ranks {launches}")
+    del members, waves, pair, mel
+    torch.cuda.empty_cache()
+    return sum(launches)
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -1748,7 +2001,7 @@ def main():
     # 11-13. DyMN: serving, training in one process and on two ranks. K1's
     # calls there have the shapes of the MN paths' (the wave in, 128 mels
     # out), so its rows take phases 5 and 6's times, and K1-dp's phase 8's
-    dymn_tag_launches = phase_dymn_slice(device, card, batch, coded)
+    dymn_tag_launches, dymn_model_ms = phase_dymn_slice(device, card, batch, coded)
     dymn_train_launches, _ = phase_train(
         device, DYMN, flags=((), ("--bf16",), ("--bf16", "--remat")), tag="dymn_train",
         temperature=DYMN_TRAIN_TEMPERATURE)
@@ -1774,18 +2027,22 @@ def main():
         "eval_variable": (phase_eval_variable(device, card), len(EVAL_SECONDS), "fp32"),
     }
     k1_at = {}
-    for path, (path_launches, rows_a_launch, prec) in new_paths.items():
-        if (rows_a_launch, prec) not in k1_at:
-            rec = time_k1.time_k1(rows_a_launch, cfg.n_mels, prec, turns=1)
-            check(rec["max_abs"] <= TOL_KERNEL_VS_PLAIN[prec],
-                  f"K1 {prec} vs plain at B={rows_a_launch}")
-            phase("k1_time", **rec, card=repr(card))
-            k1_at[rows_a_launch, prec] = rec
-        rec = k1_at[rows_a_launch, prec]
-        kernels.append({**kernels[0], "path": path, "launches": path_launches,
-                        "max_abs_err": rec["max_abs"],
-                        "ms": statistics.mean(rec["kernel_ms"]),
-                        "plain_ms": statistics.mean(rec["plain_ms"])})
+
+    def add_k1_rows(paths):
+        for path, (path_launches, rows_a_launch, prec) in paths.items():
+            if (rows_a_launch, prec) not in k1_at:
+                rec = time_k1.time_k1(rows_a_launch, cfg.n_mels, prec, turns=1)
+                check(rec["max_abs"] <= TOL_KERNEL_VS_PLAIN[prec],
+                      f"K1 {prec} vs plain at B={rows_a_launch}")
+                phase("k1_time", **rec, card=repr(card))
+                k1_at[rows_a_launch, prec] = rec
+            rec = k1_at[rows_a_launch, prec]
+            kernels.append({**kernels[0], "path": path, "launches": path_launches,
+                            "max_abs_err": rec["max_abs"],
+                            "ms": statistics.mean(rec["kernel_ms"]),
+                            "plain_ms": statistics.mean(rec["plain_ms"])})
+
+    add_k1_rows(new_paths)
 
     phase_train_surgery(device)  # K1 in training mode: its launches on its line
 
@@ -1804,6 +2061,18 @@ def main():
           f"the 256-mel Tagger's K1 launches {mels_256}")
     del tagger
     torch.cuda.empty_cache()
+
+    # 19-21. the complexity report at phases 5 and 11's model times, the
+    # profile subcommand, and member-parallel serving; K1's rows take times
+    # at each path's batch, as phases 14-18's
+    phase_complexity(card, {("mn10_as", BATCH): model_ms,
+                            **{(DYMN, rows): ms for rows, ms in dymn_model_ms.items()}})
+    more_paths = {
+        "profile": (phase_profile(device, card), PROFILE_BATCH, "bf16x3"),
+        "tag_member_parallel": (phase_member_parallel(device, card), MP_BATCH, "bf16x3"),
+    }
+    add_k1_rows(more_paths)
+    new_paths.update(more_paths)
 
     # each K1 row's bound and cuBLAS yardstick, at the clips a launch and
     # the precision of its times

@@ -1,0 +1,125 @@
+"""MACs / parameter counting (port of efficientat_tpu/tools/macs.py;
+reference: helpers/flop_count.py:7-69).
+
+conv MACs = k_h*k_w * (C_in/groups) * C_out * H_out * W_out (+bias);
+linear MACs = weights + bias. Computed from the static layer plan.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+from typing import Union
+
+from efficientat_tpu_torch.models.dymn import DyMNConfig
+from efficientat_tpu_torch.models.mn import MNConfig
+from efficientat_tpu_torch.tools.layer_plan import layer_plan
+
+
+def count_macs(cfg: Union[MNConfig, DyMNConfig], input_f: int = 128,
+               input_t: int = 1000, verbose: bool = False) -> int:
+    plan = layer_plan(cfg, input_f, input_t)
+    conv = [l.macs() for l in plan if l.kind == "conv"]
+    lin = [l.macs() for l in plan if l.kind == "linear"]
+    total = sum(conv) + sum(lin)
+    if verbose:
+        print("*************Computational Complexity (multiply-adds) **************")
+        print("Number of Convolutional Layers: ", len(conv))
+        print("Number of Linear Layers: ", len(lin))
+        print("Relative Share of Convolutional Layers: {:.2f}".format(sum(conv) / total))
+        print("Relative Share of Linear Layers: {:.2f}".format(sum(lin) / total))
+        print("Total MACs (multiply-accumulate operations in Billions): {:.2f}".format(total / 10 ** 9))
+        print("********************************************************************")
+    return total
+
+
+def count_params(cfg: Union[MNConfig, DyMNConfig]) -> int:
+    """Weight/bias parameter count from the plan plus norm affine params.
+
+    (For exact totals the model's real param tree is authoritative; this
+    analytic count covers conv/linear weights, the dominant part.)
+    """
+    return sum(l.params() for l in layer_plan(cfg))
+
+
+# ---------------------------------------------------------------- transformer
+
+@dataclasses.dataclass(frozen=True)
+class TransformerSpec:
+    """Static description of a PaSST/ViT-style audio transformer.
+
+    Mirrors what the reference's hook-based counter observes when run over
+    its PaSST teacher (helpers/flop_count.py:72-162): one patch-embedding
+    conv, ``depth`` blocks of (qkv linear, attention, proj linear, 2-layer
+    MLP), and a pooled classification head. Defaults are PaSST-S on a 10 s
+    AudioSet mel (patch 16, stride 10, embed 768, depth 12).
+    """
+
+    input_f: int = 128
+    input_t: int = 998
+    in_channels: int = 1
+    embed_dim: int = 768
+    depth: int = 12
+    num_heads: int = 12
+    patch_size: int = 16
+    stride_f: int = 10
+    stride_t: int = 10
+    mlp_ratio: float = 4.0
+    num_classes: int = 527
+    extra_tokens: int = 2  # cls + distillation token (PaSST/DeiT)
+    bias: bool = True
+
+    @property
+    def seq_len(self) -> int:
+        pf = (self.input_f - self.patch_size) // self.stride_f + 1
+        pt = (self.input_t - self.patch_size) // self.stride_t + 1
+        return pf * pt + self.extra_tokens
+
+
+def count_macs_transformer(spec: TransformerSpec, verbose: bool = False) -> int:
+    """Analytic transformer MACs with the reference's accounting
+    (helpers/flop_count.py:72-162):
+
+    - conv2d: k_h*k_w*(C_in/groups)*C_out*H_out*W_out + bias C_out*H_out*W_out
+    - linear applied position-wise: (weights + bias) * seq_len
+    - pooled classification head: weights + bias
+    - attention: 2 * embed_dim * seq_len**2 per block (QK^T and att@V)
+
+    The reference needs the torch PaSST model and forward hooks; here the
+    same numbers come from the static spec — no model required.
+    """
+    e = spec.embed_dim
+    n = spec.seq_len
+    hidden = int(e * spec.mlp_ratio)
+    b = 1 if spec.bias else 0
+
+    pf = (spec.input_f - spec.patch_size) // spec.stride_f + 1
+    pt = (spec.input_t - spec.patch_size) // spec.stride_t + 1
+    conv = [(spec.patch_size * spec.patch_size * spec.in_channels + b)
+            * e * pf * pt]
+
+    def lin(out_dim, in_dim, seq):
+        return (out_dim * in_dim + (out_dim if spec.bias else 0)) * seq
+
+    linear = []
+    att = []
+    for _ in range(spec.depth):
+        linear.append(lin(3 * e, e, n))       # fused qkv projection
+        att.append(2 * e * n * n)             # QK^T + att@V
+        linear.append(lin(e, e, n))           # output projection
+        linear.append(lin(hidden, e, n))      # mlp fc1
+        linear.append(lin(e, hidden, n))      # mlp fc2
+    linear.append(lin(spec.num_classes, e, 1))  # pooled head
+
+    total = sum(conv) + sum(linear) + sum(att)
+    if verbose:
+        print("*************Computational Complexity (multiply-adds) **************")
+        print("Number of Convolutional Layers: ", len(conv))
+        print("Number of Linear Layers: ", len(linear))
+        print("Number of Attention Layers: ", len(att))
+        print("Relative Share of Convolutional Layers: {:.2f}".format(sum(conv) / total))
+        print("Relative Share of Linear Layers: {:.2f}".format(sum(linear) / total))
+        print("Relative Share of Attention Layers: {:.2f}".format(sum(att) / total))
+        print("Total MACs (multiply-accumulate operations in Billions): {:.2f}".format(total / 10 ** 9))
+        print("********************************************************************")
+    return total

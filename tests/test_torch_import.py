@@ -44,8 +44,16 @@ SLICE_MODULES = [
     "efficientat_tpu_torch.ops.melspec",
     "efficientat_tpu_torch.parallel",
     "efficientat_tpu_torch.parallel.ddp",
+    "efficientat_tpu_torch.parallel.ensemble",
+    "efficientat_tpu_torch.parallel.mesh",
     "efficientat_tpu_torch.tools",
+    "efficientat_tpu_torch.tools.complexity",
+    "efficientat_tpu_torch.tools.layer_plan",
+    "efficientat_tpu_torch.tools.macs",
+    "efficientat_tpu_torch.tools.peak_memory",
     "efficientat_tpu_torch.tools.probe_mel_kernel",
+    "efficientat_tpu_torch.tools.receptive_field",
+    "efficientat_tpu_torch.tools.time_k1",
     "efficientat_tpu_torch.tools.time_paths",
     "efficientat_tpu_torch.train",
     "efficientat_tpu_torch.train.augment",
@@ -61,6 +69,7 @@ SLICE_MODULES = [
     "efficientat_tpu_torch.utils.host",
     "efficientat_tpu_torch.utils.labels",
     "efficientat_tpu_torch.utils.logging",
+    "efficientat_tpu_torch.utils.profiling",
 ]
 
 
