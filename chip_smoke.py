@@ -40,7 +40,10 @@ and the training path, ``train audioset`` (KD, mixup, fmin/fmax jitter):
 and the probe path, the tensor-core variants P1-P3 of the fused log-mel
 (``efficientat_tpu_torch/csrc/mel_probe_kernel.cu``):
 
-10. each variant against its plain version and the float64 oracle on the
+10. the library's shared-memory plan against the wrapper's mirror; the
+    3-pass kernels' pre-log mel sums against their plain version's fp32
+    GEMM on impulse waves (a bf16x3 control must miss the bound); each
+    variant against its plain version and the float64 oracle on the
     selftest waves; at B=64 of 10 s clips, each against its plain version
     in ms, beside ``gemm_ms``, cuBLAS's time for the DFT products alone on
     pre-made frames (K1's rows get theirs too: 3 bf16 products for bf16x3,
@@ -240,6 +243,19 @@ TOL_PROBE_VS_PLAIN = 1e-4
 TOL_PROBE_VS_ORACLE = {3: (TOL_VS_ORACLE["bf16x3"],) * 4,
                        21: (0.022, 2.1, 0.095, 0.0032),
                        22: (0.033, 2.4, 0.15, 0.0049)}
+# the probe kernels' mel product holds fp32's precision (power and banks in
+# three bf16 parts, six products), which the 1e-4 bound above cannot see:
+# on waves whose frames each hold one nonzero sample (``impulse_waves``)
+# every DFT output is one product, the same in any order, so what parts a
+# kernel from its plain version is the mel product. Mean relative gap of
+# the pre-log mel sums above MEL_SUM_FLOOR (``mel_sum_gap``). Emulated on
+# the CPU (``split_mel_plain`` against the plain version, ``impulse_waves()``):
+# the six products summed in fp32 3.4e-8, a bf16x3 mel product 1.45e-6,
+# whose largest gap on the log, 3.8e-6, the 1e-4 bound does not see. Phase
+# 10 checks that the bf16x3 control misses this bound
+TOL_PROBE_MEL_SUMS = 4e-7
+MEL_SUM_FLOOR = 1e-3
+PROBE_MEL_PASSES = mel_probe.MEL_SPLIT * (mel_probe.MEL_SPLIT + 1) // 2
 # the variants the probe phase checks and times: (kernel, variant, function,
 # its arguments, DFT passes, the TPU kernel body it replaces)
 PROBE = "scripts/probe_mel_kernel.py"
@@ -833,17 +849,20 @@ def phase_train_times(device, card, name="mn10_as", variants=((False, False), (T
 
 # ---------------------------------------------------------------- the probe
 
-def mel_bound_ms(batch, samples, n_mels, dft):
+def mel_bound_ms(batch, samples, n_mels, dft, mel="fp32"):
     """The least time of a log-mel call at hop 320 on the card, and what
-    sets it: the DFT products (``dft`` bf16 passes at the tensor-core rate,
-    6 for K1 fp32's split, or "fp32" at the CUDA-core rate, the bound of a
-    CUDA-core kernel) plus the fp32 mel product, against the wave read once
-    and the output written once."""
+    sets it: the DFT products and the mel product, each as ``dft`` / ``mel``
+    bf16 passes at the tensor-core rate (6 for an fp32 split) or "fp32" at
+    the CUDA-core rate, against the wave read once and the output written
+    once. K1 runs its mel product on the CUDA cores; the probe kernels run
+    theirs as 6 bf16 passes."""
     frames = batch * ((samples - 1) // 320 + 1)
-    dft_flop = frames * 1024 * 1024 * 2
-    ops_s = (dft_flop / PEAK_FP32 if dft == "fp32"
-             else dft * dft_flop / PEAK_BF16)
-    ops_s += frames * 512 * n_mels * 2 / PEAK_FP32
+
+    def seconds(passes, flop):
+        return flop / PEAK_FP32 if passes == "fp32" else passes * flop / PEAK_BF16
+
+    ops_s = (seconds(dft, frames * 1024 * 1024 * 2)
+             + seconds(mel, frames * 512 * n_mels * 2))
     bytes_s = 4 * (batch * samples + frames * n_mels) / PEAK_BYTES
     return 1e3 * max(ops_s, bytes_s), "operations" if ops_s >= bytes_s else "bytes"
 
@@ -904,6 +923,51 @@ def probe_oracle_gaps(device):
             for kernel, name, fn, kw, _, _ in PROBE_VARIANTS}
 
 
+def impulse_waves(batch=4, samples=CLIP, seed=4):
+    """(batch, samples) f32: an impulse every n_fft samples from a random
+    phase, normal heights at a scale a row from 3 down to 0.03, so that
+    every frame holds exactly one nonzero sample."""
+    rng = np.random.default_rng(seed)
+    waves = np.zeros((batch, samples), np.float32)
+    for row, scale in zip(waves, np.geomspace(3.0, 0.03, batch)):
+        pos = np.arange(rng.integers(1024), samples, 1024)
+        row[pos] = rng.normal(size=pos.size) * scale
+    return waves
+
+
+def mel_sum_gap(got, want):
+    """Mean relative gap of the pre-log mel sums, x = exp(5 y - 4.5) - 1e-5
+    in float64, over the entries where want's exceed MEL_SUM_FLOOR."""
+    x, w = (torch.exp(5 * y.double() - 4.5) - 1e-5 for y in (got, want))
+    keep = w > MEL_SUM_FLOOR
+    return float(((x - w).abs() / w)[keep].mean())
+
+
+def split_mel_plain(wave, banks, cfg, parts):
+    """P3's function at 3 passes with its mel product as ``parts`` bf16
+    parts of the power and of the banks, the products of parts i + j <
+    parts summed in fp32, smallest first: 3 is the kernels' (fp32's
+    precision), 2 a bf16x3 mel product, the control ``mel_sum_gap`` must
+    catch."""
+    n_bins = cfg.n_fft // 2
+    frames = frame_signal(wave, cfg.n_fft, cfg.hopsize,
+                          cfg.num_frames(wave.shape[1]), pad_mode="constant")
+    bhi, blo = (device_const(mel_kernel._folded_basis_split,
+                             (cfg.n_fft, cfg.win_length, p), str(wave.device))
+                for p in (0, 1))
+    with true_fp32():
+        fh = frames.to(torch.bfloat16).to(torch.float32)
+        fl = (frames - fh).to(torch.bfloat16).to(torch.float32)
+        proj = fh @ bhi + (fh @ blo + fl @ bhi)
+        power = proj[..., :n_bins] ** 2 + proj[..., n_bins:] ** 2
+        pw, bt = (mel_kernel.bf16_split(v, parts)
+                  for v in (power, banks[:, :n_bins].t()))
+        mel = sum(pw[i].float() @ bt[level - i].float()
+                  for level in reversed(range(parts)) for i in range(level + 1))
+    out = ((torch.log(mel + 1e-5) + 4.5) / 5.0).transpose(1, 2).contiguous()
+    return mel_kernel._patch_edges(out, wave, banks, cfg)
+
+
 def probe_controls(wave, device):
     """Two lower-precision versions of P3 at 3 passes against its plain
     version, on the card's kernel: banks rounded to bf16 (what a bf16 mel
@@ -921,17 +985,57 @@ def probe_controls(wave, device):
 
 
 def phase_probe(device, card):
-    """10. P1-P3: the build; each variant against its plain version and
-    the float64 oracle on the selftest waves (hop 320, and 640 for P1 and
+    """10. P1-P3: the build and plan; the mel product at fp32's precision
+    on impulse waves; each variant against its plain version and the
+    float64 oracle on the selftest waves (hop 320, and 640 for P1 and
     P2); at B=64 of 10 s clips, kernel against plain in ms beside
     ``gemm_ms``; then ``tools.probe_mel_kernel.run("all", "cuda")``, the
     path's entry point, with the counters set to 0. Returns the kernels
     line's rows for P1, P2 and P3."""
-    regs = [ln.split(":", 1)[-1].strip() for ln in
-            _build.BUILD_LOG.get("mel_probe_kernel", "").splitlines()
-            if "registers" in ln or "spill" in ln]
+    # ptxas's registers and spills of each probe_kernel<WG, STAGED, PASSES, KC>
+    regs, entry = {}, "?"
+    for ln in _build.BUILD_LOG.get("mel_probe_kernel", "").splitlines():
+        m = re.search(r"probe_kernelILi(\d+)ELb(\d)ELi(\d+)ELi(\d+)E", ln)
+        if m:
+            entry = "<%s,%s,%s,%s>" % m.groups()
+        elif "registers" in ln or "spill" in ln:
+            regs.setdefault(entry, []).append(ln.split(":", 1)[-1].strip())
     phase("probe_build", source="efficientat_tpu_torch/csrc/mel_probe_kernel.cu",
-          arch="sm_90a", ptxas=repr(regs))
+          arch="sm_90a", ptxas=json.dumps(regs))
+    # the library's shared-memory plan at every hop, against the wrapper's
+    # mirror (which the CPU tests check against every input the wrappers take)
+    plans = {}
+    for staged in (False, True):
+        for hop in range(64, (mel_probe.MAX_STAGED_HOP if staged else 1024) + 1, 64):
+            plan = mel_probe.card_plan(staged, hop)
+            check(plan == mel_probe.smem_plan(staged, hop),
+                  f"the probe's plan at hop {hop} (staged={staged}): library "
+                  f"{plan}, mirror {mel_probe.smem_plan(staged, hop)}")
+            if hop in (320, 640) and (staged or hop == 320):
+                plans[f"{'p2' if staged else 'p1_p3'}_plan_hop{hop}"] = json.dumps(
+                    dict(zip(("smem_bytes", "warpgroups", "kc"), plan)))
+    phase("probe_design", design=repr(mel_probe.DESIGN), ring=mel_probe.RING,
+          **plans)
+
+    # the mel product at fp32's precision (see TOL_PROBE_MEL_SUMS)
+    cfg = MelConfig()
+    banks = kaldi_mel_banks(cfg.n_mels, cfg.n_fft, cfg.sr, cfg.fmin,
+                            cfg.effective_fmax, device=device)
+    imp = torch.from_numpy(impulse_waves()).to(device)
+    want = mel_probe.variant_mel_e_plain(imp, banks, cfg, 3)
+    controls = {f"split{parts}_plain": mel_sum_gap(
+        split_mel_plain(imp, banks, cfg, parts), want) for parts in (2, 3)}
+    gaps = {}
+    for kernel, name, fn, kw, passes, _ in PROBE_VARIANTS:
+        if passes == 3 and kw.get("folded", True):  # one nonzero sample a frame
+            gaps[f"{kernel}_{name}"] = mel_sum_gap(
+                fn(imp, banks, cfg, **kw), PROBE_PLAIN[fn](imp, banks, cfg, **kw))
+    phase("probe_mel_sums", bound=TOL_PROBE_MEL_SUMS, floor=MEL_SUM_FLOOR,
+          **controls, **gaps)
+    check(controls["split2_plain"] > TOL_PROBE_MEL_SUMS,
+          f"a bf16x3 mel product passes the mel-sum bound: {controls}")
+    check(max(gaps.values()) <= TOL_PROBE_MEL_SUMS,
+          f"a probe kernel's mel product is below fp32's precision: {gaps}")
 
     waves = selftest_waves()
     wd = torch.from_numpy(waves).to(device)
@@ -976,11 +1080,14 @@ def phase_probe(device, card):
         for which in ("plain", "kernel", "kernel", "plain"):
             run = PROBE_PLAIN[fn] if which == "plain" else fn
             runs[which].append(median_ms(lambda: run(xb, banks, cfg, **kw)))
-        bound, bound_by = mel_bound_ms(BATCH, CLIP, cfg.n_mels, passes)
+        bound, bound_by = mel_bound_ms(BATCH, CLIP, cfg.n_mels, passes,
+                                       PROBE_MEL_PASSES)
         gemm = gemm_ms(device, BATCH, passes)
         phase("probe_time", kernel=kernel, variant=name, batch=BATCH,
               kernel_ms=runs["kernel"], plain_ms=runs["plain"], gemm_ms=gemm,
-              bound_ms=bound, max_abs=err, card=repr(card))
+              bound_ms=bound,
+              share_of_bound=bound / statistics.mean(runs["kernel"]),
+              max_abs=err, card=repr(card))
         rows[kernel, name] = {
             "max_abs_err": err, "ms": statistics.mean(runs["kernel"]),
             "plain_ms": statistics.mean(runs["plain"]), "gemm_ms": gemm,

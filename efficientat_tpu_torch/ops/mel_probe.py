@@ -3,24 +3,30 @@
 Each variant computes K1's function (``ops.mel_kernel``), frames x windowed
 rDFT basis (no Nyquist bin) -> power -> x banks^T -> ``(log(x + 1e-5) + 4.5)
 / 5``, with the DFT as bf16 products summed in fp32: the frames are split
-into bf16 hi/lo inside the kernel, the basis hi/lo is made here, once.
+into bf16 hi/lo inside the kernel, the basis hi/lo is made here, once, and
+pre-tiled (``_tiled_basis``) so that each stage of the kernel's shared-memory
+ring is one contiguous block that one bulk copy brings in.
 
 - P1, ``variant_mel``: ``folded=False`` takes the pre-emphasised,
   reflect-padded wave and the plain windowed basis; ``folded=True`` the raw
   wave behind a zero pad and the pre-emphasis-folded basis, with the frames
   that reach the reflect pad patched afterwards. ``frame_tile`` frames a
-  block, a multiple of 64.
-- P2, ``variant_mel_dma``: P1 folded, with each 64-frame sub-tile's wave
-  segment copied into shared memory by ``cp.async``. ``sub64`` only shaped
-  the TPU's copies; both values launch the same kernel.
+  block, a multiple of 64, rounded up to the kernel's 128-frame block.
+- P2, ``variant_mel_dma``: P1 folded, each block's frames assembled by the
+  copy engine: one bulk copy brings a sub-tile's wave segment into shared
+  memory (128 frames up to hop 320, else 64, ``smem_plan``). ``sub64`` only
+  shaped the TPU's copies; both values launch the same kernel.
 - P3, ``variant_mel_e``: P1 folded at hop 320 and 128-frame tiles, with
   ``passes`` 3 (fh*bhi + fh*blo + fl*bhi), 21 (fh*bhi + fl*bhi) or 22
   (fh*bhi + fh*blo). The TPU's even/odd frame assembly has no counterpart.
 
-On a CPU tensor each wrapper runs its plain version (``variant_mel_plain``,
-``variant_mel_dma_plain``, ``variant_mel_e_plain``): the same splits and
-passes as fp32 GEMMs of bf16-valued operands, then power, the fp32 mel GEMM,
-the log and the edge patch. On a CUDA tensor it launches its kernel
+The mel product is fp32's in every variant: the kernel splits the power and
+the banks into three bf16 parts each and sums the six products of parts i +
+j < 3, as the TPU's ``Precision.HIGHEST`` does. On a CPU tensor each wrapper
+runs its plain version (``variant_mel_plain``, ``variant_mel_dma_plain``,
+``variant_mel_e_plain``): the same splits and passes as fp32 GEMMs of
+bf16-valued operands, then power, the fp32 mel GEMM, the log and the edge
+patch. On a CUDA tensor it launches its kernel
 (``csrc/mel_probe_kernel.cu``) or raises.
 """
 
@@ -38,6 +44,7 @@ from efficientat_tpu_torch.ops.mel_kernel import (
     _folded_basis_split,
     _patch_edges,
     bf16_part,
+    bf16_split,
 )
 from efficientat_tpu_torch.ops.melspec import (
     MelConfig,
@@ -49,12 +56,35 @@ from efficientat_tpu_torch.ops.melspec import (
 )
 
 PASSES = (3, 21, 22)
-SUB_TILE = 64  # frames a block computes at a time; frame tiles are multiples
+SUB_TILE = 64  # frames a warpgroup computes; frame tiles are multiples
 MAX_MELS = 128
-# P2 stages a sub-tile's wave segment, 63 * hop + 1024 samples, in shared
-# memory: up to this hop it fits beside the power and banks tiles
+# P2 stages a sub-tile's wave segment, at least 63 * hop + 1024 samples, in
+# shared memory: up to this hop it fits beside the ring
 MAX_STAGED_HOP = 768
 P3_HOP = 320
+
+# The kernel's shared-memory plan, mirrored from csrc/mel_probe_kernel.cu
+# (``plan``): warpgroups of 64 frames a block, a ring of RING slots of KC
+# samples (a chunk's 64 columns of both bf16 basis parts, 256 KC bytes),
+# through which the chunk's banks^T tiles pass too, and P2's segment of the
+# block's frames, next to a few mbarriers.
+N_FFT = 1024
+CHUNK_COLS = 64  # a chunk: 32 cos + the 32 matching sin columns
+BLOCK = 128  # frames of the largest block; the rows hold whole blocks
+MEL_SPLIT = 3  # bf16 parts of the power and of banks^T in the mel product
+RING = 4
+P1_PLAN = (2, 128)  # warpgroups, KC
+# P2's choices, in order: two warpgroups while their segment fits, else one
+P2_PLANS = ((2, 64), (1, 64), (1, 32))
+BARRIER_BYTES = 128
+MAX_SMEM = 232448  # 227 KB, a block's most on sm_90
+
+# the kernels' design, as chip_smoke.py prints it (csrc/mel_probe_kernel.cu)
+DESIGN = ("wgmma m64n64k16 DFT, A frames in registers, B basis from a "
+          "bulk-copy ring; mel product wgmma m64n128k16, power and banks "
+          "in three bf16 parts, six products (fp32's precision), banks "
+          "through the same ring; 128-frame blocks of two warpgroups (P2 "
+          "past hop 320: 64 frames, one), P2's wave segment by bulk copy")
 
 # each kernel's launches in this process; a run resets them to 0 and reads them after
 LAUNCHES_P1 = 0
@@ -78,14 +108,82 @@ def _basis_split(n_fft: int, win_length: int, part: int) -> np.ndarray:
     return bf16_part(_basis_no_nyquist(n_fft, win_length), part)
 
 
+@lru_cache(maxsize=None)
+def _k_perm() -> np.ndarray:
+    """(64, 16): sample of k16 product ``P`` at k position ``kk``. A thread
+    of an ``mma.m16n8k16`` A fragment (wgmma's register A has its layout a
+    warp) holds k pairs 2t and 2t + 8; it loads samples 8t .. 8t + 7 of a
+    32-sample step and gives product ``P % 2`` its samples 4 (P % 2) + {0,
+    1} and {2, 3}, so the basis rows follow the same order."""
+    kk = np.arange(16)
+    s = np.arange(64)[:, None]
+    return (32 * (s // 2) + 8 * (kk % 8 // 2) + 4 * (s % 2) + 2 * (kk // 8)
+            + kk % 2)
+
+
 @lru_cache(maxsize=8)
-def _kernel_basis(n_fft: int, win_length: int, folded: bool,
-                  part: int) -> np.ndarray:
-    """The kernel's basis operand: a part of the split transposed to
-    (columns, samples), so that a thread reads 8 samples of one column as
-    one 16-byte load."""
+def _tiled_basis(n_fft: int, win_length: int, folded: bool,
+                 part: int) -> np.ndarray:
+    """The kernel's basis operand, pre-tiled for ``wgmma``: (16 chunks, 64
+    k16 products, 8 column groups, 2 k halves, 8 columns, 8 k), element
+    ``[c, P, ng, h, r, e]`` = basis[sample _k_perm()[P, 8h + e], column n =
+    8ng + r of chunk c] (n < 32: cos bin 32c + n, else sin bin 32c + n -
+    32). Each (column group, k half) is one 8 x 16-byte core matrix of the
+    canonical K-major layout without swizzle, so a ring stage of KC samples,
+    KC / 16 products of a chunk, is one contiguous block."""
     split = _folded_basis_split if folded else _basis_split
-    return np.ascontiguousarray(split(n_fft, win_length, part).T)
+    basis = split(n_fft, win_length, part)  # (samples, columns)
+    n_bins = n_fft // 2
+    n = np.arange(CHUNK_COLS)
+    c = np.arange(n_bins // (CHUNK_COLS // 2))[:, None]
+    cols = np.where(n < 32, 32 * c + n, n_bins + 32 * c + n - 32)  # (16, 64)
+    t = basis[_k_perm()][:, :, cols]  # (P, kk, c, n)
+    t = t.reshape(64, 2, 8, 16, 8, 8)  # (P, h, e, c, ng, r)
+    return np.ascontiguousarray(t.transpose(3, 0, 4, 1, 5, 2))
+
+
+def smem_plan(staged: bool, hop: int) -> tuple:
+    """(bytes, warpgroups, KC) of the kernel's shared memory, as ``plan``
+    in csrc/mel_probe_kernel.cu picks it (``card_plan`` reads that one):
+    P1/P3 ``P1_PLAN``; P2 the first of ``P2_PLANS`` that fits. Raises where
+    nothing fits."""
+    def size(wg, kc):
+        seg = 4 * ((SUB_TILE * wg - 1) * hop + N_FFT) if staged else 0
+        return BARRIER_BYTES + RING * 2 * (2 * kc * CHUNK_COLS) + seg
+
+    for plan in ((P1_PLAN,) if not staged else P2_PLANS):
+        if size(*plan) <= MAX_SMEM:
+            return (size(*plan), *plan)
+    raise ValueError(f"the probe kernel's shared memory does not hold hop "
+                     f"{hop} (staged={staged})")
+
+
+def card_plan(staged: bool, hop: int) -> tuple:
+    """(bytes, warpgroups, KC) that the built library plans at ``hop``;
+    bytes 0 where nothing fits. Needs the library, so the card."""
+    from efficientat_tpu_torch.ops._build import load_library
+
+    lib = _bind(load_library("mel_probe_kernel"))
+    wg, kc = ctypes.c_int(), ctypes.c_int()
+    size = lib.eat_probe_plan(int(staged), hop, ctypes.byref(wg),
+                              ctypes.byref(kc))
+    return size, wg.value, kc.value
+
+
+def _tiled_banks(banks: torch.Tensor, n_fft: int) -> torch.Tensor:
+    """The kernel's mel operand: banks^T (n_fft // 2 bins x MAX_MELS, zero
+    past n_mels) split into MEL_SPLIT bf16 parts (``bf16_split``) and tiled
+    as (16 chunks, 3 parts, 2 k16 products, 16 mel groups, 2 k halves, 8
+    mels, 8 bins): element ``[c, p, s, mg, h, r, e]`` = part p of
+    banks^T[bin 32c + 16s + 8h + e, mel 8mg + r], the layout of
+    ``_tiled_basis`` with mels for columns, so that a chunk's parts are
+    contiguous blocks of 8 KB."""
+    bins = n_fft // 2
+    bt = banks.new_zeros((bins, MAX_MELS))
+    bt[:, :banks.shape[0]] = banks[:, :bins].t()
+    parts = [part.reshape(bins // 32, 2, 2, 8, MAX_MELS // 8, 8)
+             .permute(0, 1, 4, 2, 5, 3) for part in bf16_split(bt, MEL_SPLIT)]
+    return torch.stack(parts, 1).contiguous()
 
 
 def _check_args(wave: torch.Tensor, banks: torch.Tensor, cfg: MelConfig,
@@ -145,14 +243,14 @@ def _frame_rows(wave: torch.Tensor, cfg: MelConfig, n_frames: int,
     """The rows the kernel cuts its frames from, frame i at ``hop * i``:
     the raw wave behind an ``n_fft // 2`` zero pad (folded), or the
     pre-emphasised wave with the reflect pad (not). Zero-padded to hold
-    every frame of the last 64-frame sub-tile, to a multiple of 64 samples
+    every frame of the last 128-frame block, to a multiple of 64 samples
     (16-byte aligned rows)."""
     pad = cfg.n_fft // 2
     if folded:
         src, lead = wave, pad
     else:
         src, lead = F.pad(preemphasis(wave), (pad, pad), mode="reflect"), 0
-    sub_frames = -(-n_frames // SUB_TILE) * SUB_TILE
+    sub_frames = -(-n_frames // BLOCK) * BLOCK
     need = max(cfg.hopsize * (sub_frames - 1) + cfg.n_fft, lead + src.shape[1])
     row_len = -(-need // 64) * 64
     return F.pad(src, (lead, row_len - lead - src.shape[1])).contiguous()
@@ -177,15 +275,15 @@ def _launch(entry: str, wave: torch.Tensor, banks: torch.Tensor,
     n_frames = cfg.num_frames(n_samples)
     device = str(wave.device)
     rows = _frame_rows(wave, cfg, n_frames, folded)
-    bhi, blo = (device_const(_kernel_basis, (n_fft, cfg.win_length, folded, p),
+    bhi, blo = (device_const(_tiled_basis, (n_fft, cfg.win_length, folded, p),
                              device, torch.bfloat16) for p in (0, 1))
-    banks_t = banks[:, :n_fft // 2].t().contiguous()
+    mel = _tiled_banks(banks, n_fft)
     out = torch.empty((batch, cfg.n_mels, n_frames), device=wave.device,
                       dtype=torch.float32)
     stream = torch.cuda.current_stream(wave.device).cuda_stream
     err = getattr(lib, entry)(rows.data_ptr(), batch, rows.shape[1], hop,
                               n_frames, tile_or_passes, bhi.data_ptr(),
-                              blo.data_ptr(), banks_t.data_ptr(), cfg.n_mels,
+                              blo.data_ptr(), mel.data_ptr(), cfg.n_mels,
                               out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: "
@@ -199,6 +297,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn = getattr(lib, entry)
         fn.argtypes = [p, i, i, i, i, i, p, p, p, i, p, p]
         fn.restype = i
+    lib.eat_probe_plan.argtypes = [i, i, p, p]
+    lib.eat_probe_plan.restype = ctypes.c_longlong
     lib.eat_probe_error_string.argtypes = [i]
     lib.eat_probe_error_string.restype = ctypes.c_char_p
     return lib
@@ -234,8 +334,8 @@ def variant_mel_dma_plain(wave: torch.Tensor, banks: torch.Tensor,
 
 def variant_mel_dma(wave: torch.Tensor, banks: torch.Tensor, cfg: MelConfig,
                     frame_tile: int = 128, sub64: bool = False) -> torch.Tensor:
-    """P2: P1 folded with each sub-tile's wave segment staged in shared
-    memory by ``cp.async``; ``sub64`` launches the same kernel."""
+    """P2: P1 folded with each sub-tile's wave segment brought into shared
+    memory by one bulk copy; ``sub64`` launches the same kernel."""
     global LAUNCHES_P2
     if wave.device.type == "cpu":
         return variant_mel_dma_plain(wave, banks, cfg, frame_tile, sub64)

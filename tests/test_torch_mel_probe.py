@@ -18,7 +18,7 @@ import torch
 
 from efficientat_tpu_torch.ops import mel_kernel, mel_probe
 from efficientat_tpu_torch.ops.filterbank import kaldi_mel_banks
-from efficientat_tpu_torch.ops.melspec import MelConfig, mel_oracle_f64
+from efficientat_tpu_torch.ops.melspec import MelConfig, frame_signal, mel_oracle_f64
 
 SCRIPT = Path(__file__).resolve().parents[1] / "scripts" / "probe_mel_kernel.py"
 
@@ -112,9 +112,140 @@ def test_bases_match_jax():
     for folded_, basis in ((True, folded), (False, plain)):
         hi = np.asarray(basis.astype(jnp.bfloat16), np.float32)
         lo = np.asarray((basis - hi).astype(jnp.bfloat16), np.float32)
+        split = mel_kernel._folded_basis_split if folded_ else mel_probe._basis_split
         for part, want in ((0, hi), (1, lo)):
+            np.testing.assert_array_equal(split(1024, 800, part), want)
+
+
+def test_k_perm_permutes_each_step():
+    # the two k16 products of each 32-sample step take its 32 samples once
+    perm = mel_probe._k_perm()
+    assert perm.shape == (64, 16)
+    for step in range(32):
+        np.testing.assert_array_equal(np.sort(perm[2 * step:2 * step + 2].ravel()),
+                                      np.arange(32 * step, 32 * step + 32))
+    # a thread (t) of the A fragment loads samples 8t .. 8t + 7 of a step:
+    # k pairs 2t, 2t + 1 and 2t + 8, 2t + 9 of product s are 8t + 4s + 0..3
+    for s in (0, 1):
+        for t in range(4):
             np.testing.assert_array_equal(
-                mel_probe._kernel_basis(1024, 800, folded_, part), want.T)
+                perm[s, [2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9]],
+                8 * t + 4 * s + np.arange(4))
+
+
+def _untile(tiled):
+    """_tiled_basis back to (samples, columns): undo the tiling and _k_perm."""
+    n_chunks = tiled.shape[0]
+    t = tiled.transpose(1, 3, 5, 0, 2, 4).reshape(64, 16, n_chunks, 64)
+    out = np.zeros((1024, 1024), tiled.dtype)
+    n = np.arange(64)
+    c = np.arange(n_chunks)[:, None]
+    cols = np.where(n < 32, 32 * c + n, 512 + 32 * c + n - 32)
+    out[mel_probe._k_perm()[:, :, None, None], cols[None, None]] = t
+    return out
+
+
+@pytest.mark.parametrize("folded", [False, True])
+@pytest.mark.parametrize("part", [0, 1])
+def test_tiled_basis_untiles_to_the_split(folded, part):
+    tiled = mel_probe._tiled_basis(1024, 800, folded, part)
+    assert tiled.shape == (16, 64, 8, 2, 8, 8)
+    split = mel_kernel._folded_basis_split if folded else mel_probe._basis_split
+    np.testing.assert_array_equal(_untile(tiled), split(1024, 800, part))
+
+
+@pytest.mark.parametrize("folded", [False, True])
+def test_tiled_contraction_matches_matmul(folded):
+    # the kernel's contraction in plain torch: each k16 product takes its
+    # frames' samples under _k_perm (the A registers) and its B tile of the
+    # pre-tiled basis (k rows 8h + e of column 8ng + r), chunk by chunk
+    rng = np.random.default_rng(8)
+    frames = torch.from_numpy(rng.normal(size=(16, 1024)))
+    tiled = torch.from_numpy(mel_probe._tiled_basis(1024, 800, folded, 0)).double()
+    perm = torch.from_numpy(mel_probe._k_perm())
+    got = torch.zeros(16, 16, 64, dtype=torch.float64)  # (frame, chunk, column)
+    for c in range(16):
+        for prod in range(64):
+            a = frames[:, perm[prod]]                                   # (16, k16)
+            b = tiled[c, prod].permute(1, 3, 0, 2).reshape(16, 64)      # (k16, column)
+            got[:, c] += a @ b
+    split = mel_kernel._folded_basis_split if folded else mel_probe._basis_split
+    basis = torch.from_numpy(split(1024, 800, 0)).double()
+    want = frames @ basis
+    cos, sin = got[..., :32].reshape(16, 512), got[..., 32:].reshape(16, 512)
+    torch.testing.assert_close(torch.cat([cos, sin], 1), want, rtol=0, atol=1e-9)
+
+
+@pytest.mark.parametrize("n_mels", [40, 128])
+def test_tiled_banks_untile_to_banks(n_mels):
+    cfg = MelConfig(n_mels=n_mels)
+    banks = _banks(cfg)
+    tiled = mel_probe._tiled_banks(banks, 1024)
+    assert tiled.shape == (16, 3, 2, 16, 2, 8, 8) and tiled.dtype == torch.bfloat16
+    # [c, p, s, mg, h, r, e] -> part p of banks^T[32c + 16s + 8h + e, 8mg + r]
+    untiled = tiled.float().permute(1, 0, 2, 4, 6, 3, 5).reshape(3, 512, 128)
+    bt = torch.zeros(512, 128)
+    bt[:, :n_mels] = banks[:, :512].t()
+    for part in range(3):
+        want = bt.bfloat16().float()
+        torch.testing.assert_close(untiled[part], want, rtol=0, atol=0)
+        bt = bt - want
+    # the three parts hold banks^T to fp32's last bit
+    assert bt.abs().max() <= 2.0 ** -24 * banks.abs().max()
+
+
+def test_tiled_mel_product_matches_matmul():
+    # the kernel's mel product in plain torch: the power of a chunk (64
+    # frames x 32 bins) split into three bf16 parts, times the chunk's tiles
+    # in the six k16 products of parts i + j < 3 each, against power @
+    # banks^T in fp64: within fp32's rounding (what the dropped products and
+    # the splits' remainders leave is 2^-22 of the sum or less), where a
+    # bf16x3 product (parts i + j < 2 of two-part splits) is not
+    cfg = MelConfig()
+    banks = _banks(cfg)
+    tiled = mel_probe._tiled_banks(banks, 1024).double()
+    rng = np.random.default_rng(9)
+    power = torch.from_numpy(rng.gamma(0.5, 2.0, size=(64, 512))).float()
+    want = power.double() @ banks[:, :512].t().double()
+    want = torch.nn.functional.pad(want, (0, 128 - cfg.n_mels))
+    rel = {}
+    for parts in (3, 2):
+        got = torch.zeros(64, 128, dtype=torch.float64)
+        for c in range(16):
+            p = [x.double() for x in
+                 mel_kernel.bf16_split(power[:, 32 * c:32 * c + 32], parts)]
+            for s in range(2):
+                b = [tiled[c, j, s].permute(1, 3, 0, 2).reshape(16, 128)
+                     for j in range(3)]
+                if parts == 2:  # the two-part split of banks^T is parts 0 and 1+2
+                    b = [b[0], b[1] + b[2]]
+                k = slice(16 * s, 16 * s + 16)
+                for i in range(parts):
+                    for j in range(parts - i):
+                        got += p[i][:, k] @ b[j]
+        rel[parts] = ((got - want).abs() / (want.abs() + 1e-30))[want > 0].max()
+    assert rel[3] <= 2.0 ** -22
+    assert rel[2] > 2.0 ** -18
+
+
+@pytest.mark.parametrize("hop", [64, 128, 256, 320, 384, 640, 704, 768])
+def test_smem_plan_takes_every_input(hop):
+    # every (variant, hop, frame_tile, n_mels) the wrappers take fits the
+    # kernel's shared memory; n_mels and frame_tile do not enter the plan
+    wave = torch.zeros(1, 16000)
+    for staged in (False, True):
+        if not staged or hop <= mel_probe.MAX_STAGED_HOP:
+            size, wg, kc = mel_probe.smem_plan(staged, hop)
+            # a slot (256 KC bytes) holds at least one 8 KB part of banks^T
+            assert size <= mel_probe.MAX_SMEM and kc in (32, 64, 128)
+            # P2: two warpgroups (128 frames) while their segment fits
+            assert wg == (2 if not staged or hop <= 320 else 1)
+    for n_mels in (1, 40, 128):
+        c = MelConfig(hopsize=hop, n_mels=n_mels)
+        for tile in (64, 128, 256, 512):
+            mel_probe._check_args(wave, _banks(c), c, tile,
+                                  max_hop=mel_probe.MAX_STAGED_HOP)
+    assert mel_probe.smem_plan(False, hop)[1:] == (2, 128)
 
 
 @pytest.mark.parametrize("name,fn,kwargs", VARIANTS, ids=[v[0] for v in VARIANTS])
@@ -168,6 +299,29 @@ def test_kernel_bound_catches_lower_precision(control):
     else:
         got = mel_probe.variant_mel_e_plain(wave, banks, cfg, 22)
     assert (got - want).abs().max() > ATOL_KERNEL_VS_PLAIN
+
+
+def test_mel_sum_check_catches_bf16x3_mel_product():
+    # chip_smoke.py's check of the kernels' mel product (fp32's precision)
+    # on impulse waves, where the DFT is exact in any order: a bf16x3 mel
+    # product misses TOL_PROBE_MEL_SUMS, the kernels' six-product one meets it
+    import chip_smoke
+
+    cfg = MelConfig()
+    banks = _banks(cfg)
+    wave = torch.from_numpy(chip_smoke.impulse_waves(samples=64000))
+    frames = frame_signal(wave, 1024, 320, cfg.num_frames(64000),
+                                     pad_mode="constant")
+    assert ((frames != 0).sum(-1) <= 1).all()
+    want = mel_probe.variant_mel_e_plain(wave, banks, cfg, 3)
+    gap = {parts: chip_smoke.mel_sum_gap(
+        chip_smoke.split_mel_plain(wave, banks, cfg, parts), want)
+        for parts in (2, 3)}
+    assert gap[3] < chip_smoke.TOL_PROBE_MEL_SUMS / 4
+    assert gap[2] > 2 * chip_smoke.TOL_PROBE_MEL_SUMS
+    # the kernels' 1e-4 bound on the log cannot tell the two apart
+    bf16x3 = chip_smoke.split_mel_plain(wave, banks, cfg, 2)
+    assert (bf16x3 - want).abs().max() < ATOL_KERNEL_VS_PLAIN
 
 
 def test_rejects_what_the_kernels_do_not_take():
@@ -232,6 +386,22 @@ def test_kernel_short_clip_and_mels_on_card(n_mels):
         got = getattr(mel_probe, fn)(wave, banks, cfg, **kwargs)
         want = getattr(mel_probe, fn + "_plain")(wave, banks, cfg, **kwargs)
         torch.testing.assert_close(got, want, rtol=0, atol=ATOL_KERNEL_VS_PLAIN)
+
+
+@pytest.mark.cuda
+def test_kernel_mel_product_at_fp32_on_card():
+    # the kernels' pre-log mel sums against their plain version's fp32 GEMM,
+    # on impulse waves (chip_smoke.py's check, which a bf16x3 product misses)
+    import chip_smoke
+
+    cfg = MelConfig()
+    banks = _banks(cfg, device="cuda")
+    wave = torch.from_numpy(chip_smoke.impulse_waves(samples=96000)).cuda()
+    for fn, kwargs in (("variant_mel", {"folded": True}), ("variant_mel_dma", {}),
+                       ("variant_mel_e", {"passes": 3})):
+        got = getattr(mel_probe, fn)(wave, banks, cfg, **kwargs)
+        want = getattr(mel_probe, fn + "_plain")(wave, banks, cfg, **kwargs)
+        assert chip_smoke.mel_sum_gap(got, want) <= chip_smoke.TOL_PROBE_MEL_SUMS
 
 
 @pytest.mark.cuda
