@@ -101,12 +101,32 @@ and the analysis tools, the profiler and member-parallel ensembles:
     one process's sequential mean of the members on the card (a bf16
     control must miss the bound), and the call's ms (two ranks share one
     card: not a scaling figure); a rank's two members in one process, the
-    loop the ensemble runs against ``torch.func.vmap`` over the members.
+    loop the ensemble runs against ``torch.func.vmap`` over the members;
+
+and member-parallel serving through the Tagger, and DyMN's options:
+
+22. ``Tagger(names, mesh=make_mesh(world, model_axis))`` on gloo ranks of
+    cuda:0, one spawn a layout: the published 9 x mn40 ensemble at data 1 x
+    model 3 (B=32, a bf16 control must miss the bound), four mn10 members
+    at data 2 x model 2 (B=31 as f32 and int16: K1-dp on every rank's 16
+    rows), two dymn10_im members (served at t_max 30) and the
+    ``mn40_as_ext`` + ``dymn20_as`` ensemble (which falls back) at data 1 x
+    model 2; every rank's probs against one process's replicated Tagger,
+    the ms a predict and the device memory a rank beside the replicated
+    Tagger's (ranks sharing one card: not a scaling figure); K1-dp on a
+    rank's rows against its plain version;
+23. ``aten::bmm.dtype`` on the card; ``dymn10_as`` with each ``pw_form``
+    and with ``dyconv_compute="bfloat16"``: logits against the CPU's at
+    B=2, the model alone at B=64 and 256 with its device groups; the KD
+    train step at B=120 in fp32 with and without the bf16 mix (time, split,
+    peak memory, profile, K1 at every step) and that step's loss against
+    the CPU's at the card's model input.
 
 Then one JSON line on the kernels, per path (tag, train, train_dp,
 tag_fp32, train_fp32, tag_dymn, train_dymn, train_dp_dymn, tag_windowed,
 tag_ensemble2, tag_bf16, eval_variable, profile, tag_member_parallel,
-probe), the card's ``nvidia-smi`` line and, last,
+tag_mesh, train_dymn_dyconv_bf16, probe), the card's ``nvidia-smi`` line
+and, last,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 nothing falls back to the CPU.
 """
@@ -140,6 +160,7 @@ from efficientat_tpu_torch.data import encode, load_waveform  # noqa: E402
 from efficientat_tpu_torch.data.core import bucket_pad_collate  # noqa: E402
 from efficientat_tpu_torch.infer.tag import Tagger  # noqa: E402
 from efficientat_tpu_torch.infer.windowed import EATagger, window_signal  # noqa: E402
+from efficientat_tpu_torch.models import convert as port_convert  # noqa: E402
 from efficientat_tpu_torch.models.convert import load_pretrained  # noqa: E402
 from efficientat_tpu_torch.models.dymn import DynamicConv  # noqa: E402
 from efficientat_tpu_torch.models.registry import (  # noqa: E402
@@ -297,14 +318,15 @@ KERNEL_GROUPS = (
 
 
 # DyMN's groups: its depthwise convs are the batch-into-groups fold; its
-# 1x1 DynamicConvs are batched GEMMs (cuBLAS names), as are att @ banks and
-# the head; cuDNN runs the static convs (stem, tail, ContextGen's 1x1s)
+# 1x1 DynamicConvs are batched GEMMs (cuBLAS names; cuBLASLt's "nvjet"
+# kernels run the bf16 ones), as are att @ banks and the head; cuDNN runs
+# the static convs (stem, tail, ContextGen's 1x1s)
 DYMN_KERNEL_GROUPS = (
     ("k1", ("mel_kernel",)),
     ("batchnorm", ("bn_", "batch_norm", "batchnorm")),
     ("depthwise_fold", ("conv_depthwise",)),
     ("dense_conv", ("conv", "fprop", "dgrad", "wgrad", "implicit", "cudnn")),
-    ("gemm", ("gemm", "gemv", "cutlass", "xmma")),
+    ("gemm", ("gemm", "gemv", "cutlass", "xmma", "nvjet")),
     ("copy", ("memcpy", "memset")),
     ("reduce", ("reduce",)),
     ("elementwise", ("elementwise", "catarray", "softmax", "pool")),
@@ -314,6 +336,18 @@ DYMN_KERNEL_GROUPS = (
 def phase(tag, /, **fields):
     print(f"[{tag}] " + " ".join(f"{k}={v}" for k, v in fields.items()),
           flush=True)
+
+
+LAPS = [time.perf_counter()]
+
+
+def lap(upto):
+    """Print the seconds since the last lap, and since the script began, as
+    ``[seconds]``: where a run's time goes, phase group by group."""
+    now = time.perf_counter()
+    phase("seconds", upto=upto, lap=round(now - LAPS[-1], 2),
+          total=round(now - LAPS[0], 2))
+    LAPS.append(now)
 
 
 def check(ok, what):
@@ -412,12 +446,14 @@ def seeded_weights(name="mn10_as", seed=0):
     bank, times the square root of their count: a near-uniform attention
     averages them."""
     g = torch.Generator().manual_seed(seed)
-    model = build_model(name)
+    with torch.device("meta"):  # the shapes alone: every tensor is drawn here
+        model = build_model(name)
     banks = {f"{n}.weight": m for n, m in model.named_modules()
              if isinstance(m, DynamicConv)}
     sd = model.state_dict()
     for key, v in sd.items():
         if key.endswith("num_batches_tracked"):
+            sd[key] = torch.zeros((), dtype=torch.long)
             continue
         if key.endswith("running_var"):
             sd[key] = 1.0 + 0.1 * torch.rand(v.shape, generator=g)
@@ -461,23 +497,26 @@ def step_inputs(seed, name="mn10_as"):
     return seeded_weights(name, seed), batch, draws
 
 
-def _step_model(sd, name="mn10_as"):
+def _step_model(sd, name="mn10_as", changes=None):
     """The full-width registry model ``name`` with dropout 0 (two devices
-    cannot draw the same dropout bits), loaded from ``sd``."""
-    cfg = dataclasses.replace(get_model_config(name).model_cfg, dropout=0.0)
+    cannot draw the same dropout bits) and the config ``changes``, loaded
+    from ``sd``."""
+    cfg = dataclasses.replace(get_model_config(name).model_cfg, dropout=0.0,
+                              **(changes or {}))
     model = build_model(cfg)
     model.load_state_dict(sd, strict=True)
     return model
 
 
 def run_step(sd, batch, draws, device, dp=None, dft_precision=None,
-             name="mn10_as", temperature=1.0):
+             name="mn10_as", temperature=1.0, changes=None):
     """One ``train_step`` (Adam, the audioset preset's loss) of ``name``
-    (a DyMN at ``temperature``) from ``sd`` on ``batch`` (this rank's rows
-    under ``dp``). Returns the loss, the model input, the gradients and
-    buffers (on the CPU) and the K1 launches in the step's precision."""
+    (a DyMN at ``temperature``, its config with ``changes``) from ``sd`` on
+    ``batch`` (this rank's rows under ``dp``). Returns the loss, the model
+    input, the gradients and buffers (on the CPU) and the K1 launches in
+    the step's precision."""
     mel_cfg, loss_cfg = audioset_configs()
-    model = _step_model(sd, name)
+    model = _step_model(sd, name, changes)
     if dp is not None:
         convert_global_bn(model)
     model.to(device)
@@ -500,18 +539,21 @@ def run_step(sd, batch, draws, device, dp=None, dft_precision=None,
                         if not n.endswith("num_batches_tracked")}}
 
 
-def grads_at(sd, x, batch, mixup, device, name="mn10_as", temperature=1.0):
-    """Gradients of ``name`` in train mode and the KD loss at the model
-    input ``x``, as ``train_step`` takes them after the mel."""
+def grads_at(sd, x, batch, mixup, device, name="mn10_as", temperature=1.0,
+             changes=None):
+    """The KD loss of ``name`` (its config with ``changes``) in train mode
+    at the model input ``x``, as ``train_step`` takes it after the mel, and
+    the loss's gradients."""
     _, loss_cfg = audioset_configs()
-    model = _step_model(sd, name).to(device).train()
+    model = _step_model(sd, name, changes).to(device).train()
     t = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
     perm, lam = (torch.from_numpy(np.array(a)).to(device) for a in mixup)
     partner = {k: t[k][perm] for k in ("target", "teacher")}
     logits, _ = model_forward(model, x.to(device), temperature)
     loss, _ = task_loss(loss_cfg, logits.float(), t, (lam, partner))
     loss.backward()
-    return {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+    return float(loss.detach()), {n: p.grad.detach().cpu()
+                                  for n, p in model.named_parameters()}
 
 
 def grad_gaps(got, want):
@@ -648,7 +690,7 @@ def phase_train(device, name="mn10_as", flags=((), ("--bf16",)), tag="train",
     x_gap = float((on_card["x"] - on_cpu["x"]).abs().max())
     step_checks(f"{tag}_vs_cpu", on_card, on_cpu,
                 grads_at(sd, on_card["x"], batch, draws.mixup, "cpu", name=name,
-                         temperature=temperature),
+                         temperature=temperature)[1],
                 model=name, temperature=temperature, clips=STEP_CLIPS,
                 seconds=STEP_SAMPLES // SR, x_gap=x_gap,
                 bound_x=TOL_STEP_X, k1_launches=on_card["launches"])
@@ -768,7 +810,7 @@ def phase_train_dp(device):
     ranks_agree = ranks[0]["loss"] == ranks[1]["loss"] and all(
         torch.equal(ranks[1]["grads"][n], g) for n, g in ranks[0]["grads"].items())
     step_checks("train_dp_step", ranks[0], one,
-                grads_at(sd, x, batch, draws.mixup, device), backend="gloo",
+                grads_at(sd, x, batch, draws.mixup, device)[1], backend="gloo",
                 world=DP_WORLD, clips=STEP_CLIPS, x_gap=x_gap,
                 ranks_agree=ranks_agree,
                 k1_launches=[r["launches"] for r in ranks])
@@ -793,14 +835,17 @@ def phase_train_dp(device):
 
 
 def phase_train_times(device, card, name="mn10_as", variants=((False, False), (True, False)),
-                      temperature=1.0, groups=None, tag="train"):
+                      temperature=1.0, groups=None, tag="train", changes=None):
     """9. The train step at B=120, 10 s clips, full-width ``name`` (a DyMN
-    at ``temperature``), for each (bf16 autocast, remat) of ``variants``:
-    its time and clips/s, its split into mel (K1), forward+backward and the
-    optimizer (CUDA events), its peak memory and its device time by kernel
-    group."""
+    at ``temperature``, its config with ``changes``), for each (bf16
+    autocast, remat) of ``variants``: its time and clips/s, its split into
+    mel (K1), forward+backward and the optimizer (CUDA events), its peak
+    memory and its device time by kernel group. Returns each variant's K1
+    launches in its timed steps, which must be one a step."""
     mel_cfg, loss_cfg = audioset_configs()
-    model = build_model(name)  # the preset's model, dropout 0.2
+    # the preset's model, dropout 0.2
+    model = build_model(dataclasses.replace(get_model_config(name).model_cfg,
+                                            **(changes or {})))
     model.load_state_dict(seeded_weights(name, 9), strict=True)
     model.to(device)
     opt = make_optimizer(model.parameters(), 8e-4)
@@ -819,6 +864,7 @@ def phase_train_times(device, card, name="mn10_as", variants=((False, False), (T
             batch["wave"], mel_cfg, training=True, draws=draws.mel)
 
     x = apply_mixup(mel()[:, None], perm, lam)
+    launches = {}
     for bf16, remat in variants:
         model.cfg = dataclasses.replace(model.cfg, remat=remat)
 
@@ -833,18 +879,23 @@ def phase_train_times(device, card, name="mn10_as", variants=((False, False), (T
             task_loss(loss_cfg, logits.float(), batch, mix)[0].backward()
 
         torch.cuda.reset_peak_memory_stats()
+        reset_k1_launches()
         step_ms = median_ms(step, iters=5)
+        launches[bf16, remat] = mel_kernel.LAUNCHES["bf16x3"]
+        check(launches[bf16, remat] == 5 + 2, f"{tag}: K1 did not run once a step")
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         mel_ms = median_ms(mel, iters=5)
         fb_ms = median_ms(forward_backward, iters=5)
         opt_ms = median_ms(opt.step, iters=5)
         phase(f"{tag}_time", model=name, batch=TRAIN_BATCH, bf16=bf16, remat=remat,
+              changes=json.dumps(changes or {}), k1_launches=launches[bf16, remat],
               step_ms=step_ms, clips_per_s=TRAIN_BATCH / step_ms * 1e3,
               mel_ms=mel_ms, forward_backward_ms=fb_ms, optimizer_ms=opt_ms,
               rest_ms=step_ms - mel_ms - fb_ms - opt_ms, peak_gb=peak_gb,
               tf32=False, card=repr(card))
         phase(f"{tag}_profile", model=name, batch=TRAIN_BATCH, bf16=bf16, remat=remat,
               **device_profile(step, groups=groups), card=repr(card))
+    return launches
 
 
 # ---------------------------------------------------------------- the probe
@@ -1914,6 +1965,397 @@ def phase_member_parallel(device, card):
     return sum(launches)
 
 
+# ------------------------------------ Tagger(mesh=...) and DyMN's options
+
+# 22. the layouts of Tagger(mesh=...) on gloo ranks of one card, all from one
+# spawn of the widest layout's ranks, widest first: (ranks, model axis,
+# batch, codecs, {case: member names}). Four mn10 members of two names
+# (mn10_as and mn10_im share a config: a model index holds two of one
+# name); the reference's published 9 x mn40 ensemble (one MNConfig); two
+# dymn10_im members, served at t_max 30 (the AudioSet DyMNs end their
+# training at 1.0, forward's default, where a member served at the wrong
+# temperature would not show); and phase 15's two-architecture ensemble,
+# which must fall back to the replicated path
+MESH9 = ["mn40_as", "mn40_as(2)", "mn40_as(3)", "mn40_as_ext", "mn40_as_ext(2)",
+         "mn40_as_ext(3)", "mn40_as_no_im_pre", "mn40_as_no_im_pre(2)",
+         "mn40_as_no_im_pre(3)"]
+MESH_LAYOUTS = {
+    "mn10x4": (4, 2, 31, ("f32", "i16"),
+               {"mn10x4": ["mn10_as", "mn10_as", "mn10_im", "mn10_im"]}),
+    "mn40x9": (3, 3, ENSEMBLE_BATCH, ("f32",), {"mn40x9": MESH9}),
+    "dymn_fallback": (2, 2, ENSEMBLE_BATCH, ("f32",),
+                      {"dymn10_im_x2": [DYMN_IM, DYMN_IM], "fallback": ENSEMBLE2}),
+}
+MESH_K1DP_LAYOUT = "mn10x4"  # whose rank 0 times K1-dp on its rows
+MESH_NAMES = sorted({n for *_, cases in MESH_LAYOUTS.values()
+                     for members in cases.values() for n in members})
+
+
+def seeded_loader(cache=None):
+    """A stand-in for ``convert.load_pretrained`` that gives each name phase
+    22 serves its ``seeded_weights`` (seed 30 plus its index in MESH_NAMES),
+    assigned to a model built on the meta device: no checkpoint file is
+    written or read, and no init is drawn. ``cache`` keeps each name's
+    weights for the next Tagger."""
+    def load(name, model_dir=None, num_classes=None, seed=0):
+        sd = None if cache is None else cache.get(name)
+        if sd is None:
+            sd = seeded_weights(name, seed=30 + MESH_NAMES.index(name))
+            if cache is not None:
+                cache[name] = sd
+        with torch.device("meta"):
+            model = build_model(name)
+        model.load_state_dict(sd, strict=True, assign=True)
+        return model
+    return load
+
+
+def mesh_waves(batch, codecs):
+    return {c: encode(train_waves(batch, seed=22), c) for c in codecs}
+
+
+def _mesh_layout(layout, device):
+    """This rank's part in ``MESH_LAYOUTS[layout]``, in the process group of
+    its ranks: for each case, ``Tagger(names, mesh=...)``, then one predict
+    a codec with K1's launches counted from 0 and the rows each K1-dp call
+    got, then the predict's ms with every rank calling in step, and the
+    rank's allocated device memory. Rank 0 of ``MESH_K1DP_LAYOUT`` then
+    times K1-dp on its rows against the plain version, the other ranks
+    waiting."""
+    world, model_axis, batch, codecs, cases = MESH_LAYOUTS[layout]
+    mesh = make_mesh(world, model_axis=model_axis)
+    coded = mesh_waves(batch, codecs)
+    rows = []
+    sharded = mel_kernel.stft_log_mel_sharded
+
+    def k1_dp(wave_local, *args, **kwargs):
+        rows.append(wave_local.shape[0])
+        return sharded(wave_local, *args, **kwargs)
+
+    mel_kernel.stft_log_mel_sharded = k1_dp
+    result = {"layout": (mesh.data_index, mesh.model_index)}
+    for case, names in cases.items():
+        base = torch.cuda.memory_allocated(device)
+        tagger = Tagger(names, device=device, mesh=mesh)
+        memory = torch.cuda.memory_allocated(device) - base
+        dist.barrier()
+        rows.clear()
+        reset_k1_launches()
+        probs = {c: tagger.predict(w) for c, w in coded.items()}
+        torch.cuda.synchronize()
+        result[case] = {"probs": probs, "launches": mel_kernel.LAUNCHES["bf16x3"],
+                        "k1_dp_rows": list(rows), "memory": memory,
+                        "stacked": tagger._stacked is not None,
+                        "members_here": (next(iter(tagger._stacked.values())).shape[0]
+                                         if tagger._stacked is not None
+                                         else len(tagger.members))}
+        dist.barrier()
+        result[case]["ms"] = median_ms(lambda: tagger.predict(coded["f32"]), iters=5)
+        del tagger
+        torch.cuda.empty_cache()
+    mel_kernel.stft_log_mel_sharded = sharded
+    dist.barrier()
+    if layout == MESH_K1DP_LAYOUT and mesh.rank == 0:
+        cfg = MelConfig()
+        n = batch + (-batch) % mesh.shape["data"]
+        local = torch.from_numpy(train_waves(n, seed=22)[:n // mesh.shape["data"]])
+        local = local.to(device)
+        banks = kaldi_mel_banks(cfg.n_mels, cfg.n_fft, cfg.sr, cfg.fmin,
+                                cfg.effective_fmax, device=device)
+        err = float((sharded(local, banks, cfg, "bf16x3")
+                     - mel_kernel.stft_log_mel_plain(local, banks, cfg, "bf16x3"))
+                    .abs().max())
+        runs = {"plain": [], "kernel": []}
+        for which in ("plain", "kernel", "kernel", "plain"):
+            fn = mel_kernel.stft_log_mel_plain if which == "plain" else sharded
+            runs[which].append(median_ms(lambda: fn(local, banks, cfg, "bf16x3")))
+        result["k1_dp"] = {"rows": local.shape[0], "max_abs_err": err,
+                           "ms": statistics.mean(runs["kernel"]),
+                           "plain_ms": statistics.mean(runs["plain"])}
+    dist.barrier()
+    return result
+
+
+def _mesh_rank(rank, work, device):
+    """One rank of phase 22's spawn over gloo on ``device``: each layout of
+    MESH_LAYOUTS that has a place for it, in turn, on a process group of
+    that layout's ranks (its own ``file://`` rendezvous), members from
+    ``seeded_loader``. Each layout's result goes to ``work``."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(device)
+    port_convert.load_pretrained = seeded_loader()
+    for layout, (world, *_) in MESH_LAYOUTS.items():
+        if rank >= world:
+            continue
+        init = f"file://{os.path.join(work, f'rendezvous_{layout}')}"
+        dist.init_process_group("gloo", init_method=init, rank=rank, world_size=world)
+        try:
+            result = _mesh_layout(layout, device)
+        finally:
+            dist.destroy_process_group()
+        torch.save(result, os.path.join(work, f"{layout}_rank{rank}.pt"))
+
+
+def run_mesh_layouts(device):
+    """Start phase 22's ranks as phase 8 starts its ranks and return each
+    layout's rank results and the seconds the spawn took."""
+    world = max(w for w, *_ in MESH_LAYOUTS.values())
+    work = os.path.join(HERE, "build", "chip_smoke", "mesh")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_mesh_rank, args=(r, work, device)) for r in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=400)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    check([p.exitcode for p in procs] == [0] * world,
+          f"the mesh ranks exited with {[p.exitcode for p in procs]}")
+    return ({layout: [torch.load(os.path.join(work, f"{layout}_rank{r}.pt"),
+                                 weights_only=False) for r in range(w)]
+             for layout, (w, *_) in MESH_LAYOUTS.items()},
+            time.perf_counter() - t0)
+
+
+def phase_tag_mesh(device, card):
+    """22. ``Tagger(names, mesh=make_mesh(world, model_axis))`` over gloo
+    ranks of one card, every layout of MESH_LAYOUTS from one spawn: the
+    ranks' probs against one process's replicated Tagger of the same
+    seeded members (TOL_MEMBER_PARALLEL; for the 9 x mn40 ensemble the same
+    Tagger under bf16 autocast must miss it), every rank's probs equal,
+    K1-dp on each rank's rows of the padded batch (the fallback runs K1 on
+    the whole batch and no K1-dp), the ms a predict and the device memory a
+    rank beside the replicated Tagger's. Ranks that share one card:
+    correctness, not a scaling figure. Returns the K1-dp launches of every
+    rank and rank 0's K1-dp times."""
+    layouts, seconds = run_mesh_layouts(device)
+    loader = port_convert.load_pretrained
+    port_convert.load_pretrained = seeded_loader(cache={})
+    launches, k1_dp = {}, None
+    for layout, (world, model_axis, batch, codecs, cases) in MESH_LAYOUTS.items():
+        ranks = layouts[layout]
+        n_data = world // model_axis
+        rows_a_rank = (batch + (-batch) % n_data) // n_data
+        k1_dp = ranks[0].get("k1_dp", k1_dp)
+        coded = mesh_waves(batch, codecs)
+        for case, names in cases.items():
+            base = torch.cuda.memory_allocated(device)
+            tagger = Tagger(names, device=device)
+            memory = torch.cuda.memory_allocated(device) - base
+            want = {c: tagger.predict(w) for c, w in coded.items()}
+            ms = median_ms(lambda: tagger.predict(coded["f32"]), iters=5)
+            control = None
+            if layout == "mn40x9":
+                tagger.dtype = torch.bfloat16  # the members under bf16 autocast
+                control = float(np.abs(tagger.predict(coded["f32"]) - want["f32"]).max())
+            del tagger
+            torch.cuda.empty_cache()
+            res = [r[case] for r in ranks]
+            gaps = {c: float(np.abs(res[0]["probs"][c] - w).max()) for c, w in want.items()}
+            equal = all(np.array_equal(r["probs"][c], res[0]["probs"][c])
+                        for r in res for c in codecs)
+            phase("tag_mesh", layout=f"data {n_data} x model {model_axis}", case=case,
+                  members=len(names), batch=batch, codecs=json.dumps(codecs),
+                  backend="gloo", stacked=[r["stacked"] for r in res],
+                  members_a_rank=[r["members_here"] for r in res],
+                  k1_launches=[r["launches"] for r in res],
+                  k1_dp_rows=json.dumps([r["k1_dp_rows"] for r in res]),
+                  vs_replicated=json.dumps(gaps), bound=TOL_MEMBER_PARALLEL,
+                  bf16_control=control, ranks_equal=equal,
+                  probs_std=float(want["f32"].std()), spawn_seconds=seconds)
+            phase("tag_mesh_time", layout=f"data {n_data} x model {model_axis}",
+                  case=case, batch=batch, note="ranks share one card, not a scaling figure",
+                  predict_ms_a_rank=[r["ms"] for r in res], replicated_predict_ms=ms,
+                  memory_gb_a_rank=[r["memory"] / 1e9 for r in res],
+                  replicated_memory_gb=memory / 1e9, card=repr(card))
+            check(all(p.shape == (batch, 527) and bool(np.isfinite(p).all())
+                      for r in res for p in r["probs"].values()), f"{case} probs")
+            check(equal, f"{case}: the ranks' probs differ")
+            check(max(gaps.values()) <= TOL_MEMBER_PARALLEL,
+                  f"{case}: mesh Tagger against the replicated one {gaps}")
+            check(control is None or control > TOL_MEMBER_PARALLEL,
+                  f"the bf16 control passes the mesh bound: {control}")
+            if case == "fallback":
+                check(not any(r["stacked"] for r in res),
+                      "the two-architecture ensemble did not fall back")
+                check(all(r["k1_dp_rows"] == [] and r["launches"] == len(codecs)
+                          for r in res), "the fallback ran K1-dp or no K1")
+                continue
+            check(all(r["stacked"] for r in res), f"{case}: no member-parallel path")
+            check(all(r["members_here"] == len(names) // model_axis for r in res),
+                  f"{case}: members a rank")
+            check(all(r["launches"] == len(codecs)
+                      and r["k1_dp_rows"] == [rows_a_rank] * len(codecs) for r in res),
+                  f"{case}: K1-dp did not run once a predict on each rank's "
+                  f"{rows_a_rank} rows")
+            launches[f"{layout}/{case}"] = [r["launches"] for r in res]
+    port_convert.load_pretrained = loader
+    check(k1_dp is not None and k1_dp["max_abs_err"] <= TOL_KERNEL_VS_PLAIN["bf16x3"],
+          f"K1-dp on a rank's rows against its plain version: {k1_dp}")
+    phase("tag_mesh_k1_dp", rows=k1_dp["rows"], max_abs_err=k1_dp["max_abs_err"],
+          bound=TOL_KERNEL_VS_PLAIN["bf16x3"], ms=k1_dp["ms"], plain_ms=k1_dp["plain_ms"],
+          launches_a_rank=json.dumps(launches), card=repr(card))
+    return launches, k1_dp
+
+
+# 23. DyMN's options on dymn10_as, the model alone: fp32 and the bf16 mix.
+# Every pw_form computes as per_sample (models/dymn.py), so the forms take
+# no phase of their own
+DYMN_OPTIONS = {"fp32": {}, "dyconv_bf16": {"dyconv_compute": "bfloat16"}}
+# each option's logits, card against CPU on the same mel at B=2 (logits of
+# std 0.10 with seeded weights). fp32: the card-vs-CPU bound of the probs,
+# 1e-3, taken for logits down to 1e-5 (measured card-vs-CPU probs gaps 6e-8
+# to 1.8e-7). The bf16 mix: half its own gap from the fp32 path on the CPU
+# (4.06e-5 at this input), about six times the gap that a 1e-6 move of the
+# mel makes on the CPU (3.4e-6); on the card the bf16 mix's gap from the
+# fp32 path must exceed this bound
+TOL_OPTION_VS_CPU = {"fp32": 1e-5, "dyconv_bf16": 2e-5}
+# the gradients with the bf16 mix of sum(logits * r) at B=2 in eval mode,
+# card against CPU on one mel: relative L2 of the whole gradient
+# (grad_gaps). Measured on one H100 (700 W): 8.3e-5, and 8.9e-4 for the
+# control, the CPU's fp32 gradients, which must miss the bound. The worst
+# tensor (an attention Linear's, a difference of near-equal bank terms)
+# does not part the two: 1.3e-2 against 4.3e-2. In train mode the mix's
+# rounding dominates the step's gradients (relative L2: card against CPU
+# 0.24, the mix against fp32 on the CPU 0.38), so the step is held by its
+# loss, and the mix's backward by the gradients here
+TOL_DYCONV_GRAD_L2 = 3e-4
+
+
+def grads_of_logits(model, mel, temperature, r):
+    """The parameters' gradients of ``sum(logits * r)``, on the CPU."""
+    (model(mel, temperature)[0] * r).sum().backward()
+    grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return grads
+
+
+def bmm_out_dtype_check(device):
+    """``aten::bmm.dtype`` (``torch.bmm(a, b, out_dtype=torch.float32)``)
+    on the card: registered for CUDA, and its fp32 result of bf16 operands
+    equal to an fp32 ``bmm`` of the operands cast up, to fp32 summation."""
+    has = torch._C._dispatch_has_kernel_for_dispatch_key("aten::bmm.dtype", "CUDA")
+    check(has, "this torch has no CUDA kernel of aten::bmm.dtype")
+    g = torch.Generator(device=device).manual_seed(23)
+    a = torch.randn(8, 96, 192, device=device, generator=g).bfloat16()
+    b = torch.randn(8, 192, 400, device=device, generator=g).bfloat16()
+    got = torch.bmm(a, b, out_dtype=torch.float32)
+    with true_fp32():
+        want = torch.bmm(a.float(), b.float())
+    gap = float((got - want).abs().max() / want.abs().max())
+    phase("bmm_out_dtype", registered=has, dtype=got.dtype, rel_gap=gap,
+          torch=torch.__version__)
+    check(got.dtype == torch.float32 and gap < 1e-5, f"bmm out_dtype: {got.dtype}, {gap}")
+
+
+def phase_dymn_options(device, card):
+    """23. ``dyconv_compute="bfloat16"`` on full-width ``dymn10_as`` with
+    seeded weights: ``aten::bmm.dtype`` on the card; the model alone in
+    fp32 and with the mix at B=64 and 256 on K1's mel (in turns, then in
+    the other order) with its device time by kernel group; its logits and
+    the gradients of ``sum(logits * r)`` against the CPU's on the same mel
+    at B=2 (TOL_DYCONV_GRAD_L2, with the CPU's fp32 gradients as the control
+    that must miss it); then the KD train step at B=120 in fp32 with the
+    mix (time, split, peak memory, profile, K1 at every step; phase 12 has
+    the fp32 step), and one step's loss on the card against the CPU's at
+    the card's model input, its gradients finite. Returns K1's launches in
+    the step's timed steps."""
+    bmm_out_dtype_check(device)
+    sd = seeded_weights(DYMN, seed=23)
+    cfg0, t_max = get_model_config(DYMN).model_cfg, get_model_config(DYMN).model_cfg.t_max
+    mel_cfg = MelConfig()
+    banks = kaldi_mel_banks(mel_cfg.n_mels, mel_cfg.n_fft, mel_cfg.sr, mel_cfg.fmin,
+                            mel_cfg.effective_fmax, device=device)
+    models = {}
+    for option, changes in DYMN_OPTIONS.items():
+        m = build_model(dataclasses.replace(cfg0, **changes))
+        m.load_state_dict(sd, strict=True)
+        models[option] = m.to(device).eval()
+    # card against CPU at B=2: logits, and the gradients in eval mode
+    mel2 = mel_kernel.stft_log_mel(torch.from_numpy(train_waves(2, seed=23)).to(device),
+                                   banks, mel_cfg, "fp32")[:, None]
+    r = torch.from_numpy(np.random.default_rng(23).normal(
+        size=(2, cfg0.num_classes)).astype(np.float32))
+    with torch.inference_mode():
+        card_logits = {o: m(mel2, t_max)[0].cpu() for o, m in models.items()}
+    card_grads = grads_of_logits(models["dyconv_bf16"], mel2, t_max, r.to(device))
+    cpu_grads = {}
+    for option, changes in DYMN_OPTIONS.items():
+        cpu = build_model(dataclasses.replace(cfg0, **changes))
+        cpu.load_state_dict(sd, strict=True)
+        cpu.eval()
+        with torch.inference_mode():
+            want = cpu(mel2.cpu(), t_max)[0]
+        cpu_grads[option] = grads_of_logits(cpu, mel2.cpu(), t_max, r)
+        gap = float((card_logits[option] - want).abs().max())
+        bound = TOL_OPTION_VS_CPU[option]
+        vs_fp32 = float((card_logits[option] - card_logits["fp32"]).abs().max())
+        phase("dymn_option_vs_cpu", model=DYMN, option=option, clips=2, max_abs=gap,
+              bound=bound, vs_fp32_on_card=vs_fp32, logits_std=float(want.std()))
+        check(gap <= bound, f"{option}: card against CPU logits")
+        if option == "dyconv_bf16":
+            check(vs_fp32 > bound, f"the bf16 mix is {vs_fp32} from fp32: below its bound")
+    (l2, (worst, name)), (c_l2, (c_worst, _)) = (
+        grad_gaps(card_grads, cpu_grads["dyconv_bf16"]),
+        grad_gaps(cpu_grads["fp32"], cpu_grads["dyconv_bf16"]))
+    phase("dymn_dyconv_grads_vs_cpu", model=DYMN, clips=2, mode="eval", grad_l2=l2,
+          bound_l2=TOL_DYCONV_GRAD_L2, fp32_control_l2=c_l2, grad_worst=worst,
+          grad_worst_tensor=name, fp32_control_worst=c_worst)
+    check(l2 <= TOL_DYCONV_GRAD_L2, "the bf16 mix's gradients, card against CPU")
+    check(c_l2 > TOL_DYCONV_GRAD_L2, f"the fp32 control passes the gradient bound: {c_l2}")
+    del card_grads, cpu_grads
+    # the model alone, each option in turns
+    for rows in (BATCH, DYMN_BIG_BATCH):
+        xb = torch.from_numpy(train_waves(rows, seed=23)).to(device)
+        with torch.inference_mode():
+            mel = mel_kernel.stft_log_mel(xb, banks, mel_cfg, "bf16x3")[:, None]
+            ms = {o: [] for o in models}
+            for order in (list(models), list(models)[::-1]):
+                for option in order:
+                    ms[option].append(median_ms(lambda: models[option](mel, t_max)))
+            for option, m in models.items():
+                phase("dymn_option_time", model=DYMN, option=option, batch=rows,
+                      model_ms=json.dumps(ms[option]),
+                      clips_per_s=rows / statistics.mean(ms[option]) * 1e3,
+                      card=repr(card))
+                phase("dymn_option_profile", model=DYMN, option=option, batch=rows,
+                      **device_profile(lambda: m(mel, t_max), groups=DYMN_KERNEL_GROUPS),
+                      card=repr(card))
+        del xb, mel
+    del models
+    torch.cuda.empty_cache()
+
+    # the KD train step in fp32 with the bf16 mix
+    bf16_mix = DYMN_OPTIONS["dyconv_bf16"]
+    launches = phase_train_times(
+        device, card, DYMN, variants=((False, False),),
+        temperature=DYMN_TRAIN_TEMPERATURE, groups=DYMN_KERNEL_GROUPS,
+        tag="dymn_dyconv_train", changes=bf16_mix)
+    sd, batch, draws = step_inputs(seed=24, name=DYMN)
+    on_card = run_step(sd, batch, draws, device, dft_precision="fp32", name=DYMN,
+                       temperature=DYMN_TRAIN_TEMPERATURE, changes=bf16_mix)
+    loss_cpu, grads_cpu = grads_at(sd, on_card["x"], batch, draws.mixup, "cpu", DYMN,
+                                   DYMN_TRAIN_TEMPERATURE, bf16_mix)
+    rel = abs(on_card["loss"] - loss_cpu) / abs(loss_cpu)
+    l2, (worst, name) = grad_gaps(on_card["grads"], grads_cpu)
+    phase("dymn_dyconv_step_vs_cpu", model=DYMN, clips=STEP_CLIPS,
+          temperature=DYMN_TRAIN_TEMPERATURE, loss=on_card["loss"], loss_cpu=loss_cpu,
+          loss_rel=rel, bound=TOL_STEP_LOSS_REL, grad_l2_unbounded=l2,
+          grad_worst_unbounded=worst, grad_worst_tensor=name,
+          k1_launches=on_card["launches"])
+    check(on_card["launches"] == 1, "the card's dyconv step did not launch K1 fp32")
+    check(rel <= TOL_STEP_LOSS_REL, "the dyconv step's loss, card against CPU")
+    check(all(g.dtype == torch.float32 and bool(torch.isfinite(g).all())
+              for g in on_card["grads"].values()), "the dyconv step's gradients")
+    return launches[(False, False)]
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -1944,6 +2386,8 @@ def main():
     phase("build", source="efficientat_tpu_torch/csrc/mel_kernel.cu",
           arch="sm_90a", seconds=f"{time.perf_counter() - t0:.2f}",
           ptxas=repr(regs))
+
+    lap("2 build")
 
     # 3. K1 against its plain version and the float64 oracle
     waves = selftest_waves()
@@ -1987,6 +2431,8 @@ def main():
         check(control > TOL_KERNEL_VS_PLAIN["fp32"],
               f"K1 bf16x3 passes K1 fp32's kernel bound: {control}")
         del k1
+
+    lap("3 K1 selftest")
 
     # 4. the slice, through the entry point a user calls
     batch = slice_batch()
@@ -2084,6 +2530,8 @@ def main():
     del tagger, pairs, xb, mel, out
     torch.cuda.empty_cache()
 
+    lap("4-5 tag")
+
     # 6-9. the training path
     k1_train = phase_train_k1(device, card)
     train_launches, step_fp32_launches = phase_train(device)
@@ -2102,8 +2550,12 @@ def main():
     kernels.append({**kernels[0], "path": "train_fp32", **k1_train["fp32"],
                     "launches": step_fp32_launches})
 
+    lap("6-9 train")
+
     # 10. the probe path
     probe_rows = phase_probe(device, card)
+
+    lap("10 probe")
 
     # 11-13. DyMN: serving, training in one process and on two ranks. K1's
     # calls there have the shapes of the MN paths' (the wave in, 128 mels
@@ -2123,6 +2575,8 @@ def main():
     kernels.append({**kernels[0], "name": "mel_kernel_dp", "path": "train_dp_dymn",
                     "replaces": "efficientat_tpu/ops/mel_pallas.py:347", **dp,
                     "launches": dymn_dp_launches})
+
+    lap("11-13 dymn")
 
     # 14-18. windowed tagging, the two-model ensemble, the bf16 Tagger, the
     # pretrained head surgery and exact-length eval; K1's rows take times
@@ -2169,6 +2623,8 @@ def main():
     del tagger
     torch.cuda.empty_cache()
 
+    lap("14-18 serving and eval")
+
     # 19-21. the complexity report at phases 5 and 11's model times, the
     # profile subcommand, and member-parallel serving; K1's rows take times
     # at each path's batch, as phases 14-18's
@@ -2181,6 +2637,23 @@ def main():
     add_k1_rows(more_paths)
     new_paths.update(more_paths)
 
+    lap("19-21 tools and member-parallel")
+
+    # 22-23. Tagger(mesh=...) on gloo ranks (K1-dp on every rank's rows,
+    # timed on rank 0 of data 2 x model 2) and DyMN's options (K1 training
+    # mode at every step of the dyconv step: phase 6's times at B=120)
+    mesh_launches, k1_dp = phase_tag_mesh(device, card)
+    kernels.append({**kernels[0], "name": "mel_kernel_dp", "path": "tag_mesh",
+                    "replaces": "efficientat_tpu/ops/mel_pallas.py:347",
+                    "launches": sum(sum(n) for n in mesh_launches.values()),
+                    "launches_a_rank": mesh_launches,
+                    "max_abs_err": k1_dp["max_abs_err"], "ms": k1_dp["ms"],
+                    "plain_ms": k1_dp["plain_ms"]})
+    lap("22 tag_mesh")
+    kernels.append({**kernels[0], "path": "train_dymn_dyconv_bf16", **k1_train["bf16x3"],
+                    "launches": phase_dymn_options(device, card)})
+    lap("23 dymn options")
+
     # each K1 row's bound and cuBLAS yardstick, at the clips a launch and
     # the precision of its times
     cfg = MelConfig()
@@ -2190,6 +2663,7 @@ def main():
     sizes.update(tag_dymn=sizes["tag"], train_dymn=sizes["train"],
                  train_dp_dymn=sizes["train_dp"])
     sizes.update({path: (rows, prec) for path, (_, rows, prec) in new_paths.items()})
+    sizes.update(tag_mesh=(k1_dp["rows"], "bf16x3"), train_dymn_dyconv_bf16=sizes["train"])
     for row in kernels:
         batch_rows, prec = sizes[row["path"]]
         passes = DFT_PASSES[prec]
@@ -2205,6 +2679,7 @@ def main():
           bf16x3_bound_ms=rows["tag"]["bound_ms"], gemm_kind=GEMM_KIND[0],
           card=repr(card))
 
+    lap("bounds and yardsticks")
     kernels.extend(probe_rows)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

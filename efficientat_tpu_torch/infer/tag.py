@@ -14,6 +14,13 @@ stays fp32 (K1 at ``dft_precision``, outside the autocast), as upstream
 keeps its front end out of autocast (models/preprocess.py:56-57). Autocast
 rounds the convs' and Linears' operands to bf16 and keeps BatchNorm in fp32,
 where the JAX Tagger's flax ``dtype`` computes BatchNorm in bf16 too.
+
+``mesh`` (a ``parallel/mesh.py::Mesh``) serves a same-architecture ensemble
+member-parallel, as the JAX Tagger does over its ``("data", "model")``
+mesh: each rank holds its share of the stacked members, computes the mel of
+its data index's rows (K1-dp where there is more than one rank), and the
+ranks meet in one all-reduce of logits over the model group and one of
+probs over the data group.
 """
 
 from __future__ import annotations
@@ -23,20 +30,30 @@ from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
-
+import torch.distributed as dist
 from torch import nn
 
 from efficientat_tpu_torch.data.wavecodec import decode
 from efficientat_tpu_torch.models.dymn import DyMN
 from efficientat_tpu_torch.models.registry import build_model, get_model_config
 from efficientat_tpu_torch.ops.mel_kernel import log_mel_spectrogram_fused
+from efficientat_tpu_torch.parallel.ensemble import (
+    make_member_parallel_ensemble,
+    shard_member_params,
+    stack_member_params,
+)
+from efficientat_tpu_torch.parallel.mesh import Mesh
 from efficientat_tpu_torch.utils.labels import AUDIOSET_LABELS
 
 
+def _serving_args(model: nn.Module) -> tuple:
+    """A served member's forward arguments after the mel: a DyMN runs at its
+    ``cfg.t_max``, the final temperature of its training."""
+    return (model.cfg.t_max,) if isinstance(model, DyMN) else ()
+
+
 def _member_logits(model: nn.Module, mel: torch.Tensor) -> torch.Tensor:
-    if isinstance(model, DyMN):
-        return model(mel, model.cfg.t_max)[0]
-    return model(mel)[0]
+    return model(mel, *_serving_args(model))[0]
 
 
 class Tagger:
@@ -51,6 +68,16 @@ class Tagger:
         or ``"fp32"``.
     dtype: the members' compute dtype, ``torch.float32`` (default) or a
         lower one that they run in under ``torch.autocast``.
+    mesh: this rank's place in a ``(data, model)`` layout of the ranks
+        (``parallel.mesh.make_mesh``). With more than one member, all of
+        one class and config, and a member count that the model axis
+        divides, the members are stacked and this rank keeps only its
+        ``shard_member_params`` on ``device`` (``_stacked``): per-rank
+        parameter memory stays flat. Any other ensemble, and ``mesh=None``,
+        takes the replicated path, where every rank computes the whole
+        batch. Under a mesh every rank calls ``predict`` with the same whole
+        batch, as each process under ``torchrun`` does, and gets the same
+        probs back.
     """
 
     def __init__(
@@ -64,6 +91,7 @@ class Tagger:
         seed: int = 0,
         labels: Sequence[str] = AUDIOSET_LABELS,
         dtype: torch.dtype = torch.float32,
+        mesh: Optional[Mesh] = None,
     ):
         if isinstance(names, str):
             names = [names]
@@ -80,7 +108,7 @@ class Tagger:
                     f"{names[0]!r} uses {self.mel_cfg}, {name!r} uses {other}. "
                     "All members must share one mel config (reference "
                     "models/ensemble.py:25-33 feeds one spectrogram to all).")
-        self.members = []
+        members = []
         for i, name in enumerate(names):
             if pretrained:
                 from efficientat_tpu_torch.models.convert import load_pretrained
@@ -90,7 +118,25 @@ class Tagger:
                 model = build_model(name, num_classes=num_classes,
                                     generator=torch.Generator().manual_seed(seed + i))
                 warnings.warn(f"{name}: using random weights (pretrained=False)")
-            self.members.append(model.to(self.device).eval())
+            members.append(model.eval())
+        self.mesh = mesh
+        self._stacked = None
+        m0 = members[0]
+        if (mesh is not None and len(members) > 1
+                and all(type(m) is type(m0) and m.cfg == m0.cfg for m in members)
+                and len(members) % mesh.shape["model"] == 0):
+            # the stack and this rank's share of it on the host; only the
+            # share goes to the device, and the base module, which gives
+            # the structure, holds no tensors
+            self._stacked = {k: v.to(self.device) for k, v in shard_member_params(
+                stack_member_params(members), mesh).items()}
+            self._ensemble = make_member_parallel_ensemble(
+                m0.to("meta"), mesh, len(members), _serving_args(m0))
+            members = [m0]
+        else:
+            members = [m.to(self.device) for m in members]
+        # the replicated path's members; the member-parallel path's base
+        self.members = members
         self._pinned: Optional[torch.Tensor] = None  # last batch's host buffer
 
     def _to_device(self, waves: np.ndarray) -> torch.Tensor:
@@ -107,12 +153,15 @@ class Tagger:
 
     def predict(self, waves: np.ndarray) -> np.ndarray:
         """waves (B, num_samples) at mel_cfg.sr, float32, int16 PCM or mu-law
-        uint8 -> probs (B, classes) float32."""
+        uint8 -> probs (B, classes) float32. Under a mesh every rank passes
+        the same whole batch and gets the same probs."""
         waves = np.atleast_2d(np.asarray(waves))
         # no copy when the caller's batch already has the transport dtype:
         # a copy of a B=64 float32 batch costs more than its H2D transfer
         dtype = waves.dtype if waves.dtype in (np.int16, np.uint8) else np.float32
         waves = np.ascontiguousarray(waves, dtype=dtype)
+        if self._stacked is not None:
+            return self._predict_member_parallel(waves)
         with torch.inference_mode():
             x = decode(self._to_device(waves))
             mel = log_mel_spectrogram_fused(x, self.mel_cfg,
@@ -124,6 +173,40 @@ class Tagger:
             logits = sum(lg.float() for lg in logits)
             probs = torch.sigmoid(logits / len(self.members))
             return probs.cpu().numpy()
+
+    def _predict_member_parallel(self, waves: np.ndarray) -> np.ndarray:
+        """The batch padded to a multiple of the data axis with the
+        transport's silence (0, or 128 for mu-law), this rank's data index's
+        rows decoded and through the mel, its members' logits all-reduced
+        over the model group (``make_member_parallel_ensemble``), the
+        sigmoid, and the rows of every data index put together by an
+        all-reduce of a zero-filled (padded batch, classes) buffer over the
+        data group (gloo reduces CUDA tensors but gathers none); the pad is
+        sliced off."""
+        mesh = self.mesh
+        n, n_data = waves.shape[0], mesh.shape["data"]
+        pad = (-n) % n_data
+        if pad:
+            silence = 128 if waves.dtype == np.uint8 else 0
+            waves = np.concatenate(
+                [waves, np.full((pad,) + waves.shape[1:], silence, waves.dtype)])
+        rows = waves.shape[0] // n_data
+        start = mesh.data_index * rows
+        with torch.inference_mode():
+            x = decode(self._to_device(waves[start:start + rows]))
+            mel = log_mel_spectrogram_fused(x, self.mel_cfg,
+                                            dft_precision=self.dft_precision,
+                                            sharded=mesh.world > 1)[:, None]
+            with torch.autocast(self.device.type, dtype=self.dtype,
+                                enabled=self.dtype != torch.float32):
+                logits = self._ensemble(self._stacked, mel)
+            probs = torch.sigmoid(logits)
+            if n_data > 1:
+                every = probs.new_zeros((waves.shape[0], probs.shape[1]))
+                every[start:start + rows] = probs
+                dist.all_reduce(every, group=mesh.data_group)
+                probs = every
+            return probs[:n].cpu().numpy()
 
     def tag(self, path: str, top_k: int = 10) -> List[Tuple[str, float]]:
         """Decode an audio file and return the top-k (label, prob) pairs."""

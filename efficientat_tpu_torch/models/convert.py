@@ -2,7 +2,9 @@
 
 - ``load_pretrained`` reads a release ``.pt`` (upstream key names) from a
   directory and loads it with ``load_state_dict(strict=True)``. It downloads
-  nothing: a missing file raises ``FileNotFoundError``.
+  nothing: a missing file raises ``FileNotFoundError``. Where the directory
+  holds a ``checkpoints.sha256`` manifest that lists the file, the file's
+  digest must match it (``check_digest``).
 - ``from_flax_mn`` and ``from_flax_dymn`` are the exact inverses of the JAX
   package's ``convert_mn`` and ``convert_dymn``: flax ``{"params",
   "batch_stats"}`` (numpy) -> the port's state dict, so a model trained or
@@ -18,6 +20,7 @@ strictly.
 
 from __future__ import annotations
 
+import hashlib
 import os
 from typing import Any, Dict, Mapping, Optional, Sequence, Union
 
@@ -205,6 +208,36 @@ def checkpoint_classes(sd: Mapping[str, Any], head_type: str) -> int:
     return -1
 
 
+def check_digest(path: str, model_dir: str, url: str) -> None:
+    """Hold ``path`` against ``<model_dir>/checkpoints.sha256`` where that
+    manifest lists its file name (lines ``<sha256>  <name>``, the sha256sum
+    format; a ``*`` before the name is dropped, the digest is read in lower
+    case, and the last line for the name counts); a file it does not list,
+    or a directory without one, passes unchecked. Raises ``ValueError`` on a
+    mismatch, as the JAX package's ``ensure_checkpoint`` does."""
+    manifest = os.path.join(model_dir, "checkpoints.sha256")
+    if not os.path.isfile(manifest):
+        return
+    file = os.path.basename(path)
+    want = None
+    with open(manifest) as f:
+        for line in f:
+            parts = line.split()
+            if len(parts) >= 2 and parts[1].lstrip("*") == file:
+                want = parts[0].lower()
+    if want is None:
+        return
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 20), b""):
+            h.update(chunk)
+    got = h.hexdigest()
+    if got != want:
+        raise ValueError(
+            f"checksum mismatch for {file}: manifest {want}, file {got} — "
+            f"put the release file {url} in its place")
+
+
 def load_pretrained(name: str, model_dir: str = MODEL_DIR,
                     num_classes: Optional[int] = None, seed: int = 0) -> nn.Module:
     """Build the registry model ``name`` on the CPU and load
@@ -216,13 +249,15 @@ def load_pretrained(name: str, model_dir: str = MODEL_DIR,
     head's conv and BatchNorm with its statistics, an attention-pooling
     head's projection and head weight) are dropped from the file and keep
     upstream's init drawn from ``torch.Generator().manual_seed(seed)``;
-    every other tensor must load."""
+    every other tensor must load. The file is held against the directory's
+    digest manifest first (``check_digest``)."""
     spec = get_model_config(name)
     path = os.path.join(model_dir, spec.file)
     if not os.path.isfile(path):
         raise FileNotFoundError(
             f"checkpoint {path} not found: place the release file "
             f"{spec.url} there (nothing is downloaded)")
+    check_digest(path, model_dir, spec.url)
     sd = torch.load(path, map_location="cpu", weights_only=True)
     cfg = spec.model_cfg
     classes = cfg.num_classes if num_classes is None else num_classes

@@ -17,6 +17,20 @@ context (``softmax(att(h_c) / temperature)``, in fp32):
   In NCHW both reshapes are views. Under data parallelism each rank folds
   its own rows.
 
+``DyMNConfig.dyconv_compute`` names the dtype of the bank mix, the
+per-sample GEMMs and the fold inside a model of another dtype (fp32, or the
+dtype of an enclosing ``torch.autocast``): ``"bfloat16"`` mixes the banks
+in bf16, multiplies bf16 operands into an fp32 result in the 1x1 form
+(``torch.bmm(..., out_dtype=torch.float32)`` on CUDA), and runs the fold in
+bf16 with its output cast back. Parameters, BatchNorm and the outputs keep
+the model's dtype.
+
+``DyMNConfig.pw_form`` takes the JAX package's three 1x1 forms and computes
+every one as the ``torch.bmm`` above: ``shared_out`` and ``shared_in`` are
+one GEMM each of the same function, laid out for the TPU, and were slower
+on an H100 (PERF.md). As in JAX, a shared form keeps the 1x1 out of
+``dyconv_compute``'s mix.
+
 The temperature anneals per epoch in training (``DyMNConfig.temperature``)
 and is a runtime float: ``forward(x, temperature)``. Serving runs at
 ``cfg.t_max``, the final temperature of the checkpoint's training.
@@ -25,9 +39,8 @@ and is a runtime float: ``forward(x, temperature)``. Serving runs at
 batch at its own length, as MN does (``layers.time_mask``); ContextGen then
 pools the valid frames only.
 
-The JAX package's TPU lowerings (``pw_form`` shared_out / shared_in,
-``layout="ftbc"``, ``dyconv_compute``, the channel-multiplier depthwise
-form, the ``shard_map`` fold) are not ported.
+The JAX package's TPU lowerings (``layout="ftbc"``, the channel-multiplier
+depthwise form, the ``shard_map`` fold) are not ported.
 """
 
 from __future__ import annotations
@@ -70,6 +83,46 @@ def _bn(channels: int) -> nn.BatchNorm2d:
     return nn.BatchNorm2d(channels, eps=BN_EPS, momentum=BN_MOMENTUM)
 
 
+PW_FORMS = ("per_sample", "shared_out", "shared_in")
+# DyMNConfig.dyconv_compute -> the mix dtype (None: the model's own)
+DYCONV_COMPUTE = {"model": None, "float32": torch.float32,
+                  "bfloat16": torch.bfloat16, "float16": torch.float16}
+
+
+def _model_dtype(x: torch.Tensor, param: torch.Tensor) -> torch.dtype:
+    """The dtype the model computes in at ``x``: an enclosing autocast's,
+    else its parameters'."""
+    if torch.is_autocast_enabled(x.device.type):
+        return torch.get_autocast_dtype(x.device.type)
+    return param.dtype
+
+
+class _BmmFp32Out(torch.autograd.Function):
+    """``a @ b`` of two low-precision batches into an fp32 result: on CUDA
+    one ``torch.bmm(..., out_dtype=torch.float32)``, elsewhere the operands
+    cast to fp32 first (the same values). The backward multiplies the fp32
+    cotangent with the other operand in fp32 and rounds each gradient to
+    its operand's dtype, as JAX transposes a ``preferred_element_type``
+    product."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        if a.device.type == "cuda":
+            return torch.bmm(a, b, out_dtype=torch.float32)
+        return torch.bmm(a.float(), b.float())
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        grad_a = grad_b = None
+        if ctx.needs_input_grad[0]:
+            grad_a = torch.bmm(g, b.float().transpose(1, 2)).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            grad_b = torch.bmm(a.float().transpose(1, 2), g).to(b.dtype)
+        return grad_a, grad_b
+
+
 class DynamicConv(nn.Module):
     """K-bank dynamic convolution, pointwise (kernel 1) or depthwise
     (groups == channels). ``weight`` has the checkpoint's flat shape
@@ -77,11 +130,12 @@ class DynamicConv(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int, context_dim: int,
                  kernel_size: int = 1, stride: int = 1, dilation: int = 1,
-                 k: int = 4):
+                 k: int = 4, mix_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.depthwise = kernel_size > 1
         if self.depthwise and in_channels != out_channels:
             raise ValueError("a depthwise DynamicConv has as many outputs as inputs")
+        self.mix_dtype = mix_dtype
         self.out_channels = out_channels
         self.kernel_size, self.stride, self.dilation = kernel_size, stride, dilation
         self.k = k
@@ -101,11 +155,30 @@ class DynamicConv(nn.Module):
         # compute dtype
         att = torch.softmax(logits.to(torch.promote_types(logits.dtype, torch.float32))
                             / temperature, dim=-1).to(logits.dtype)
-        wb = att @ self.weight.reshape(self.k, -1)  # (B, O * I/g * k * k)
+        banks = self.weight.reshape(self.k, -1)  # (K, O * I/g * k * k)
+        mix = self.mix_dtype
+        model_dtype = _model_dtype(x, self.weight)
+        if mix is None or mix == model_dtype:
+            return self._conv(x, att @ banks, torch.bmm)
+        # the mix dtype's operands, whatever an enclosing autocast would
+        # pick; the result in the model's dtype
+        with torch.autocast(x.device.type, enabled=False):
+            y = self._conv(x.to(mix), att.to(mix) @ banks.to(mix), _BmmFp32Out.apply)
+        return y.to(model_dtype)
+
+    def _conv(self, x: torch.Tensor, wb: torch.Tensor, bmm) -> torch.Tensor:
+        """The conv of each sample with its own mixed weights ``wb``: a 1x1
+        as ``bmm`` over the flattened (F, T), a depthwise one as ``_fold``."""
+        if self.depthwise:
+            return self._fold(x, wb)
         b, c, f, t = x.shape
-        if not self.depthwise:
-            y = torch.bmm(wb.reshape(b, self.out_channels, c), x.reshape(b, c, f * t))
-            return y.reshape(b, self.out_channels, f, t)
+        y = bmm(wb.reshape(b, self.out_channels, c), x.reshape(b, c, f * t))
+        return y.reshape(b, self.out_channels, f, t)
+
+    def _fold(self, x: torch.Tensor, wb: torch.Tensor) -> torch.Tensor:
+        """The depthwise conv of each sample with its own mixed kernel
+        ``wb`` (B, C * k * k), as one grouped conv over the folded batch."""
+        b, c, f, t = x.shape
         ks = self.kernel_size
         y = F.conv2d(x.reshape(1, b * c, f, t), wb.reshape(b * c, 1, ks, ks),
                      None, self.stride, (ks - 1) // 2 * self.dilation,
@@ -224,6 +297,12 @@ class DyMNConfig:
     no_dyrelu: bool = False
     no_dyconv: bool = False
     no_ca: bool = False
+    # the JAX package's 1x1 form, one of PW_FORMS: each computes as
+    # per_sample, and a shared form keeps the 1x1 out of dyconv_compute
+    pw_form: str = "per_sample"
+    # the dtype of the bank mix, the per-sample GEMMs and the fold: "model"
+    # (the model's own), "float32", "bfloat16" or "float16"
+    dyconv_compute: str = "model"
     use_dy_blocks: str = "all"  # all | replace_se
     reduced_tail: bool = False
     dilated: bool = False
@@ -240,6 +319,13 @@ class DyMNConfig:
     t1_slope: float = 0.02
     # recompute each block's activations in the backward pass (remat_call)
     remat: bool = False
+
+    def __post_init__(self):
+        if self.pw_form not in PW_FORMS:
+            raise ValueError(f"pw_form must be one of {PW_FORMS}, got {self.pw_form!r}")
+        if self.dyconv_compute not in DYCONV_COMPUTE:
+            raise ValueError(f"dyconv_compute must be one of {tuple(DYCONV_COMPUTE)}, "
+                             f"got {self.dyconv_compute!r}")
 
     def block_table(self):
         return mn.mn_block_table(self.width_mult, self.reduced_tail, self.dilated,
@@ -274,6 +360,8 @@ class DYBlock(nn.Module):
         act = ACTIVATIONS[cnf.activation]
         stride = cnf.conv_stride
         exp, k = cnf.expanded_channels, cfg.dyconv_k
+        mix = DYCONV_COMPUTE[cfg.dyconv_compute]
+        pw_mix = mix if cfg.pw_form == "per_sample" else None
         self.use_res = cnf.use_res
         self.dyrelu = not cfg.no_dyrelu
         self.ca = not cfg.no_ca
@@ -282,7 +370,8 @@ class DYBlock(nn.Module):
         if self.expand:
             self.exp_conv = (
                 StaticConv(nn.Conv2d(cnf.input_channels, exp, 1, bias=False))
-                if cfg.no_dyconv else DynamicConv(cnf.input_channels, exp, h, k=k))
+                if cfg.no_dyconv else DynamicConv(cnf.input_channels, exp, h, k=k,
+                                                  mix_dtype=pw_mix))
             self.exp_norm = _bn(exp)
             self.exp_act = act()
         pad = (cnf.kernel - 1) // 2 * cnf.dilation
@@ -290,12 +379,14 @@ class DYBlock(nn.Module):
             StaticConv(nn.Conv2d(exp, exp, cnf.kernel, stride, pad, cnf.dilation,
                                  groups=exp, bias=False))
             if cfg.no_dyconv else
-            DynamicConv(exp, exp, h, cnf.kernel, stride, cnf.dilation, k=k))
+            DynamicConv(exp, exp, h, cnf.kernel, stride, cnf.dilation, k=k,
+                        mix_dtype=mix))
         self.depth_norm = _bn(exp)
         self.depth_act = DyReLUB(exp, h, cfg.dyrelu_k) if self.dyrelu else act()
         self.proj_conv = (
             StaticConv(nn.Conv2d(exp, cnf.out_channels, 1, bias=False))
-            if cfg.no_dyconv else DynamicConv(exp, cnf.out_channels, h, k=k))
+            if cfg.no_dyconv else DynamicConv(exp, cnf.out_channels, h, k=k,
+                                              mix_dtype=pw_mix))
         self.proj_norm = _bn(cnf.out_channels)
 
     def forward(self, x: torch.Tensor, temperature: float,

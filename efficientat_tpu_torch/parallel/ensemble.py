@@ -13,7 +13,7 @@ group. Heterogeneous ensembles (another architecture a member) stay on
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Sequence
+from typing import Callable, Dict, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -50,17 +50,20 @@ def shard_member_params(stacked: Dict[str, torch.Tensor],
 
 
 def make_member_parallel_ensemble(base_module: nn.Module, mesh: Mesh,
-                                  n_members: int) -> Callable:
+                                  n_members: int, args: Tuple = ()) -> Callable:
     """Build ``fn(stacked, x) -> mean member logits``.
 
-    ``base_module`` is one member's architecture (an ``MN``, say), whose
-    forward returns ``(logits, embedding)``; ``stacked`` is this rank's
+    ``base_module`` is one member's architecture (an ``MN`` or a ``DyMN``),
+    whose forward returns ``(logits, embedding)``; its own tensors are not
+    read, so it may lie on the meta device. ``stacked`` is this rank's
     ``shard_member_params``; ``x`` this rank's batch of mels. The rank's
     members run one after another, as the JAX version's ``fori_loop`` runs
-    them, each a ``functional_call`` of ``base_module`` on ``x``; their
-    logits are summed, the sum is all-reduced over the model group and
-    divided by ``n_members``. ``n_members`` must be a multiple of the model
-    axis size.
+    them, each a ``functional_call`` of ``base_module`` on ``(x, *args)``:
+    ``args`` are the forward's further arguments, which the caller picks as
+    the JAX version's caller picks its ``apply_fn`` (the Tagger passes a
+    DyMN's ``cfg.t_max``). Their logits are summed in fp32 (under autocast
+    too), the sum is all-reduced over the model group and divided by
+    ``n_members``. ``n_members`` must be a multiple of the model axis size.
 
     Not ``torch.func.vmap`` over the member axis: it takes every layer, but
     turns each conv into one conv over batched weights, and cuDNN transposes
@@ -72,7 +75,7 @@ def make_member_parallel_ensemble(base_module: nn.Module, mesh: Mesh,
     def fn(stacked: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
         n_local = next(iter(stacked.values())).shape[0]
         acc = sum(functional_call(base_module, {k: v[i] for k, v in stacked.items()},
-                                  (x,))[0]
+                                  (x, *args))[0].float()
                   for i in range(n_local))
         if mesh.model_group is not None:
             dist.all_reduce(acc, group=mesh.model_group)

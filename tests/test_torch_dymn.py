@@ -1,8 +1,10 @@
 """Port's DyMN against the flax DyMN and the torch-functional oracle: the
 forward of every config at temperatures 1 and 30, the checkpoint keys, the
 converter, the parameter counts, the temperature schedule, the DynamicConv
-forms, one train step against JAX's, and ``remat`` against a plain step
-(MN and DyMN, one process and two gloo ranks)."""
+forms, the 1x1 forms (``pw_form``) and the bf16 bank mix
+(``dyconv_compute``) against JAX's, one train step against JAX's, and
+``remat`` against a plain step (MN and DyMN, one process and two gloo
+ranks)."""
 
 import dataclasses
 import multiprocessing
@@ -64,8 +66,8 @@ CONFIGS = {
 }
 # the configs torch_dymn_forward computes: mlp head, DynamicConvs, no dilation
 ORACLE = ["all", "replace_se", "no_dyrelu", "no_ca"]
-# the JAX DyMNConfig fields of TPU lowerings the port leaves out
-UNPORTED = ("pw_form", "layout", "dyconv_compute")
+# the JAX DyMNConfig field of a TPU lowering the port leaves out
+UNPORTED = ("layout",)
 
 
 @pytest.fixture(autouse=True)
@@ -257,6 +259,184 @@ def test_dynamic_conv_under_autocast_keeps_fp32_banks(ks):
         want = conv(x, h_c, 1.0)
     # bf16 operands: about 3 significant digits
     torch.testing.assert_close(y.float(), want, rtol=3e-2, atol=3e-2)
+
+
+# ------------------------------------------------ pw_form, dyconv_compute
+
+# tests/test_models.py's bound on the three JAX forms against each other;
+# measured: each port form 4e-8 to 7e-8 from JAX's same form. The port
+# computes every form as per_sample (models/dymn.py)
+ATOL_PW_FORM = 1e-5
+
+
+@pytest.mark.parametrize("form", ["per_sample", "shared_out", "shared_in"])
+def test_pw_form_matches_jax(form):
+    cfg = dataclasses.replace(_cfg("all"), pw_form=form)
+    sd = reference_dict(cfg, seed=5)
+    model = DyMN(cfg).eval()
+    model.load_state_dict(sd, strict=True)
+    x = _input()
+    with torch.no_grad():
+        got = model(torch.from_numpy(x), 2.0)[0].numpy()
+    want = jdymn.DyMN(jax_config(cfg)).apply(
+        jax.tree.map(jnp.asarray, _flax_variables(sd, cfg)),
+        jnp.asarray(x.transpose(0, 2, 3, 1)), False, 2.0)[0]
+    np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=ATOL_PW_FORM)
+
+
+@pytest.mark.parametrize("field,value", [("pw_form", "shared"),
+                                         ("dyconv_compute", "bf16"),
+                                         ("dyconv_compute", "int8")])
+def test_unknown_dymn_option_raises(field, value):
+    with pytest.raises(ValueError, match=field):
+        DyMNConfig(**{field: value})
+
+
+BF16 = dict(dyconv_compute="bfloat16")
+# dyconv_compute="bfloat16" against JAX's on the same weights (the
+# scale-keeping reference weights of the tests above), each bound with a
+# control, the port's fp32 path against JAX's bf16 one, which must exceed
+# four times it. Eval, the whole model (logits up to 0.13): measured
+# 5.2e-8, control 8.3e-5. Train mode (BatchNorm on the batch's statistics),
+# blocks 1 and 12 alone on a seeded (2, C, 32, 24) input (outputs up to 6,
+# where one bf16 step is 2.3e-2): measured 7.0e-5 and 3.2e-3, controls
+# 3.7e-2 and 3.8e-2. The whole model in train mode is no test of this:
+# there a late BatchNorm normalises 2 clips over a 1 x 1 map, and JAX's own
+# bf16 logits move 1.9e-3 when its input moves 1e-6
+ATOL_DYCONV_EVAL = 1e-5
+ATOL_DYCONV_TRAIN = 5e-3
+# the whole gradient (relative L2) of sum(logits * r) in eval mode, the
+# bf16 path against jax.grad of JAX's: measured 4.7e-6, the port's fp32
+# gradient 6.9e-4 from JAX's bf16 one
+RTOL_DYCONV_GRAD_L2 = 1e-4
+
+
+def _dyconv_eval_setup():
+    cfg = _cfg("all")
+    sd = reference_dict(cfg, seed=5)
+    return cfg, sd, _flax_variables(sd, cfg), _input()
+
+
+def _port_logits(cfg, sd, x):
+    model = DyMN(cfg).eval()
+    model.load_state_dict(sd, strict=True)
+    with torch.no_grad():
+        return model(torch.from_numpy(x), 2.0)[0]
+
+
+def test_dyconv_compute_bf16_matches_jax_in_eval():
+    cfg, sd, variables, x = _dyconv_eval_setup()
+    bf16 = dataclasses.replace(cfg, **BF16)
+    # the option leaves the parameter tree as it is: the fp32 model's loads
+    # strict
+    got = _port_logits(bf16, sd, x)
+    assert got.dtype == torch.float32
+    model = jdymn.DyMN(jax_config(bf16))
+    want = np.asarray(jax.jit(lambda v: model.apply(v, jnp.asarray(x.transpose(0, 2, 3, 1)),
+                                                    False, 2.0)[0])(
+        jax.tree.map(jnp.asarray, variables)))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=ATOL_DYCONV_EVAL)
+    control = np.abs(_port_logits(cfg, sd, x).numpy() - want).max()
+    assert control > 4 * ATOL_DYCONV_EVAL, control
+
+
+@pytest.mark.parametrize("block", [1, 12])
+def test_dyconv_compute_bf16_block_matches_jax_in_train_mode(block):
+    cfg, sd, variables, _ = _dyconv_eval_setup()
+    bf16 = dataclasses.replace(cfg, **BF16)
+    cnf = cfg.block_table()[0][block]
+    x = np.random.default_rng(block).normal(
+        size=(2, cnf.input_channels, 32, 24)).astype(np.float32)
+
+    def port(c):
+        model = DyMN(c).train()
+        model.load_state_dict(sd, strict=True)
+        with torch.no_grad():
+            return model.layers[block](torch.from_numpy(x), 2.0)
+
+    jc = jax_config(bf16)
+    jblock = jdymn.DYBlock(cnf, jc.width_mult, jc.context_ratio, jc.max_context_size,
+                           jc.min_context_size, jc.dyrelu_k, jc.dyconv_k, jc.no_dyrelu,
+                           jc.no_dyconv, jc.no_ca, jc.pw_form,
+                           dyconv_compute=jc.dyconv_compute)
+    v = {c: jax.tree.map(jnp.asarray, variables[c][f"block{block}"])
+         for c in ("params", "batch_stats")}
+    want = jax.jit(lambda v, xx: jblock.apply(v, xx, True, 2.0, mutable=["batch_stats"])[0])(
+        v, jnp.asarray(x.transpose(0, 2, 3, 1)))
+    want = np.asarray(want).transpose(0, 3, 1, 2)
+    got = port(bf16)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=ATOL_DYCONV_TRAIN)
+    control = np.abs(port(cfg).numpy() - want).max()
+    assert control > 4 * ATOL_DYCONV_TRAIN, control
+
+
+@pytest.mark.parametrize("form", ["shared_out", "shared_in"])
+def test_pw_form_shared_keeps_pointwise_out_of_the_bf16_mix(form):
+    # JAX mixes a shared form's 1x1 in the model's dtype, and only the
+    # depthwise fold in bf16; the control, the per_sample form's bf16 1x1,
+    # must miss four times the bound. Measured: 3e-8 and 6e-8, control
+    # 7.7e-5 (the fp32 model is 9.4e-6 off: the fold's bf16 is the
+    # smaller part, held by the per_sample test above)
+    cfg, sd, variables, x = _dyconv_eval_setup()
+    shared = dataclasses.replace(cfg, pw_form=form, **BF16)
+    model = jdymn.DyMN(jax_config(shared))
+    want = np.asarray(jax.jit(lambda v: model.apply(v, jnp.asarray(x.transpose(0, 2, 3, 1)),
+                                                    False, 2.0)[0])(
+        jax.tree.map(jnp.asarray, variables)))
+    np.testing.assert_allclose(_port_logits(shared, sd, x).numpy(), want, rtol=0,
+                               atol=ATOL_DYCONV_EVAL)
+    control = np.abs(_port_logits(dataclasses.replace(cfg, **BF16), sd, x).numpy()
+                     - want).max()
+    assert control > 4 * ATOL_DYCONV_EVAL, control
+
+
+def _grad_l2(got, want):
+    num = sum(float(((got[n].double() - want[n].double()) ** 2).sum()) for n in got)
+    return (num / sum(float((want[n].double() ** 2).sum()) for n in got)) ** 0.5
+
+
+def test_dyconv_compute_bf16_gradient_matches_jax():
+    cfg, sd, variables, x = _dyconv_eval_setup()
+    r = np.random.default_rng(8).normal(size=(2, cfg.num_classes)).astype(np.float32)
+    bf16 = dataclasses.replace(cfg, **BF16)
+
+    def port_grads(c):
+        model = DyMN(c).eval()
+        model.load_state_dict(sd, strict=True)
+        (model(torch.from_numpy(x), 2.0)[0] * torch.from_numpy(r)).sum().backward()
+        return {n: p.grad for n, p in model.named_parameters()}
+
+    jv = jax.tree.map(jnp.asarray, variables)
+    jmodel = jdymn.DyMN(jax_config(bf16))
+
+    def loss(params):
+        logits = jmodel.apply({"params": params, "batch_stats": jv["batch_stats"]},
+                              jnp.asarray(x.transpose(0, 2, 3, 1)), False, 2.0)[0]
+        return (logits * r).sum()
+
+    # the compiled loss's gradient, as test_dymn_train_step_matches_jax takes it
+    grads = jax.grad(jax.jit(loss))(jv["params"])
+    want = from_flax_dymn({"params": jax.tree.map(np.asarray, grads),
+                           "batch_stats": variables["batch_stats"]}, bf16)
+    got = port_grads(bf16)
+    assert all(g.dtype == torch.float32 and torch.isfinite(g).all()
+               for g in got.values())
+    assert _grad_l2(got, want) <= RTOL_DYCONV_GRAD_L2
+    control = _grad_l2(port_grads(cfg), want)
+    assert control > 4 * RTOL_DYCONV_GRAD_L2, control
+
+
+@pytest.mark.parametrize("option", ["bfloat16", "float32"])
+def test_dyconv_compute_under_autocast_at_its_dtype_changes_nothing(option):
+    # JAX mixes only where the model's dtype is not the mix dtype: under
+    # autocast at bf16 "bfloat16" is the model's own, and in an fp32 model
+    # "float32" is
+    cfg, sd, _, x = _dyconv_eval_setup()
+    with torch.autocast("cpu", dtype=torch.bfloat16, enabled=option == "bfloat16"):
+        plain = _port_logits(cfg, sd, x)
+        got = _port_logits(dataclasses.replace(cfg, dyconv_compute=option), sd, x)
+    assert torch.equal(got, plain)
 
 
 # ----------------------------------------------------------- train steps

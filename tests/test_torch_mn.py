@@ -112,8 +112,8 @@ def test_concurrent_se_matches_flax(se_agg):
                                rtol=0, atol=1e-6)
 
 
-# the JAX DyMNConfig fields of TPU lowerings the port leaves out
-DYMN_UNPORTED = ("pw_form", "layout", "dyconv_compute")
+# the JAX DyMNConfig field of a TPU lowering the port leaves out
+DYMN_UNPORTED = ("layout",)
 
 
 @pytest.mark.parametrize("name", sorted(jreg.REGISTRY))

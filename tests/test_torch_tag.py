@@ -89,6 +89,74 @@ def test_missing_checkpoint_raises(tmp_path):
         Tagger(NAME, model_dir=str(tmp_path), device="cpu")
 
 
+# the release-file digest manifest, <model_dir>/checkpoints.sha256: each
+# case's manifest lines ({digest}: the file's sha256, {wrong}: another) and
+# whether the file loads
+DIGEST_CASES = {
+    "right": (["{digest}  {file}"], True),
+    "upper_case": (["{DIGEST}  {file}"], True),
+    "star_name": (["{digest} *{file}"], True),
+    "unlisted": (["{wrong}  other.pt"], True),
+    "wrong": (["{wrong}  {file}"], False),
+    "last_line_wrong": (["{digest}  {file}", "{wrong}  {file}"], False),
+    "last_line_right": (["{wrong}  {file}", "{digest}  {file}"], True),
+}
+
+
+def _digest_dir(root, case, seed=0):
+    """A model dir holding NAME's seeded file and the case's manifest."""
+    import hashlib
+
+    spec = get_model_config(NAME)
+    root.mkdir(parents=True, exist_ok=True)
+    path = root / spec.file
+    torch.save(make_mn_state_dict(spec.model_cfg, seed=seed), path)
+    digest = hashlib.sha256(path.read_bytes()).hexdigest()
+    wrong = hashlib.sha256(b"another file").hexdigest()
+    lines, loads = DIGEST_CASES[case]
+    (root / "checkpoints.sha256").write_text("".join(
+        line.format(digest=digest, DIGEST=digest.upper(), wrong=wrong,
+                    file=spec.file) + "\n" for line in lines))
+    return str(root), loads
+
+
+@pytest.mark.parametrize("case", list(DIGEST_CASES))
+def test_load_pretrained_checks_the_digest_manifest(tmp_path, case):
+    from efficientat_tpu.models.convert import load_pretrained as jax_load_pretrained
+
+    model_dir, loads = _digest_dir(tmp_path, case)
+    if loads:
+        model = load_pretrained(NAME, model_dir)
+        assert model.classifier[5].out_features == 527
+        return
+    with pytest.raises(ValueError, match=f"^checksum mismatch for {get_model_config(NAME).file}"):
+        load_pretrained(NAME, model_dir)
+    # the JAX loader refuses the same file against the same manifest
+    with pytest.raises(ValueError, match="^checksum mismatch for"):
+        jax_load_pretrained(NAME, model_dir=model_dir)
+
+
+def test_every_loader_reaches_the_digest_check(tmp_path, monkeypatch):
+    # the Tagger, the windowed EATagger and train --pretrained (which reads
+    # resources/ in the working directory)
+    from efficientat_tpu_torch.infer.windowed import EATagger
+    from efficientat_tpu_torch.train.cli import run_train
+
+    model_dir, _ = _digest_dir(tmp_path / "resources", "wrong")
+    for cls in (Tagger, EATagger):
+        with pytest.raises(ValueError, match="^checksum mismatch for"):
+            cls(NAME, model_dir=model_dir, device="cpu")
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(ValueError, match="^checksum mismatch for"):
+        run_train("esc50", ["--pretrained", "--model_name", NAME, "--synthetic", "4",
+                            "--batch_size", "2", "--n_epochs", "1", "--clip_seconds", "1",
+                            "--num_workers", "1", "--device", "cpu",
+                            "--ckpt_dir", str(tmp_path / "ck")])
+    _digest_dir(tmp_path / "resources", "right")
+    assert Tagger(NAME, model_dir=model_dir, device="cpu").predict(
+        np.zeros((1, 32000), np.float32)).shape == (1, 527)
+
+
 # head type -> (registry name, the keys surgery drops); the head-type
 # names of the registry have width 1.0 (mn10_as_fc)
 SURGERY = {
