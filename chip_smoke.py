@@ -7,20 +7,28 @@ Drives the port's main path, single-clip tagging with ``mn10_as`` through
 seeded random weights, in phases that each print a line:
 
 1. device: the card, its power limit, the TF32 flags (off for parity);
-2. build: K1 (``efficientat_tpu_torch/csrc/mel_kernel.cu``) with nvcc, and
-   the ptxas registers and spills of each of its kernels,
-   ``mel_kernel_tc<TILE, PARTS>`` (PARTS 2: bf16x3, 3: fp32);
+2. build: K1 (``efficientat_tpu_torch/csrc/mel_kernel.cu``, which
+   includes ``csrc/mel_wgmma.cuh``) with nvcc, and the ptxas registers and
+   spills of each of its kernels: ``mel_kernel_wgmma<2, false, 3, 128>``
+   (bf16x3 at up to 128 mels, the "wgmma" route) and
+   ``mel_kernel_tc<TILE, PARTS>`` (PARTS 2: bf16x3 at 129-256 mels, 64-frame
+   tiles; 3: fp32);
 3. K1 against its plain PyTorch version and a float64 oracle on the
-   selftest waves, hop 320 and 640, fp32 and bf16x3; and two controls that
-   must miss the kernel-vs-plain bound: K1 bf16x3 on banks rounded to bf16
-   against bf16x3's plain version, and K1 bf16x3 against fp32's;
+   selftest waves, hop 320 and 640, fp32 and bf16x3 (and bf16x3 at 40 and
+   64 mels against the plain version); two controls that must miss the
+   kernel-vs-plain bound: K1 bf16x3 on banks rounded to bf16 against
+   bf16x3's plain version, and K1 bf16x3 against fp32's; the wgmma route's
+   pre-log mel sums on impulse waves against the plain version's fp32 GEMM
+   (a bf16x3 mel product must miss that bound); every bf16x3 call on the
+   wgmma route;
 4. the slice: a B=64 batch of 10 s clips (the demo clip and seeded
    variants) as f32, int16 and mu-law uint8; K1 must have been launched,
    and the card's probs must agree with the CPU's (Taggers with the DFT in
    fp32, which must launch K1 fp32);
 5. times at B=64: K1 against its plain version in both precisions at 128
-   and 256 mels, the model alone, and the whole pipeline in clips/s; the
-   pipeline's device time by kernel group (``torch.profiler``).
+   and 256 mels, the wrapper's row copies, banks tiling and edge patch, the
+   model alone, and the whole pipeline in clips/s; the pipeline's device
+   time by kernel group (``torch.profiler``).
 
 and the training path, ``train audioset`` (KD, mixup, fmin/fmax jitter):
 
@@ -83,7 +91,8 @@ and the rest of serving and exact-length eval, full width, seeded weights:
 18. exact-length eval: 8 clips of 3-10 s through ``bucket_pad_collate`` and
     ``eval_step(..., time_valid=...)`` (K1 fp32), ``mn10_as`` and
     ``dymn10_as``: each row against its clip alone at batch 1 and against
-    the CPU; then ``mn10_as_mels_256`` through the Tagger, K1 counted.
+    the CPU; then ``mn10_as_mels_256`` through the Tagger, K1 counted
+    (``mel_kernel_tc<64, 2>`` and ``<64, 3>``).
 
 and the analysis tools, the profiler and member-parallel ensembles:
 
@@ -92,7 +101,8 @@ and the analysis tools, the profiler and member-parallel ensembles:
     they imply at phases 5 and 11's model-alone times (2 x MACs x B / ms,
     and its share of the fp32 peak), printed, not gated;
 20. ``cli.main(["profile", ...])`` on ``mn10_as``, B=16, 4 traced
-    predicts: the trace file loads and holds exactly 4 K1 kernel events, and
+    predicts: the trace file loads and holds exactly 4 K1 kernel events
+    (``mel_kernel_wgmma``), and
     K1 launched 5 times (the warm-up predict is outside the trace); beside
     it, the K1 events a bare ``torch.profiler.profile`` keeps;
 21. member-parallel serving: two gloo ranks on cuda:0 at data 1 x model 2,
@@ -124,9 +134,10 @@ and member-parallel serving through the Tagger, and DyMN's options:
 
 Then one JSON line on the kernels, per path (tag, train, train_dp,
 tag_fp32, train_fp32, tag_dymn, train_dymn, train_dp_dymn, tag_windowed,
-tag_ensemble2, tag_bf16, eval_variable, profile, tag_member_parallel,
-tag_mesh, train_dymn_dyconv_bf16, probe), the card's ``nvidia-smi`` line
-and, last,
+tag_ensemble2, tag_bf16, eval_variable, tag_mels_256, tag_mels_256_fp32,
+profile, tag_member_parallel, tag_mesh, train_dymn_dyconv_bf16, probe),
+each K1 row naming the kernel its route launched, the card's
+``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 nothing falls back to the CPU.
 """
@@ -301,6 +312,8 @@ PROBE_PLAIN = {mel_probe.variant_mel: mel_probe.variant_mel_plain,
                mel_probe.variant_mel_e: mel_probe.variant_mel_e_plain}
 # the variant of each kernel that stands for it in the kernels line
 PROBE_ROW = {"P1": "folded_t128", "P2": "t128", "P3": "passes3"}
+# the body of the wgmma kernel, K1 bf16x3's at up to 128 mels and P1-P3's
+WGMMA_SOURCE = "efficientat_tpu_torch/csrc/mel_wgmma.cuh"
 # K1's bf16 products by precision: parts i and j with i + j < parts
 DFT_PASSES = {prec: n * (n + 1) // 2 for prec, n in mel_kernel.PARTS.items()}
 # H100 SXM dense peaks (NVIDIA's data sheet): bf16 tensor cores, fp32 CUDA
@@ -356,8 +369,19 @@ def check(ok, what):
 
 
 def reset_k1_launches():
-    """Set K1's launch counts, both precisions, to 0."""
+    """Set K1's launch counts, by precision and by route, to 0."""
     mel_kernel.LAUNCHES.update(dict.fromkeys(mel_kernel.LAUNCHES, 0))
+    mel_kernel.ROUTE_LAUNCHES.update(dict.fromkeys(mel_kernel.ROUTE_LAUNCHES, 0))
+
+
+def k1_wgmma_launches():
+    """K1 bf16x3's launches since ``reset_k1_launches``, each of which must
+    have gone through the wgmma route (``mel_kernel.k1_route`` sends it a
+    bank of at most 128 mels: every path's but phase 18's 256-mel one)."""
+    launches = mel_kernel.ROUTE_LAUNCHES["wgmma"]
+    check(launches == mel_kernel.LAUNCHES["bf16x3"],
+          f"K1 bf16x3 took another route than wgmma: {mel_kernel.ROUTE_LAUNCHES}")
+    return launches
 
 
 def device_profile(fn, calls=3, groups=None):
@@ -612,6 +636,9 @@ def phase_train_k1(device, card):
             waves, cfg, training=True, draws=draws, dft_precision=prec)
         torch.cuda.synchronize()
         launched = mel_kernel.LAUNCHES[prec]
+        route = mel_kernel.k1_route(cfg, prec)
+        check(mel_kernel.ROUTE_LAUNCHES[route] == launched,
+              f"training-mode K1 {prec} did not take route {route}")
         want = apply_masks(mel_kernel.stft_log_mel_plain(waves, banks, cfg, prec),
                            cfg, draws, 0.9)
         err = float((got - want).abs().max())
@@ -622,7 +649,8 @@ def phase_train_k1(device, card):
             fn = (mel_kernel.stft_log_mel_plain if which == "plain"
                   else mel_kernel.stft_log_mel)
             runs[which].append(median_ms(lambda: fn(waves, banks, cfg, prec)))
-        phase("train_k1", precision=prec, batch=TRAIN_BATCH, k1_launches=launched,
+        phase("train_k1", precision=prec, route=route, batch=TRAIN_BATCH,
+              k1_launches=launched,
               max_abs=err, bound=TOL_KERNEL_VS_PLAIN[prec], masked_share=masked,
               kernel_ms=runs["kernel"], plain_ms=runs["plain"], card=repr(card))
         check(launched == 1, "training-mode mel did not launch K1")
@@ -659,7 +687,7 @@ def phase_train(device, name="mn10_as", flags=((), ("--bf16",)), tag="train",
         result = run_train("audioset", argv)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = mel_kernel.LAUNCHES["bf16x3"]
+        launches = k1_wgmma_launches()
         total += launches
         rec = result.history[-1]
         losses = {k: rec[k] for k in ("train_loss", "label_loss",
@@ -756,7 +784,7 @@ def _dp_rank(rank, init, port, work, device):
     reset_k1_launches()
     train = run_train("audioset", argv)
     torch.cuda.synchronize()
-    result["train"] = {"launches": mel_kernel.LAUNCHES["bf16x3"], "steps": train.step,
+    result["train"] = {"launches": k1_wgmma_launches(), "steps": train.step,
                        "train_loss": train.history[-1]["train_loss"]}
     torch.save(result, os.path.join(work, f"rank{rank}.pt"))
 
@@ -881,7 +909,7 @@ def phase_train_times(device, card, name="mn10_as", variants=((False, False), (T
         torch.cuda.reset_peak_memory_stats()
         reset_k1_launches()
         step_ms = median_ms(step, iters=5)
-        launches[bf16, remat] = mel_kernel.LAUNCHES["bf16x3"]
+        launches[bf16, remat] = k1_wgmma_launches()
         check(launches[bf16, remat] == 5 + 2, f"{tag}: K1 did not run once a step")
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         mel_ms = median_ms(mel, iters=5)
@@ -905,8 +933,9 @@ def mel_bound_ms(batch, samples, n_mels, dft, mel="fp32"):
     sets it: the DFT products and the mel product, each as ``dft`` / ``mel``
     bf16 passes at the tensor-core rate (6 for an fp32 split) or "fp32" at
     the CUDA-core rate, against the wave read once and the output written
-    once. K1 runs its mel product on the CUDA cores; the probe kernels run
-    theirs as 6 bf16 passes."""
+    once. The wgmma kernel (K1 bf16x3 at up to 128 mels, the probe) runs
+    its mel product as 6 bf16 passes, mel_kernel_tc on the CUDA cores
+    (``k1_bound_ms``)."""
     frames = batch * ((samples - 1) // 320 + 1)
 
     def seconds(passes, flop):
@@ -916,6 +945,38 @@ def mel_bound_ms(batch, samples, n_mels, dft, mel="fp32"):
              + seconds(mel, frames * 512 * n_mels * 2))
     bytes_s = 4 * (batch * samples + frames * n_mels) / PEAK_BYTES
     return 1e3 * max(ops_s, bytes_s), "operations" if ops_s >= bytes_s else "bytes"
+
+
+def k1_bound_ms(batch, n_mels, prec):
+    """``mel_bound_ms`` of a K1 call on ``batch`` 10 s clips, its mel product
+    priced as the route that ``k1_route`` gives it computes it."""
+    route = mel_kernel.k1_route(MelConfig(n_mels=n_mels), prec)
+    return mel_bound_ms(batch, CLIP, n_mels, DFT_PASSES[prec],
+                        PROBE_MEL_PASSES if route == "wgmma" else "fp32")
+
+
+K1_SOURCE = "efficientat_tpu_torch/csrc/mel_kernel.cu"
+
+
+def serving_ms(rec):
+    """A serving path's K1 call from a ``time_k1`` record: the wgmma route's
+    with the banks tiled beforehand, as the Tagger calls it, else the call."""
+    return statistics.mean(rec["serving_ms"] or rec["kernel_ms"])
+
+
+def k1_row(prec, path, batch, n_mels=128, dp=False, **fields):
+    """A K1 row of the kernels line: ``path`` ran K1 (K1-dp where ``dp``)
+    at ``prec`` on ``batch`` clips a launch and an ``n_mels`` bank, on the
+    kernel ``k1_route`` gives it."""
+    route = mel_kernel.k1_route(MelConfig(n_mels=n_mels), prec)
+    wgmma = route == "wgmma"
+    return {"name": ("mel_kernel_wgmma" if wgmma else "mel_kernel_tc") + ("_dp" if dp else ""),
+            "path": path, "route": "cuda",
+            "source": WGMMA_SOURCE if wgmma else K1_SOURCE,
+            "entry": f"{K1_SOURCE}::eat_mel_log" + ("_wgmma" if wgmma else ""),
+            "kernel": mel_kernel.ROUTE_KERNELS[route],
+            "replaces": "efficientat_tpu/ops/mel_pallas.py:" + ("347" if dp else "109"),
+            "precision": prec, "n_mels": n_mels, "batch": batch, **fields}
 
 
 # how gemm_ms multiplies bf16 operands: set at its first call
@@ -1043,16 +1104,17 @@ def phase_probe(device, card):
     ``gemm_ms``; then ``tools.probe_mel_kernel.run("all", "cuda")``, the
     path's entry point, with the counters set to 0. Returns the kernels
     line's rows for P1, P2 and P3."""
-    # ptxas's registers and spills of each probe_kernel<WG, STAGED, PASSES, KC>
+    # ptxas's registers and spills of each mel_kernel_wgmma<WG, STAGED,
+    # PASSES, KC> the probe's library builds
     regs, entry = {}, "?"
     for ln in _build.BUILD_LOG.get("mel_probe_kernel", "").splitlines():
-        m = re.search(r"probe_kernelILi(\d+)ELb(\d)ELi(\d+)ELi(\d+)E", ln)
+        m = re.search(r"mel_kernel_wgmmaILi(\d+)ELb(\d)ELi(\d+)ELi(\d+)E", ln)
         if m:
             entry = "<%s,%s,%s,%s>" % m.groups()
         elif "registers" in ln or "spill" in ln:
             regs.setdefault(entry, []).append(ln.split(":", 1)[-1].strip())
     phase("probe_build", source="efficientat_tpu_torch/csrc/mel_probe_kernel.cu",
-          arch="sm_90a", ptxas=json.dumps(regs))
+          kernel_source=WGMMA_SOURCE, arch="sm_90a", ptxas=json.dumps(regs))
     # the library's shared-memory plan at every hop, against the wrapper's
     # mirror (which the CPU tests check against every input the wrappers take)
     plans = {}
@@ -1257,7 +1319,7 @@ def phase_dymn_slice(device, card, batch, coded):
     model = tagger.members[0]
     reset_k1_launches()
     probs = {name: tagger.predict(w) for name, w in coded.items()}
-    launches = mel_kernel.LAUNCHES["bf16x3"]
+    launches = k1_wgmma_launches()
     phase("dymn_slice", model=DYMN, batch=BATCH, seconds=CLIP // SR,
           temperature=model.cfg.t_max, k1_launches=launches)
     check(launches >= len(coded), "the DyMN path did not launch K1")
@@ -1356,7 +1418,7 @@ def _dymn_dp_rank(rank, port, work, device):
     reset_k1_launches()
     train = run_train("audioset", argv)
     torch.cuda.synchronize()
-    torch.save({"launches": mel_kernel.LAUNCHES["bf16x3"], "steps": train.step,
+    torch.save({"launches": k1_wgmma_launches(), "steps": train.step,
                 "train_loss": train.history[-1]["train_loss"],
                 "global_bn": sum(type(m).__name__ == "GlobalBatchNorm2d"
                                  for m in train.model.modules())},
@@ -1501,7 +1563,7 @@ def phase_windowed(device, card):
         labels = len(tagger.labels)
         reset_k1_launches()
         rows = tagger.tag_audio_window(path, WINDOW_SECONDS, WINDOW_HOP)
-        launches = mel_kernel.LAUNCHES["bf16x3"]
+        launches = k1_wgmma_launches()
         total += launches
         whole = all_probs(tagger.tag_audio_window(path, WINDOW_SECONDS, WINDOW_HOP,
                                                   top_k=labels))
@@ -1568,7 +1630,7 @@ def phase_ensemble2(device, card, batch):
     tagger = Tagger(list(ENSEMBLE2), pretrained=False, device=device, seed=0)
     reset_k1_launches()
     probs, logits = member_logits(tagger, waves)
-    launches = mel_kernel.LAUNCHES["bf16x3"]
+    launches = k1_wgmma_launches()
     singles = [member_logits(Tagger(name, pretrained=False, device=device, seed=i),
                              waves)[1][0] for i, name in enumerate(ENSEMBLE2)]
     member_gap = max(float((a - b).abs().max()) for a, b in zip(logits, singles))
@@ -1619,7 +1681,7 @@ def phase_tag_bf16(device, card, batch):
         fp32 = Tagger(name, model_dir=model_dir, device=device)
         reset_k1_launches()
         got = bf16.predict(waves)
-        launches = mel_kernel.LAUNCHES["bf16x3"]
+        launches = k1_wgmma_launches()
         total += launches
         gap = float(np.abs(got - fp32.predict(waves)).max())
         runs = {"fp32": [], "bf16": []}
@@ -1672,7 +1734,7 @@ def phase_train_surgery(device):
         seconds = time.perf_counter() - t0
     finally:
         os.chdir(cwd)
-    launches = mel_kernel.LAUNCHES["bf16x3"]
+    launches = k1_wgmma_launches()
     rec = result.history[-1]
     phase("train_surgery", task="esc50", model=SURGERY_MODEL, file_classes=527,
           head=head, tensors_from_file=len(kept), all_equal=equal, steps=result.step,
@@ -1792,14 +1854,14 @@ def phase_profile(device, card):
                    str(PROFILE_BATCH), "--iters", str(PROFILE_ITERS),
                    "--log_dir", log_dir])
     seconds = time.perf_counter() - t0
-    launches = mel_kernel.LAUNCHES["bf16x3"]
+    launches = k1_wgmma_launches()
     files = [f for f in os.listdir(log_dir) if f.endswith(".pt.trace.json")]
     check(len(files) == 1, f"the profile wrote {files}")
     path = os.path.join(log_dir, files[0])
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     kernels = [e for e in events if e.get("cat") == "kernel"]
-    k1 = [e for e in kernels if "mel_kernel_tc" in e.get("name", "")]
+    k1 = [e for e in kernels if "mel_kernel_wgmma" in e.get("name", "")]
     # the same predicts under a bare torch.profiler.profile, without the
     # trace's warm-up step: the K1 events it keeps, printed, not gated
     tagger = Tagger("mn10_as", pretrained=False, device=device)
@@ -1812,7 +1874,7 @@ def phase_profile(device, card):
             tagger.predict(waves)
     prof.export_chrome_trace(bare)
     with open(bare) as f:
-        bare_k1 = sum(e.get("cat") == "kernel" and "mel_kernel_tc" in e.get("name", "")
+        bare_k1 = sum(e.get("cat") == "kernel" and "mel_kernel_wgmma" in e.get("name", "")
                       for e in json.load(f)["traceEvents"])
     del tagger
     phase("profile", model="mn10_as", batch=PROFILE_BATCH, iters=PROFILE_ITERS,
@@ -1871,7 +1933,7 @@ def _mp_rank(rank, init, work, device):
         reset_k1_launches()
         out = serve()
         torch.cuda.synchronize()
-        launches = mel_kernel.LAUNCHES["bf16x3"]
+        launches = k1_wgmma_launches()
         dist.barrier()
         ms = median_ms(serve)
         torch.save({"out": out.cpu(), "launches": launches, "ms": ms,
@@ -2043,7 +2105,7 @@ def _mesh_layout(layout, device):
         reset_k1_launches()
         probs = {c: tagger.predict(w) for c, w in coded.items()}
         torch.cuda.synchronize()
-        result[case] = {"probs": probs, "launches": mel_kernel.LAUNCHES["bf16x3"],
+        result[case] = {"probs": probs, "launches": k1_wgmma_launches(),
                         "k1_dp_rows": list(rows), "memory": memory,
                         "stacked": tagger._stacked is not None,
                         "members_here": (next(iter(tagger._stacked.values())).shape[0]
@@ -2062,13 +2124,16 @@ def _mesh_layout(layout, device):
         local = local.to(device)
         banks = kaldi_mel_banks(cfg.n_mels, cfg.n_fft, cfg.sr, cfg.fmin,
                                 cfg.effective_fmax, device=device)
-        err = float((sharded(local, banks, cfg, "bf16x3")
+        # the serving call: the Tagger's banks, tiled once
+        tiled = mel_kernel.tiled_serving_banks(cfg, device)
+        err = float((sharded(local, banks, cfg, "bf16x3", tiled_banks=tiled)
                      - mel_kernel.stft_log_mel_plain(local, banks, cfg, "bf16x3"))
                     .abs().max())
+        calls = {"plain": lambda: mel_kernel.stft_log_mel_plain(local, banks, cfg, "bf16x3"),
+                 "kernel": lambda: sharded(local, banks, cfg, "bf16x3", tiled_banks=tiled)}
         runs = {"plain": [], "kernel": []}
         for which in ("plain", "kernel", "kernel", "plain"):
-            fn = mel_kernel.stft_log_mel_plain if which == "plain" else sharded
-            runs[which].append(median_ms(lambda: fn(local, banks, cfg, "bf16x3")))
+            runs[which].append(median_ms(calls[which]))
         result["k1_dp"] = {"rows": local.shape[0], "max_abs_err": err,
                            "ms": statistics.mean(runs["kernel"]),
                            "plain_ms": statistics.mean(runs["plain"])}
@@ -2376,22 +2441,37 @@ def main():
     # 2. build: every kernel source at once, one nvcc each
     t0 = time.perf_counter()
     _build.load_libraries(["mel_kernel", "mel_probe_kernel"])
-    regs = []  # each kernel's name, then its spill and register lines
+    regs, built = [], []  # each kernel's name, then its spill and register lines
     for ln in _build.BUILD_LOG.get("mel_kernel", "").splitlines():
-        kernel = re.search(r"mel_kernel_tcILi(\d+)ELi(\d+)E", ln)
-        if "Compiling entry function" in ln and kernel:
-            regs.append(f"mel_kernel_tc<{kernel[1]},{kernel[2]}>")
+        tc = re.search(r"mel_kernel_tcILi(\d+)ELi(\d+)E", ln)
+        wg = re.search(r"mel_kernel_wgmmaILi(\d+)ELb(\d)ELi(\d+)ELi(\d+)E", ln)
+        if "Compiling entry function" in ln and (tc or wg):
+            built.append(f"mel_kernel_tc<{tc[1]},{tc[2]}>" if tc
+                         else "mel_kernel_wgmma<%s,%s,%s,%s>" % wg.groups())
+            regs.append(built[-1])
         elif "registers" in ln or "spill" in ln:
             regs.append(ln.split(":", 1)[-1].strip())
     phase("build", source="efficientat_tpu_torch/csrc/mel_kernel.cu",
-          arch="sm_90a", seconds=f"{time.perf_counter() - t0:.2f}",
-          ptxas=repr(regs))
+          headers=WGMMA_SOURCE, arch="sm_90a",
+          seconds=f"{time.perf_counter() - t0:.2f}",
+          ptxas=repr(regs) if "mel_kernel" in _build.BUILD_LOG
+          else "none: another process built the library")
+    # what nvcc compiled, where this process built the library: the wgmma
+    # kernel and mel_kernel_tc's three instantiations, no <128, 2>
+    check("mel_kernel" not in _build.BUILD_LOG or sorted(built) == [
+        "mel_kernel_tc<128,3>", "mel_kernel_tc<64,2>", "mel_kernel_tc<64,3>",
+        "mel_kernel_wgmma<2,0,3,128>"], f"K1's library built {built}")
 
     lap("2 build")
 
-    # 3. K1 against its plain version and the float64 oracle
+    # 3. K1 against its plain version and the float64 oracle; K1 bf16x3 at
+    # 128, 40 and 64 mels is the wgmma route, whose mel product must hold
+    # fp32's precision (the pre-log sums on impulse waves, TOL_PROBE_MEL_SUMS)
     waves = selftest_waves()
     wd = torch.from_numpy(waves).to(device)
+    imp = torch.from_numpy(impulse_waves()).to(device)
+    reset_k1_launches()
+    wgmma_calls = 0
     for hop in (320, 640):
         cfg = MelConfig(hopsize=hop)
         banks = kaldi_mel_banks(cfg.n_mels, cfg.n_fft, cfg.sr, cfg.fmin,
@@ -2409,7 +2489,8 @@ def main():
             p = mel_kernel.stft_log_mel_plain(wd, banks, cfg, prec)
             dev_plain = float((k - p).abs().max())
             dev_oracle = float(np.abs(k.cpu().numpy() - oracle).max())
-            phase("k1_selftest", hop=hop, precision=prec, shape=tuple(k.shape),
+            phase("k1_selftest", hop=hop, precision=prec, n_mels=cfg.n_mels,
+                  route=mel_kernel.k1_route(cfg, prec), shape=tuple(k.shape),
                   vs_plain=dev_plain, bound_plain=TOL_KERNEL_VS_PLAIN[prec],
                   vs_oracle=dev_oracle, bound_oracle=TOL_VS_ORACLE[prec])
             check(dev_plain <= TOL_KERNEL_VS_PLAIN[prec], f"K1 {prec} vs plain")
@@ -2431,6 +2512,36 @@ def main():
         check(control > TOL_KERNEL_VS_PLAIN["fp32"],
               f"K1 bf16x3 passes K1 fp32's kernel bound: {control}")
         del k1
+        wgmma_calls += 2
+        for n_mels in (40, 64):
+            narrow = MelConfig(hopsize=hop, n_mels=n_mels)
+            nb = kaldi_mel_banks(n_mels, narrow.n_fft, narrow.sr, narrow.fmin,
+                                 narrow.effective_fmax, device=device)
+            dev_plain = float((mel_kernel.stft_log_mel(wd, nb, narrow, "bf16x3")
+                               - mel_kernel.stft_log_mel_plain(wd, nb, narrow, "bf16x3"))
+                              .abs().max())
+            wgmma_calls += 1
+            phase("k1_selftest", hop=hop, precision="bf16x3", n_mels=n_mels,
+                  route=mel_kernel.k1_route(narrow, "bf16x3"), vs_plain=dev_plain,
+                  bound_plain=TOL_KERNEL_VS_PLAIN["bf16x3"])
+            check(dev_plain <= TOL_KERNEL_VS_PLAIN["bf16x3"],
+                  f"K1 bf16x3 vs plain at {n_mels} mels, hop {hop}")
+        want = mel_kernel.stft_log_mel_plain(imp, banks, cfg, "bf16x3")
+        gap = mel_sum_gap(mel_kernel.stft_log_mel(imp, banks, cfg, "bf16x3"), want)
+        wgmma_calls += 1
+        control = mel_sum_gap(split_mel_plain(imp, banks, cfg, 2), want)
+        phase("k1_mel_sums", hop=hop, route="wgmma", gap=gap,
+              bf16x3_mel_product_control=control, bound=TOL_PROBE_MEL_SUMS,
+              floor=MEL_SUM_FLOOR)
+        check(control > TOL_PROBE_MEL_SUMS,
+              f"a bf16x3 mel product passes the mel-sum bound: {control}")
+        check(gap <= TOL_PROBE_MEL_SUMS,
+              f"K1 bf16x3's mel product is below fp32's precision: {gap}")
+    phase("k1_routes", launches=json.dumps(mel_kernel.ROUTE_LAUNCHES))
+    check(k1_wgmma_launches() == wgmma_calls,
+          f"phase 3's bf16x3 calls did not all launch the wgmma route: "
+          f"{mel_kernel.ROUTE_LAUNCHES}")
+    del imp
 
     lap("3 K1 selftest")
 
@@ -2441,7 +2552,7 @@ def main():
     tagger = Tagger("mn10_as", pretrained=False, device=device, seed=0)
     reset_k1_launches()
     probs = {name: tagger.predict(w) for name, w in coded.items()}
-    launches = mel_kernel.LAUNCHES["bf16x3"]
+    launches = k1_wgmma_launches()
     phase("slice", model="mn10_as", batch=BATCH, seconds=CLIP // SR,
           k1_launches=launches)
     check(launches >= len(coded), "the main path did not launch K1")
@@ -2481,8 +2592,9 @@ def main():
           labels=json.dumps([(lab, round(p, 4)) for lab, p in top5]))
 
     # 5. K1 against its plain version in turns at B=64 of 10 s clips
-    # (tools.time_k1): the tagger's 128 mels (128-frame blocks) and 256
-    # (64-frame blocks, the widest bank of one launch)
+    # (tools.time_k1): the tagger's 128 mels (bf16x3 on the wgmma route,
+    # fp32 on mel_kernel_tc's 128-frame blocks) and 256 (mel_kernel_tc's
+    # 64-frame blocks, the widest bank of one launch)
     cfg = tagger.mel_cfg
     times = {}
     for n_mels in (cfg.n_mels, 2 * cfg.n_mels):
@@ -2490,19 +2602,23 @@ def main():
             rec = time_k1.time_k1(BATCH, n_mels, prec, turns=1)
             check(rec["max_abs"] <= TOL_KERNEL_VS_PLAIN[prec],
                   f"K1 {prec} vs plain at B={BATCH}, {n_mels} mels")
-            times[prec, n_mels] = (statistics.mean(rec["kernel_ms"]),
+            times[prec, n_mels] = (serving_ms(rec),
                                    statistics.mean(rec["plain_ms"]), rec["max_abs"])
             phase("k1_time", **rec, card=repr(card),
-                  bound_ms=mel_bound_ms(BATCH, CLIP, n_mels, DFT_PASSES[prec])[0])
+                  bound_ms=k1_bound_ms(BATCH, n_mels, prec)[0])
     banks = kaldi_mel_banks(cfg.n_mels, cfg.n_fft, cfg.sr, cfg.fmin,
                             cfg.effective_fmax, device=device)
     xb = torch.from_numpy(batch).to(device)
-    # the parts of a K1 bf16x3 call around the kernel: the copy of the wave
-    # into the kernel's rows, and the reflect-pad edge frames' patch
+    # the parts of a K1 call around the kernel: the copy of the wave into
+    # the kernel's rows (the wgmma route's block rows; mel_kernel_tc's), the
+    # tiling of the banks (a training call's; the Tagger's are tiled once),
+    # and the reflect-pad edge frames' patch
     n_frames = cfg.num_frames(CLIP)
     out = torch.empty((BATCH, cfg.n_mels, n_frames), device=device)
     phase("k1_wrapper", batch=BATCH,
+          block_rows_ms=median_ms(lambda: mel_kernel._block_rows(xb, cfg, n_frames)),
           frame_rows_ms=median_ms(lambda: mel_kernel._frame_rows(xb, cfg, n_frames)),
+          tile_banks_ms=median_ms(lambda: mel_kernel._tiled_banks(banks, cfg.n_fft)),
           patch_edges_ms=median_ms(lambda: mel_kernel._patch_edges(out, xb, banks, cfg)),
           card=repr(card))
     with torch.inference_mode():
@@ -2516,17 +2632,8 @@ def main():
           **device_profile(lambda: tagger.predict(batch)), card=repr(card))
 
     k_ms, plain_ms, err = times["bf16x3", cfg.n_mels]
-    kernels = [{
-        "name": "mel_kernel",
-        "path": "tag",
-        "route": "cuda",
-        "source": "efficientat_tpu_torch/csrc/mel_kernel.cu",
-        "replaces": "efficientat_tpu/ops/mel_pallas.py:109",
-        "launches": launches,
-        "max_abs_err": err,
-        "ms": k_ms,
-        "plain_ms": plain_ms,
-    }]
+    kernels = [k1_row("bf16x3", "tag", BATCH, launches=launches, max_abs_err=err,
+                      ms=k_ms, plain_ms=plain_ms)]
     del tagger, pairs, xb, mel, out
     torch.cuda.empty_cache()
 
@@ -2537,18 +2644,17 @@ def main():
     train_launches, step_fp32_launches = phase_train(device)
     dp = phase_train_dp(device)
     phase_train_times(device, card)
-    kernels.append({**kernels[0], "path": "train",
-                    **k1_train["bf16x3"], "launches": train_launches})
-    kernels.append({**kernels[0], "name": "mel_kernel_dp", "path": "train_dp",
-                    "replaces": "efficientat_tpu/ops/mel_pallas.py:347", **dp})
+    kernels.append(k1_row("bf16x3", "train", TRAIN_BATCH,
+                          **{**k1_train["bf16x3"], "launches": train_launches}))
+    kernels.append(k1_row("bf16x3", "train_dp", DP_MEL_BATCH // DP_WORLD, dp=True, **dp))
     # K1 fp32 on the tag path: the card-vs-CPU Taggers' launches, phase 5's
     # times at B=64; on the train path: the card's train step's launch,
     # phase 6's times at B=120
     k_ms, plain_ms, err = times["fp32", cfg.n_mels]
-    kernels.append({**kernels[0], "path": "tag_fp32", "launches": slice_fp32_launches,
-                    "max_abs_err": err, "ms": k_ms, "plain_ms": plain_ms})
-    kernels.append({**kernels[0], "path": "train_fp32", **k1_train["fp32"],
-                    "launches": step_fp32_launches})
+    kernels.append(k1_row("fp32", "tag_fp32", BATCH, launches=slice_fp32_launches,
+                          max_abs_err=err, ms=k_ms, plain_ms=plain_ms))
+    kernels.append(k1_row("fp32", "train_fp32", TRAIN_BATCH,
+                          **{**k1_train["fp32"], "launches": step_fp32_launches}))
 
     lap("6-9 train")
 
@@ -2570,11 +2676,10 @@ def main():
                       tag="dymn_train")
     dymn_dp_launches = phase_dymn_train_dp(device)
     kernels.append({**kernels[0], "path": "tag_dymn", "launches": dymn_tag_launches})
-    kernels.append({**kernels[0], "path": "train_dymn", **k1_train["bf16x3"],
-                    "launches": dymn_train_launches})
-    kernels.append({**kernels[0], "name": "mel_kernel_dp", "path": "train_dp_dymn",
-                    "replaces": "efficientat_tpu/ops/mel_pallas.py:347", **dp,
-                    "launches": dymn_dp_launches})
+    kernels.append(k1_row("bf16x3", "train_dymn", TRAIN_BATCH,
+                          **{**k1_train["bf16x3"], "launches": dymn_train_launches}))
+    kernels.append(k1_row("bf16x3", "train_dp_dymn", DP_MEL_BATCH // DP_WORLD, dp=True,
+                          **{**dp, "launches": dymn_dp_launches}))
 
     lap("11-13 dymn")
 
@@ -2598,24 +2703,34 @@ def main():
                 phase("k1_time", **rec, card=repr(card))
                 k1_at[rows_a_launch, prec] = rec
             rec = k1_at[rows_a_launch, prec]
-            kernels.append({**kernels[0], "path": path, "launches": path_launches,
-                            "max_abs_err": rec["max_abs"],
-                            "ms": statistics.mean(rec["kernel_ms"]),
-                            "plain_ms": statistics.mean(rec["plain_ms"])})
+            kernels.append(k1_row(prec, path, rows_a_launch, launches=path_launches,
+                                  max_abs_err=rec["max_abs"], ms=serving_ms(rec),
+                                  plain_ms=statistics.mean(rec["plain_ms"])))
 
     add_k1_rows(new_paths)
 
     phase_train_surgery(device)  # K1 in training mode: its launches on its line
 
-    # a 256-mel registry model through the Tagger: one launch a predict
+    # a 256-mel registry model through the Tagger: one launch a predict, on
+    # mel_kernel_tc<64, 2> (bf16x3) and mel_kernel_tc<64, 3> (fp32); its rows
+    # take phase 5's times at 256 mels
     mels_256 = {}
     for prec in ("bf16x3", "fp32"):
         tagger = Tagger("mn10_as_mels_256", pretrained=False, device=device,
                         dft_precision=prec)
         reset_k1_launches()
         probs = tagger.predict(batch)
-        mels_256[prec] = mel_kernel.LAUNCHES[prec]
+        route = mel_kernel.k1_route(tagger.mel_cfg, prec)
+        mels_256[prec] = mel_kernel.ROUTE_LAUNCHES[route]
+        check(route.startswith("tc_") and mel_kernel.LAUNCHES[prec] == mels_256[prec],
+              f"the 256-mel Tagger's K1 {prec} took route {route}: "
+              f"{mel_kernel.ROUTE_LAUNCHES}")
         check(bool(np.isfinite(probs).all()), "mn10_as_mels_256 probs")
+        k_ms, plain_ms, err = times[prec, tagger.mel_cfg.n_mels]
+        kernels.append(k1_row(prec, "tag_mels_256" + ("_fp32" if prec == "fp32" else ""),
+                              BATCH, n_mels=tagger.mel_cfg.n_mels,
+                              launches=mels_256[prec], max_abs_err=err, ms=k_ms,
+                              plain_ms=plain_ms))
     phase("tag_mels_256", model="mn10_as_mels_256", batch=BATCH,
           k1_launches=json.dumps(mels_256))
     check(all(n == 1 for n in mels_256.values()),
@@ -2635,7 +2750,6 @@ def main():
         "tag_member_parallel": (phase_member_parallel(device, card), MP_BATCH, "bf16x3"),
     }
     add_k1_rows(more_paths)
-    new_paths.update(more_paths)
 
     lap("19-21 tools and member-parallel")
 
@@ -2643,41 +2757,41 @@ def main():
     # timed on rank 0 of data 2 x model 2) and DyMN's options (K1 training
     # mode at every step of the dyconv step: phase 6's times at B=120)
     mesh_launches, k1_dp = phase_tag_mesh(device, card)
-    kernels.append({**kernels[0], "name": "mel_kernel_dp", "path": "tag_mesh",
-                    "replaces": "efficientat_tpu/ops/mel_pallas.py:347",
-                    "launches": sum(sum(n) for n in mesh_launches.values()),
-                    "launches_a_rank": mesh_launches,
-                    "max_abs_err": k1_dp["max_abs_err"], "ms": k1_dp["ms"],
-                    "plain_ms": k1_dp["plain_ms"]})
+    kernels.append(k1_row("bf16x3", "tag_mesh", k1_dp["rows"], dp=True,
+                          launches=sum(sum(n) for n in mesh_launches.values()),
+                          launches_a_rank=mesh_launches,
+                          max_abs_err=k1_dp["max_abs_err"], ms=k1_dp["ms"],
+                          plain_ms=k1_dp["plain_ms"]))
     lap("22 tag_mesh")
-    kernels.append({**kernels[0], "path": "train_dymn_dyconv_bf16", **k1_train["bf16x3"],
-                    "launches": phase_dymn_options(device, card)})
+    kernels.append(k1_row("bf16x3", "train_dymn_dyconv_bf16", TRAIN_BATCH,
+                          **{**k1_train["bf16x3"],
+                             "launches": phase_dymn_options(device, card)}))
     lap("23 dymn options")
 
-    # each K1 row's bound and cuBLAS yardstick, at the clips a launch and
-    # the precision of its times
-    cfg = MelConfig()
-    sizes = {"tag": (BATCH, "bf16x3"), "train": (TRAIN_BATCH, "bf16x3"),
-             "train_dp": (DP_MEL_BATCH // DP_WORLD, "bf16x3"),
-             "tag_fp32": (BATCH, "fp32"), "train_fp32": (TRAIN_BATCH, "fp32")}
-    sizes.update(tag_dymn=sizes["tag"], train_dymn=sizes["train"],
-                 train_dp_dymn=sizes["train_dp"])
-    sizes.update({path: (rows, prec) for path, (_, rows, prec) in new_paths.items()})
-    sizes.update(tag_mesh=(k1_dp["rows"], "bf16x3"), train_dymn_dyconv_bf16=sizes["train"])
+    # each K1 row's bound (its mel product priced as its route computes it)
+    # and cuBLAS yardstick, at the clips a launch and the precision of its
+    # times
+    yardsticks = {}
     for row in kernels:
-        batch_rows, prec = sizes[row["path"]]
-        passes = DFT_PASSES[prec]
-        bound, bound_by = mel_bound_ms(batch_rows, CLIP, cfg.n_mels, passes)
+        passes = DFT_PASSES[row["precision"]]
+        bound, bound_by = k1_bound_ms(row["batch"], row["n_mels"], row["precision"])
+        if (row["batch"], passes) not in yardsticks:
+            yardsticks[row["batch"], passes] = gemm_ms(device, row["batch"], passes)
         row.update(bound_ms=bound, bound_by=bound_by, library_ms=None,
-                   gemm_ms=gemm_ms(device, batch_rows, passes))
+                   gemm_ms=yardsticks[row["batch"], passes])
     rows = {row["path"]: row for row in kernels}
     phase("k1_gemm", batch=BATCH, fp32_sgemm_ms=gemm_ms(device, BATCH, "fp32"),
           fp32_cuda_core_bound_ms=mel_bound_ms(BATCH, CLIP, cfg.n_mels, "fp32")[0],
           fp32_6pass_gemm_ms=rows["tag_fp32"]["gemm_ms"],
           fp32_6pass_bound_ms=rows["tag_fp32"]["bound_ms"],
           bf16x3_gemm_ms=rows["tag"]["gemm_ms"],
-          bf16x3_bound_ms=rows["tag"]["bound_ms"], gemm_kind=GEMM_KIND[0],
-          card=repr(card))
+          bf16x3_bound_ms=rows["tag"]["bound_ms"],
+          bf16x3_cuda_core_mel_bound_ms=mel_bound_ms(BATCH, CLIP, cfg.n_mels,
+                                                     DFT_PASSES["bf16x3"])[0],
+          gemm_kind=GEMM_KIND[0], card=repr(card))
+    check(all(row["name"].startswith("mel_kernel_wgmma") and row["launches"] >= 1
+              for row in kernels if row["precision"] == "bf16x3" and row["n_mels"] <= 128),
+          "a bf16x3 path at up to 128 mels did not launch the wgmma route")
 
     lap("bounds and yardsticks")
     kernels.extend(probe_rows)

@@ -11,9 +11,18 @@
 // The few frames whose window reaches the reflect pad are recomputed exactly
 // by the Python wrapper (ops/mel_kernel.py), as the JAX package does.
 //
-// Both precisions of the wrapper's dft_precision run the DFT on the tensor
-// cores as products of bf16 parts summed in fp32, one kernel,
-// mel_kernel_tc<TILE, PARTS>. The basis comes split into PARTS bf16 parts
+// Two kernels, chosen by the wrapper from its arguments
+// (ops/mel_kernel.py::k1_route):
+//   bf16x3 (the serving and training default) at n_mels <= 128:
+//     eat_mel_log_wgmma, the Hopper design of csrc/mel_wgmma.cuh
+//     (mel_kernel_wgmma<2, false, 3, 128>: wgmma DFT, the basis through a
+//     bulk-copy ring, the mel product on the tensor cores at fp32's
+//     precision); that header describes it;
+//   fp32, and bf16x3 at 129-256 mels: eat_mel_log, mel_kernel_tc<TILE,
+//     PARTS> below, whose mel product is fp32 FMAs on the CUDA cores.
+//
+// mel_kernel_tc runs the DFT on the tensor cores as products of bf16 parts
+// summed in fp32. The basis comes split into PARTS bf16 parts
 // from the host (part 0 = bf16(b), part p = the bf16 of what parts 0 .. p-1
 // leave), transposed to (columns, samples); each frame sample is split the
 // same way here. The products of frame part i and basis part j with
@@ -28,10 +37,10 @@
 //     hi*lo + mid*mid + lo*hi) (three bf16 parts carry fp32's 24
 //     significand bits; the products dropped are of order 2^-24 of the main
 //     one, or less).
-// The mel product is fp32 FMAs on the CUDA cores in both (the JAX body uses
+// The mel product is fp32 FMAs on the CUDA cores (the JAX body uses
 // HIGHEST for it, mel_pallas.py:197-198).
 //
-// What bounds it: the DFT products, 2 * 1024 * 1024 FLOP a frame and a pass,
+// What bounds mel_kernel_tc: the DFT products, 2 * 1024 * 1024 FLOP a frame and a pass,
 // about 2.1 GFLOP for a 10 s clip at hop 320 (1000 frames), 3 or 6 passes at
 // the tensor cores' bf16 rate; the fp32 mel product adds 512 * n_mels * 2
 // FLOP a frame at the CUDA cores' rate. The bytes (the wave, a 0.5 MB output
@@ -44,8 +53,8 @@
 // 512-sample zero pad, frame i at x[hop * i], 16-byte aligned.
 // A block of 8 warps owns a tile of TILE frames and walks the 512 bins in
 // chunks of 32 (32 cos + the 32 matching sin columns, 8 n-tiles of 8).
-// TILE is 128 for n_mels <= 128 (a warp: 16 frames x the chunk's 8
-// n-tiles) and 64 for n_mels <= 256 (a warp: 16 frames x 2 cos + 2 sin
+// TILE is 128 for fp32 at n_mels <= 128 (a warp: 16 frames x the chunk's 8
+// n-tiles) and 64 otherwise, up to 256 mels (a warp: 16 frames x 2 cos + 2 sin
 // n-tiles, two warps a chunk), so the fp32 mel accumulators, which stay in
 // registers for the whole tile, are 64 a thread either way. A wider bank is
 // computed in launches of at most 256 mels, each writing its rows of the
@@ -59,8 +68,7 @@
 // their A fragments as 16-byte loads of 8 consecutive samples of their frame
 // rows, straight from device memory (L1): the reduction runs over a
 // permutation of the samples that is the same for both operands, so the
-// fragments need no shuffle (the layout of the probe kernel P1,
-// csrc/mel_probe_kernel.cu). The power of a chunk goes through a padded
+// fragments need no shuffle (the layout of csrc/mel_wgmma.cuh). The power of a chunk goes through a padded
 // shared tile into the mel accumulators, fp32 FMAs on the CUDA cores, a few
 // rows at each stage of the next chunk, so that they run beside the tensor
 // cores' products rather than behind a barrier; the power tile and the
@@ -70,6 +78,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mel_wgmma.cuh"
 
 namespace {
 
@@ -375,14 +385,19 @@ cudaError_t launch(const float* x, int B, int row_len, int hop, int n_frames, Ba
   return cudaGetLastError();
 }
 
-// frames a block: 128 x 128 or 64 x 256 mel accumulators, 64 a thread
+// frames a block: 128 x 128 or 64 x 256 mel accumulators, 64 a thread.
+// bf16x3 takes 64-frame blocks at any width: at <= 128 mels the wrapper
+// launches eat_mel_log_wgmma, and this kernel sees only the narrow last
+// group of a bank wider than 256 mels
 template <int PARTS>
 cudaError_t launch_parts(const float* x, int B, int row_len, int hop, int n_frames,
                          Basis basis, const float* banks_t, int n_mels, float* out,
                          int out_mels, cudaStream_t stream) {
-  if (n_mels <= 128)
-    return launch<128, PARTS>(x, B, row_len, hop, n_frames, basis, banks_t, n_mels, out,
-                              out_mels, stream);
+  if constexpr (PARTS == 3) {
+    if (n_mels <= 128)
+      return launch<128, 3>(x, B, row_len, hop, n_frames, basis, banks_t, n_mels, out,
+                            out_mels, stream);
+  }
   return launch<64, PARTS>(x, B, row_len, hop, n_frames, basis, banks_t, n_mels, out,
                            out_mels, stream);
 }
@@ -417,6 +432,21 @@ extern "C" int eat_mel_log(const float* rows, int B, int S, int hop, int n_frame
     return (int)launch_parts<3>(rows, B, S, hop, n_frames, basis, banks_t, n_mels, out,
                                 out_mels, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// bf16x3 at n_mels <= 128 on mel_kernel_wgmma<2, false, 3, 128>, one
+// 128-frame sub-tile a block: rows (B, S) f32 as ops/mel_kernel.py::
+// _block_rows makes them (the raw wave behind a 512-sample zero pad, frame i
+// at rows[:, hop * i], S a multiple of 4 holding every frame of the last
+// 128-frame block, hop a multiple of 64); bhi, blo the folded basis's bf16
+// parts tiled by _tiled_basis; mel banks^T in three bf16 parts tiled by
+// _tiled_banks; out (B, n_mels, n_frames) f32. B <= 65535. All contiguous on
+// the device. Returns the launch's cudaError_t (0 = success).
+extern "C" int eat_mel_log_wgmma(const float* rows, int B, int S, int hop, int n_frames,
+                                 const void* bhi, const void* blo, const void* mel,
+                                 int n_mels, float* out, void* stream) {
+  return (int)mel_wgmma::launch<false, 3>(rows, B, S, hop, n_frames, 128, bhi, blo, mel,
+                                          n_mels, out, stream);
 }
 
 extern "C" const char* eat_error_string(int err) {

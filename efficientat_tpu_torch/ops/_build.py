@@ -3,8 +3,9 @@
 Each ``csrc/*.cu`` file has a plain ``extern "C"`` interface and is compiled
 by ``nvcc`` into its own shared library, loaded with ``ctypes``: no PyTorch
 headers, so a build takes seconds. Libraries go to ``build/efficientat_tpu_torch/``
-beside the package and are named by a hash of the source and the flags, so a
-changed source rebuilds. Nothing here runs at import time.
+beside the package and are named by a hash of the source, every header of
+``csrc/`` (``*.cuh``, which a source may include) and the flags, so a changed
+source or header rebuilds. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -37,8 +38,10 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 

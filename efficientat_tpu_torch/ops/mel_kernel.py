@@ -6,11 +6,24 @@ Nyquist bin) -> power -> x banks^T -> ``(log(x + 1e-5) + 4.5) / 5``, written
 as (B, n_mels, n_frames). The frames whose window reaches the reflect pad (at
 most 4 a clip) are recomputed here in plain PyTorch with the exact reference
 math and patched in, as the JAX wrapper does. K1 runs the DFT on the
-tensor cores as products of bf16 parts: it takes the basis's bf16 parts
-transposed to (columns, samples) (``_folded_basis_t``), two for ``"bf16x3"``
-(the JAX package's 3-pass split) and three for ``"fp32"`` (the 6-pass split
-the TPU runs for ``Precision.HIGHEST``), and reads its frames from rows made
-here (``_frame_rows``): the wave behind a zero pad, 16-byte aligned.
+tensor cores as products of bf16 parts, on one of two kernels that
+``k1_route`` picks from the arguments alone:
+
+- ``"wgmma"``, bf16x3 (the JAX package's 3-pass split) at up to 128 mels,
+  the serving and training default: ``eat_mel_log_wgmma``, the Hopper
+  design of ``csrc/mel_wgmma.cuh`` (``wgmma`` DFT, the basis through a
+  bulk-copy ring, the mel product on the tensor cores at fp32's precision:
+  power and banks in three bf16 parts, six products). Its operands are made
+  here: the folded basis's bf16 hi/lo pre-tiled for the ring
+  (``_tiled_basis``), banks^T in three bf16 parts, tiled
+  (``_tiled_banks``; the fixed serving banks once a config and device,
+  ``tiled_serving_banks``), and rows holding every frame of the last
+  128-frame block (``_block_rows``);
+- ``"tc_bf16x3"`` (bf16x3 at 129-256 mels) and ``"tc_fp32"`` (the 6-pass
+  split the TPU runs for ``Precision.HIGHEST``): ``eat_mel_log``,
+  ``mel_kernel_tc`` of ``csrc/mel_kernel.cu``, with the basis's bf16 parts
+  transposed to (columns, samples) (``_folded_basis_t``) and rows made by
+  ``_frame_rows``: the wave behind a zero pad, 16-byte aligned.
 
 ``stft_log_mel`` launches K1 for a CUDA tensor and runs its plain PyTorch
 version, ``stft_log_mel_plain``, for a CPU tensor; nothing else chooses
@@ -37,6 +50,7 @@ from efficientat_tpu_torch.ops.melspec import (
     PREEMPH,
     MelConfig,
     MelDraws,
+    _dft_basis,
     _edge_power,
     _folded_dft_basis,
     apply_masks,
@@ -45,6 +59,7 @@ from efficientat_tpu_torch.ops.melspec import (
     frame_signal,
     jittered_fmin_fmax,
     log_mel_spectrogram,
+    preemphasis,
     true_fp32,
 )
 
@@ -59,14 +74,43 @@ MIN_SAMPLES = 4096
 MELS_A_LAUNCH = 256
 MAX_ROWS = 65535  # clips a launch: the grid's y limit; a larger batch is sliced
 
-# K1 launches in this process by dft_precision; a run sets them to 0 and
-# reads them after
+# The wgmma route's design (csrc/mel_wgmma.cuh): frames a block (two
+# warpgroups of 64), a chunk's basis columns (32 cos + the 32 matching sin),
+# bf16 parts of the power and of banks^T in the mel product, and the mel
+# product's N, its most mels
+BLOCK = 128
+CHUNK_COLS = 64
+MEL_SPLIT = 3
+WGMMA_MAX_MELS = 128
+# K1's kernel by route (``k1_route``)
+ROUTE_KERNELS = {
+    "wgmma": "mel_wgmma::mel_kernel_wgmma<2, false, 3, 128>",
+    "tc_bf16x3": "mel_kernel_tc<64, 2>",
+    "tc_fp32": "mel_kernel_tc<TILE, 3>",
+}
+
+# K1 launches in this process, by dft_precision and by route; a run sets
+# them to 0 and reads them after
 LAUNCHES = dict.fromkeys(DFT_PRECISIONS, 0)
+ROUTE_LAUNCHES = dict.fromkeys(ROUTE_KERNELS, 0)
 
 
 def kernel_supported(cfg: MelConfig) -> bool:
     """Configs the JAX kernel computes: n_fft 1024 and hop 320 or 640."""
     return cfg.n_fft == 1024 and cfg.hopsize in (320, 640)
+
+
+def k1_route(cfg: MelConfig, dft_precision: str) -> str:
+    """The kernel ``stft_log_mel`` launches for ``cfg`` and ``dft_precision``
+    (a key of ``ROUTE_KERNELS``): ``"wgmma"`` for bf16x3 at up to
+    ``WGMMA_MAX_MELS`` mels, ``"tc_bf16x3"`` for bf16x3 at more (a launch a
+    group of ``MELS_A_LAUNCH``), ``"tc_fp32"`` for fp32 at any width."""
+    if dft_precision not in DFT_PRECISIONS:
+        raise ValueError(f"dft_precision must be one of {DFT_PRECISIONS}, "
+                         f"got {dft_precision!r}")
+    if dft_precision == "fp32":
+        return "tc_fp32"
+    return "wgmma" if cfg.n_mels <= WGMMA_MAX_MELS else "tc_bf16x3"
 
 
 def auto_takes_kernel(cfg: MelConfig, device_type: str, n_samples: int) -> bool:
@@ -120,8 +164,111 @@ def _folded_basis_t(n_fft: int, win_length: int, part: int) -> np.ndarray:
     return np.ascontiguousarray(_folded_basis_split(n_fft, win_length, part).T)
 
 
+@lru_cache(maxsize=8)
+def _basis_no_nyquist(n_fft: int, win_length: int) -> np.ndarray:
+    """(n_fft, n_fft) = [cos | sin] windowed basis, Nyquist bin dropped
+    (port of ``mel_pallas._basis_no_nyquist``): the probe's unfolded basis."""
+    full = _dft_basis(n_fft, win_length)
+    n_freq = n_fft // 2 + 1
+    return np.ascontiguousarray(np.concatenate(
+        [full[:, :n_freq - 1], full[:, n_freq:2 * n_freq - 1]], axis=1))
+
+
+@lru_cache(maxsize=8)
+def _basis_split(n_fft: int, win_length: int, part: int) -> np.ndarray:
+    """``bf16_part`` of the unfolded basis."""
+    return bf16_part(_basis_no_nyquist(n_fft, win_length), part)
+
+
+@lru_cache(maxsize=None)
+def _k_perm() -> np.ndarray:
+    """(64, 16): sample of k16 product ``P`` at k position ``kk``. A thread
+    of an ``mma.m16n8k16`` A fragment (wgmma's register A has its layout a
+    warp) holds k pairs 2t and 2t + 8; it loads samples 8t .. 8t + 7 of a
+    32-sample step and gives product ``P % 2`` its samples 4 (P % 2) + {0,
+    1} and {2, 3}, so the basis rows follow the same order."""
+    kk = np.arange(16)
+    s = np.arange(64)[:, None]
+    return (32 * (s // 2) + 8 * (kk % 8 // 2) + 4 * (s % 2) + 2 * (kk // 8)
+            + kk % 2)
+
+
+@lru_cache(maxsize=8)
+def _tiled_basis(n_fft: int, win_length: int, folded: bool,
+                 part: int) -> np.ndarray:
+    """The wgmma kernel's basis operand, pre-tiled: (16 chunks, 64 k16
+    products, 8 column groups, 2 k halves, 8 columns, 8 k), element
+    ``[c, P, ng, h, r, e]`` = basis[sample _k_perm()[P, 8h + e], column n =
+    8ng + r of chunk c] (n < 32: cos bin 32c + n, else sin bin 32c + n -
+    32), of the folded basis's part (K1) or the unfolded one's (the probe).
+    Each (column group, k half) is one 8 x 16-byte core matrix of the
+    canonical K-major layout without swizzle, so a ring stage of KC samples,
+    KC / 16 products of a chunk, is one contiguous block."""
+    split = _folded_basis_split if folded else _basis_split
+    basis = split(n_fft, win_length, part)  # (samples, columns)
+    n_bins = n_fft // 2
+    n = np.arange(CHUNK_COLS)
+    c = np.arange(n_bins // (CHUNK_COLS // 2))[:, None]
+    cols = np.where(n < 32, 32 * c + n, n_bins + 32 * c + n - 32)  # (16, 64)
+    t = basis[_k_perm()][:, :, cols]  # (P, kk, c, n)
+    t = t.reshape(64, 2, 8, 16, 8, 8)  # (P, h, e, c, ng, r)
+    return np.ascontiguousarray(t.transpose(3, 0, 4, 1, 5, 2))
+
+
+def _tiled_banks(banks: torch.Tensor, n_fft: int) -> torch.Tensor:
+    """The wgmma kernel's mel operand: banks^T (n_fft // 2 bins x
+    WGMMA_MAX_MELS, zero past n_mels) split into MEL_SPLIT bf16 parts
+    (``bf16_split``) and tiled as (16 chunks, 3 parts, 2 k16 products, 16
+    mel groups, 2 k halves, 8 mels, 8 bins): element ``[c, p, s, mg, h, r,
+    e]`` = part p of banks^T[bin 32c + 16s + 8h + e, mel 8mg + r], the
+    layout of ``_tiled_basis`` with mels for columns, so that a chunk's
+    parts are contiguous blocks of 8 KB."""
+    bins = n_fft // 2
+    bt = banks.new_zeros((bins, WGMMA_MAX_MELS))
+    bt[:, :banks.shape[0]] = banks[:, :bins].t()
+    parts = [part.reshape(bins // 32, 2, 2, 8, WGMMA_MAX_MELS // 8, 8)
+             .permute(0, 1, 4, 2, 5, 3) for part in bf16_split(bt, MEL_SPLIT)]
+    return torch.stack(parts, 1).contiguous()
+
+
+@lru_cache(maxsize=16)
+def _serving_tiled_banks(n_mels: int, n_fft: int, sr: int, fmin: float,
+                         fmax: float) -> np.ndarray:
+    """``_tiled_banks`` of the fixed banks, as fp32 numpy holding bf16 values."""
+    banks = kaldi_mel_banks(n_mels, n_fft, sr, fmin, fmax)
+    return _tiled_banks(banks, n_fft).to(torch.float32).numpy()
+
+
+def tiled_serving_banks(cfg: MelConfig, device) -> torch.Tensor:
+    """The wgmma route's mel operand for ``cfg``'s fixed banks (fmin,
+    effective fmax: every eval and serving call), tiled once a (n_mels,
+    n_fft, sr, fmin, fmax, device) and kept there, as ``device_const``
+    keeps the basis."""
+    return device_const(_serving_tiled_banks,
+                        (cfg.n_mels, cfg.n_fft, cfg.sr, float(cfg.fmin),
+                         float(cfg.effective_fmax)), str(device), torch.bfloat16)
+
+
+def _block_rows(wave: torch.Tensor, cfg: MelConfig, n_frames: int,
+                folded: bool = True) -> torch.Tensor:
+    """The wgmma kernel's rows, frame i at ``hop * i``: the raw wave behind
+    an ``n_fft // 2`` zero pad (folded), or the pre-emphasised wave with the
+    reflect pad (the probe's unfolded variant). Zero-padded to hold every
+    frame of the last ``BLOCK``-frame block, to a multiple of 64 samples
+    (16-byte aligned rows)."""
+    pad = cfg.n_fft // 2
+    if folded:
+        src, lead = wave, pad
+    else:
+        src, lead = F.pad(preemphasis(wave), (pad, pad), mode="reflect"), 0
+    sub_frames = -(-n_frames // BLOCK) * BLOCK
+    need = max(cfg.hopsize * (sub_frames - 1) + cfg.n_fft, lead + src.shape[1])
+    row_len = -(-need // 64) * 64
+    return F.pad(src, (lead, row_len - lead - src.shape[1])).contiguous()
+
+
 def _frame_rows(wave: torch.Tensor, cfg: MelConfig, n_frames: int) -> torch.Tensor:
-    """K1's rows, frame i at ``hop * i``: the raw wave behind an
+    """mel_kernel_tc's rows, frame i at ``hop * i``: the raw wave behind an
     ``n_fft // 2`` zero pad, zero-padded to hold the last frame whole and to
     a multiple of 4 samples (16-byte aligned rows). One copy of the wave."""
     pad = cfg.n_fft // 2
@@ -209,15 +356,20 @@ def stft_log_mel_plain(wave: torch.Tensor, banks: torch.Tensor, cfg: MelConfig,
 
 
 def stft_log_mel(wave: torch.Tensor, banks: torch.Tensor, cfg: MelConfig,
-                 dft_precision: str = "fp32") -> torch.Tensor:
+                 dft_precision: str = "fp32", *,
+                 tiled_banks: torch.Tensor | None = None) -> torch.Tensor:
     """Raw waveform (B, S) f32 -> normalized log-mel (B, n_mels, n_frames).
 
-    On a CUDA tensor this launches K1 or raises, once for each slice of at
-    most ``MAX_ROWS`` clips; on a CPU tensor it runs ``stft_log_mel_plain``.
-    ``banks`` is the (n_mels, n_fft//2+1) Kaldi bank; its zero Nyquist
-    column is dropped inside. ``dft_precision`` defaults to exact fp32, as
-    ``stft_log_mel_pallas``'s does. A bank of more than ``MELS_A_LAUNCH``
-    mels takes one launch for each group of as many."""
+    On a CUDA tensor this launches K1's kernel for ``k1_route(cfg,
+    dft_precision)`` or raises, once for each slice of at most ``MAX_ROWS``
+    clips; nothing falls back to another kernel. On a CPU tensor it runs
+    ``stft_log_mel_plain``. ``banks`` is the (n_mels, n_fft//2+1) Kaldi
+    bank; its zero Nyquist column is dropped inside. ``dft_precision``
+    defaults to exact fp32, as ``stft_log_mel_pallas``'s does. On the
+    ``"tc_*"`` routes a bank of more than ``MELS_A_LAUNCH`` mels takes one
+    launch for each group of as many. ``tiled_banks``, read by the
+    ``"wgmma"`` route only, is ``_tiled_banks(banks)`` made beforehand (the
+    serving banks', ``tiled_serving_banks``); by default it is made here."""
     if wave.device.type == "cpu":
         return stft_log_mel_plain(wave, banks, cfg, dft_precision)
     _check_args(wave, banks, cfg, dft_precision)
@@ -230,40 +382,62 @@ def stft_log_mel(wave: torch.Tensor, banks: torch.Tensor, cfg: MelConfig,
         raise ValueError("banks must be float32 on the wave's device")
     from efficientat_tpu_torch.ops._build import load_library
 
+    route = k1_route(cfg, dft_precision)
     lib = _bind(load_library("mel_kernel"))
     n_fft, hop = cfg.n_fft, cfg.hopsize
     n_bins = n_fft // 2
     batch, n_samples = wave.shape
     n_frames = cfg.num_frames(n_samples)
     device = str(wave.device)
-    banks_t = banks[:, :n_bins].t()
-    groups = [(m0, banks_t[:, m0:m0 + MELS_A_LAUNCH].contiguous())
-              for m0 in range(0, cfg.n_mels, MELS_A_LAUNCH)]
-    parts = PARTS[dft_precision]
-    basis = [device_const(_folded_basis_t, (n_fft, cfg.win_length, p), device,
-                          torch.bfloat16).data_ptr() for p in range(parts)]
-    basis += [None] * (3 - parts)  # bf16x3 reads no third part
-    x = _frame_rows(wave, cfg, n_frames)
     out = torch.empty((batch, cfg.n_mels, n_frames), device=wave.device,
                       dtype=torch.float32)
     stream = torch.cuda.current_stream(wave.device).cuda_stream
+    if route == "wgmma":
+        if tiled_banks is None:
+            tiled_banks = _tiled_banks(banks, n_fft)
+        want = (n_bins // 32, MEL_SPLIT, 2, WGMMA_MAX_MELS // 8, 2, 8, 8)
+        if (tiled_banks.shape != want or tiled_banks.dtype != torch.bfloat16
+                or tiled_banks.device != wave.device
+                or not tiled_banks.is_contiguous()):
+            raise ValueError(f"tiled_banks must be a contiguous bfloat16 {tuple(want)} "
+                             "tensor on the wave's device (_tiled_banks)")
+        bhi, blo = (device_const(_tiled_basis, (n_fft, cfg.win_length, True, p),
+                                 device, torch.bfloat16).data_ptr() for p in (0, 1))
+        x = _block_rows(wave, cfg, n_frames)
+
+        def launches(start, rows):
+            yield lib.eat_mel_log_wgmma(x[start].data_ptr(), rows, x.shape[1], hop,
+                                        n_frames, bhi, blo, tiled_banks.data_ptr(),
+                                        cfg.n_mels, out[start].data_ptr(), stream)
+    else:
+        banks_t = banks[:, :n_bins].t()
+        groups = [(m0, banks_t[:, m0:m0 + MELS_A_LAUNCH].contiguous())
+                  for m0 in range(0, cfg.n_mels, MELS_A_LAUNCH)]
+        parts = PARTS[dft_precision]
+        basis = [device_const(_folded_basis_t, (n_fft, cfg.win_length, p), device,
+                              torch.bfloat16).data_ptr() for p in range(parts)]
+        basis += [None] * (3 - parts)  # bf16x3 reads no third part
+        x = _frame_rows(wave, cfg, n_frames)
+
+        def launches(start, rows):
+            for m0, bt in groups:
+                yield lib.eat_mel_log(x[start].data_ptr(), rows, x.shape[1], hop,
+                                      n_frames, *basis, parts, bt.data_ptr(),
+                                      bt.shape[1], out[start, m0].data_ptr(),
+                                      cfg.n_mels, stream)
     for start in range(0, batch, MAX_ROWS):
-        rows = min(MAX_ROWS, batch - start)
-        for m0, bt in groups:
-            err = lib.eat_mel_log(x[start].data_ptr(), rows, x.shape[1], hop,
-                                  n_frames, *basis, parts, bt.data_ptr(),
-                                  bt.shape[1], out[start, m0].data_ptr(),
-                                  cfg.n_mels, stream)
+        for err in launches(start, min(MAX_ROWS, batch - start)):
             if err != 0:
-                raise RuntimeError("K1 launch failed: "
+                raise RuntimeError(f"K1 launch failed ({ROUTE_KERNELS[route]}): "
                                    + lib.eat_error_string(err).decode())
             LAUNCHES[dft_precision] += 1
+            ROUTE_LAUNCHES[route] += 1
     return _patch_edges(out, wave, banks, cfg)
 
 
 def stft_log_mel_sharded(wave_local: torch.Tensor, banks: torch.Tensor,
-                         cfg: MelConfig,
-                         dft_precision: str = "fp32") -> torch.Tensor:
+                         cfg: MelConfig, dft_precision: str = "fp32", *,
+                         tiled_banks: torch.Tensor | None = None) -> torch.Tensor:
     """K1-dp: K1 on this rank's rows of a batch split over the ranks of the
     default process group (port of ``stft_log_mel_pallas_sharded``, which
     ``shard_map``s K1 over the ``data`` mesh axis).
@@ -272,19 +446,23 @@ def stft_log_mel_sharded(wave_local: torch.Tensor, banks: torch.Tensor,
     every rank (the train step draws the jitter from identically seeded
     generators, so no broadcast is needed). The ranks' outputs, concatenated
     in rank order, equal ``stft_log_mel`` on the whole batch. On a CPU tensor
-    it runs K1's plain version, as ``stft_log_mel`` does."""
+    it runs K1's plain version, as ``stft_log_mel`` does; ``tiled_banks`` is
+    ``stft_log_mel``'s."""
     import torch.distributed as dist
 
     if not (dist.is_available() and dist.is_initialized()):
         raise RuntimeError("stft_log_mel_sharded needs an initialised "
                            "torch.distributed process group")
-    return stft_log_mel(wave_local, banks, cfg, dft_precision)
+    return stft_log_mel(wave_local, banks, cfg, dft_precision,
+                        tiled_banks=tiled_banks)
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.eat_mel_log.argtypes = [p, i, i, i, i, p, p, p, i, p, i, p, i, p]
     lib.eat_mel_log.restype = i
+    lib.eat_mel_log_wgmma.argtypes = [p, i, i, i, i, p, p, p, i, p, p]
+    lib.eat_mel_log_wgmma.restype = i
     lib.eat_error_string.argtypes = [i]
     lib.eat_error_string.restype = ctypes.c_char_p
     return lib
@@ -307,7 +485,8 @@ def log_mel_spectrogram_fused(waveform: torch.Tensor,
 
     ``training=True`` needs ``draws`` (this call's rows of them): K1 gets the
     jittered fp32 banks as its runtime input and its output is masked with
-    0.9. ``sharded=True`` runs K1 as K1-dp (``stft_log_mel_sharded``), as
+    0.9. Otherwise the banks are fixed, and the wgmma route takes them tiled
+    once (``tiled_serving_banks``). ``sharded=True`` runs K1 as K1-dp (``stft_log_mel_sharded``), as
     the JAX step does under a mesh of more than one device.
 
     dft_precision defaults to ``"bf16x3"``, the serving and training default
@@ -327,9 +506,14 @@ def log_mel_spectrogram_fused(waveform: torch.Tensor,
                   else (cfg.fmin, cfg.effective_fmax))
     banks = kaldi_mel_banks(cfg.n_mels, cfg.n_fft, cfg.sr, fmin, fmax,
                             device=waveform.device)
+    dft_precision = dft_precision or "bf16x3"
+    tiled = None
+    if (not training and waveform.device.type == "cuda" and kernel_supported(cfg)
+            and k1_route(cfg, dft_precision) == "wgmma"):
+        tiled = tiled_serving_banks(cfg, waveform.device)
     run = stft_log_mel_sharded if sharded else stft_log_mel
     mel = run(waveform.to(torch.float32).contiguous(), banks, cfg,
-              dft_precision or "bf16x3")
+              dft_precision, tiled_banks=tiled)
     if training:
         mel = apply_masks(mel, cfg, draws, 0.9)
     return mel

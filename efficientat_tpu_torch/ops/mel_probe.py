@@ -3,9 +3,11 @@
 Each variant computes K1's function (``ops.mel_kernel``), frames x windowed
 rDFT basis (no Nyquist bin) -> power -> x banks^T -> ``(log(x + 1e-5) + 4.5)
 / 5``, with the DFT as bf16 products summed in fp32: the frames are split
-into bf16 hi/lo inside the kernel, the basis hi/lo is made here, once, and
+into bf16 hi/lo inside the kernel, the basis hi/lo is made once and
 pre-tiled (``_tiled_basis``) so that each stage of the kernel's shared-memory
-ring is one contiguous block that one bulk copy brings in.
+ring is one contiguous block that one bulk copy brings in. The kernel is
+K1 bf16x3's (``csrc/mel_wgmma.cuh``), and so are its operands' builders
+(``ops.mel_kernel``: ``_tiled_basis``, ``_tiled_banks``, ``_block_rows``).
 
 - P1, ``variant_mel``: ``folded=False`` takes the pre-emphasised,
   reflect-padded wave and the plain windowed basis; ``folded=True`` the raw
@@ -33,22 +35,27 @@ patch. On a CUDA tensor it launches its kernel
 from __future__ import annotations
 
 import ctypes
-from functools import lru_cache
 
-import numpy as np
 import torch
-import torch.nn.functional as F
 
-from efficientat_tpu_torch.ops.mel_kernel import (
+# the builders of K1's wgmma route, which the probe shares; its tests and
+# chip_smoke.py read them here too
+from efficientat_tpu_torch.ops.mel_kernel import (  # noqa: F401
+    CHUNK_COLS,
+    MEL_SPLIT,
     MIN_SAMPLES,
+    _basis_no_nyquist,
+    _basis_split,
+    _block_rows,
     _folded_basis_split,
+    _k_perm,
     _patch_edges,
-    bf16_part,
-    bf16_split,
+    _tiled_banks,
+    _tiled_basis,
 )
+from efficientat_tpu_torch.ops.mel_kernel import WGMMA_MAX_MELS as MAX_MELS
 from efficientat_tpu_torch.ops.melspec import (
     MelConfig,
-    _dft_basis,
     device_const,
     frame_signal,
     preemphasis,
@@ -57,21 +64,17 @@ from efficientat_tpu_torch.ops.melspec import (
 
 PASSES = (3, 21, 22)
 SUB_TILE = 64  # frames a warpgroup computes; frame tiles are multiples
-MAX_MELS = 128
 # P2 stages a sub-tile's wave segment, at least 63 * hop + 1024 samples, in
 # shared memory: up to this hop it fits beside the ring
 MAX_STAGED_HOP = 768
 P3_HOP = 320
 
-# The kernel's shared-memory plan, mirrored from csrc/mel_probe_kernel.cu
-# (``plan``): warpgroups of 64 frames a block, a ring of RING slots of KC
-# samples (a chunk's 64 columns of both bf16 basis parts, 256 KC bytes),
-# through which the chunk's banks^T tiles pass too, and P2's segment of the
-# block's frames, next to a few mbarriers.
+# The kernel's shared-memory plan, mirrored from csrc/mel_wgmma.cuh
+# (``mel_wgmma::plan``): warpgroups of 64 frames a block, a ring of RING
+# slots of KC samples (a chunk's CHUNK_COLS columns of both bf16 basis parts,
+# 256 KC bytes), through which the chunk's banks^T tiles pass too, and P2's
+# segment of the block's frames, next to a few mbarriers.
 N_FFT = 1024
-CHUNK_COLS = 64  # a chunk: 32 cos + the 32 matching sin columns
-BLOCK = 128  # frames of the largest block; the rows hold whole blocks
-MEL_SPLIT = 3  # bf16 parts of the power and of banks^T in the mel product
 RING = 4
 P1_PLAN = (2, 128)  # warpgroups, KC
 # P2's choices, in order: two warpgroups while their segment fits, else one
@@ -79,7 +82,7 @@ P2_PLANS = ((2, 64), (1, 64), (1, 32))
 BARRIER_BYTES = 128
 MAX_SMEM = 232448  # 227 KB, a block's most on sm_90
 
-# the kernels' design, as chip_smoke.py prints it (csrc/mel_probe_kernel.cu)
+# the kernels' design, as chip_smoke.py prints it (csrc/mel_wgmma.cuh)
 DESIGN = ("wgmma m64n64k16 DFT, A frames in registers, B basis from a "
           "bulk-copy ring; mel product wgmma m64n128k16, power and banks "
           "in three bf16 parts, six products (fp32's precision), banks "
@@ -92,59 +95,9 @@ LAUNCHES_P2 = 0
 LAUNCHES_P3 = 0
 
 
-@lru_cache(maxsize=8)
-def _basis_no_nyquist(n_fft: int, win_length: int) -> np.ndarray:
-    """(n_fft, n_fft) = [cos | sin] windowed basis, Nyquist bin dropped
-    (port of ``mel_pallas._basis_no_nyquist``)."""
-    full = _dft_basis(n_fft, win_length)
-    n_freq = n_fft // 2 + 1
-    return np.ascontiguousarray(np.concatenate(
-        [full[:, :n_freq - 1], full[:, n_freq:2 * n_freq - 1]], axis=1))
-
-
-@lru_cache(maxsize=8)
-def _basis_split(n_fft: int, win_length: int, part: int) -> np.ndarray:
-    """``bf16_part`` of the unfolded basis."""
-    return bf16_part(_basis_no_nyquist(n_fft, win_length), part)
-
-
-@lru_cache(maxsize=None)
-def _k_perm() -> np.ndarray:
-    """(64, 16): sample of k16 product ``P`` at k position ``kk``. A thread
-    of an ``mma.m16n8k16`` A fragment (wgmma's register A has its layout a
-    warp) holds k pairs 2t and 2t + 8; it loads samples 8t .. 8t + 7 of a
-    32-sample step and gives product ``P % 2`` its samples 4 (P % 2) + {0,
-    1} and {2, 3}, so the basis rows follow the same order."""
-    kk = np.arange(16)
-    s = np.arange(64)[:, None]
-    return (32 * (s // 2) + 8 * (kk % 8 // 2) + 4 * (s % 2) + 2 * (kk // 8)
-            + kk % 2)
-
-
-@lru_cache(maxsize=8)
-def _tiled_basis(n_fft: int, win_length: int, folded: bool,
-                 part: int) -> np.ndarray:
-    """The kernel's basis operand, pre-tiled for ``wgmma``: (16 chunks, 64
-    k16 products, 8 column groups, 2 k halves, 8 columns, 8 k), element
-    ``[c, P, ng, h, r, e]`` = basis[sample _k_perm()[P, 8h + e], column n =
-    8ng + r of chunk c] (n < 32: cos bin 32c + n, else sin bin 32c + n -
-    32). Each (column group, k half) is one 8 x 16-byte core matrix of the
-    canonical K-major layout without swizzle, so a ring stage of KC samples,
-    KC / 16 products of a chunk, is one contiguous block."""
-    split = _folded_basis_split if folded else _basis_split
-    basis = split(n_fft, win_length, part)  # (samples, columns)
-    n_bins = n_fft // 2
-    n = np.arange(CHUNK_COLS)
-    c = np.arange(n_bins // (CHUNK_COLS // 2))[:, None]
-    cols = np.where(n < 32, 32 * c + n, n_bins + 32 * c + n - 32)  # (16, 64)
-    t = basis[_k_perm()][:, :, cols]  # (P, kk, c, n)
-    t = t.reshape(64, 2, 8, 16, 8, 8)  # (P, h, e, c, ng, r)
-    return np.ascontiguousarray(t.transpose(3, 0, 4, 1, 5, 2))
-
-
 def smem_plan(staged: bool, hop: int) -> tuple:
     """(bytes, warpgroups, KC) of the kernel's shared memory, as ``plan``
-    in csrc/mel_probe_kernel.cu picks it (``card_plan`` reads that one):
+    in csrc/mel_wgmma.cuh picks it (``card_plan`` reads that one):
     P1/P3 ``P1_PLAN``; P2 the first of ``P2_PLANS`` that fits. Raises where
     nothing fits."""
     def size(wg, kc):
@@ -168,22 +121,6 @@ def card_plan(staged: bool, hop: int) -> tuple:
     size = lib.eat_probe_plan(int(staged), hop, ctypes.byref(wg),
                               ctypes.byref(kc))
     return size, wg.value, kc.value
-
-
-def _tiled_banks(banks: torch.Tensor, n_fft: int) -> torch.Tensor:
-    """The kernel's mel operand: banks^T (n_fft // 2 bins x MAX_MELS, zero
-    past n_mels) split into MEL_SPLIT bf16 parts (``bf16_split``) and tiled
-    as (16 chunks, 3 parts, 2 k16 products, 16 mel groups, 2 k halves, 8
-    mels, 8 bins): element ``[c, p, s, mg, h, r, e]`` = part p of
-    banks^T[bin 32c + 16s + 8h + e, mel 8mg + r], the layout of
-    ``_tiled_basis`` with mels for columns, so that a chunk's parts are
-    contiguous blocks of 8 KB."""
-    bins = n_fft // 2
-    bt = banks.new_zeros((bins, MAX_MELS))
-    bt[:, :banks.shape[0]] = banks[:, :bins].t()
-    parts = [part.reshape(bins // 32, 2, 2, 8, MAX_MELS // 8, 8)
-             .permute(0, 1, 4, 2, 5, 3) for part in bf16_split(bt, MEL_SPLIT)]
-    return torch.stack(parts, 1).contiguous()
 
 
 def _check_args(wave: torch.Tensor, banks: torch.Tensor, cfg: MelConfig,
@@ -238,24 +175,6 @@ def _plain(wave: torch.Tensor, banks: torch.Tensor, cfg: MelConfig,
     return _patch_edges(out, wave, banks, cfg) if folded else out
 
 
-def _frame_rows(wave: torch.Tensor, cfg: MelConfig, n_frames: int,
-                folded: bool) -> torch.Tensor:
-    """The rows the kernel cuts its frames from, frame i at ``hop * i``:
-    the raw wave behind an ``n_fft // 2`` zero pad (folded), or the
-    pre-emphasised wave with the reflect pad (not). Zero-padded to hold
-    every frame of the last 128-frame block, to a multiple of 64 samples
-    (16-byte aligned rows)."""
-    pad = cfg.n_fft // 2
-    if folded:
-        src, lead = wave, pad
-    else:
-        src, lead = F.pad(preemphasis(wave), (pad, pad), mode="reflect"), 0
-    sub_frames = -(-n_frames // BLOCK) * BLOCK
-    need = max(cfg.hopsize * (sub_frames - 1) + cfg.n_fft, lead + src.shape[1])
-    row_len = -(-need // 64) * 64
-    return F.pad(src, (lead, row_len - lead - src.shape[1])).contiguous()
-
-
 def _launch(entry: str, wave: torch.Tensor, banks: torch.Tensor,
             cfg: MelConfig, folded: bool, tile_or_passes: int) -> torch.Tensor:
     """Launch ``entry`` of the probe library on a CUDA wave; returns the
@@ -274,7 +193,7 @@ def _launch(entry: str, wave: torch.Tensor, banks: torch.Tensor,
     batch, n_samples = wave.shape
     n_frames = cfg.num_frames(n_samples)
     device = str(wave.device)
-    rows = _frame_rows(wave, cfg, n_frames, folded)
+    rows = _block_rows(wave, cfg, n_frames, folded)
     bhi, blo = (device_const(_tiled_basis, (n_fft, cfg.win_length, folded, p),
                              device, torch.bfloat16) for p in (0, 1))
     mel = _tiled_banks(banks, n_fft)

@@ -134,7 +134,7 @@ def _folded_dft_basis(n_fft: int, win_length: int,
     return (shifted - coef * basis).astype(np.float32)
 
 
-@lru_cache(maxsize=32)
+@lru_cache(maxsize=64)
 def device_const(make, args: tuple, device: str,
                  dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """``make(*args)`` (a cached numpy constant) as a ``dtype`` tensor on

@@ -4,7 +4,8 @@
 
 Mirrors the script's three entry points, each a group of variants:
 
-- ``fold`` (``main``): K1 bf16x3 as ``current``, then P1 (``variant_mel``)
+- ``fold`` (``main``): K1 bf16x3 as ``current`` (since K1's wgmma route,
+  the kernel of P1 folded at 128-frame tiles), then P1 (``variant_mel``)
   unfolded at 128-frame tiles (``splitbasis``) and folded at 128, 256 and
   512-frame tiles;
 - ``dma`` (``main_dma``): P2 (``variant_mel_dma``) at 128 and 256-frame
@@ -17,7 +18,8 @@ path (``ops.melspec.log_mel_spectrogram``) as the reference. Each variant
 prints one JSON line: ``variant``; ``ms``, the median of CUDA events over
 its calls after a warm-up (null on the CPU, where nothing is timed);
 ``max_vs_ref``; ``launches``, its kernel's launches during its run (0 on the
-CPU, which runs the plain versions). ``--device cpu`` with a small
+CPU, which runs the plain versions); and for ``current`` ``kernel``, the
+kernel K1's route launches (``mel_kernel.ROUTE_KERNELS``). ``--device cpu`` with a small
 ``--batch`` and ``--seconds`` checks the wiring without a card.
 """
 
@@ -135,6 +137,9 @@ def run(group: str = "all", device="cuda", batch: int = BATCH,
               if device.type == "cuda" else None)
         records.append({"variant": name, "ms": ms, "max_vs_ref": err,
                         "launches": launches() - before})
+        if name == "current":
+            records[-1]["kernel"] = mel_kernel.ROUTE_KERNELS[
+                mel_kernel.k1_route(cfg, "bf16x3")]
     return records
 
 

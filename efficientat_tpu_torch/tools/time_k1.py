@@ -8,7 +8,13 @@ waves from seed 0 at hop 320, with the Kaldi bank over 0-15 kHz at each
 ``--n_mels``. For each precision and bank: K1's largest gap to its plain
 version, then ``stft_log_mel`` and ``stft_log_mel_plain`` timed in turns
 (plain, kernel, kernel, plain, ``--turns`` times), each a median of CUDA
-events; one JSON line each. First a line with K1's ptxas registers and
+events; one JSON line each, naming the kernel that K1's route launched
+(``mel_kernel.k1_route``: the wgmma kernel for bf16x3 at up to 128 mels,
+else ``mel_kernel_tc``). On the wgmma route ``kernel_ms`` tiles the banks
+in each call, as a training call does, and ``serving_ms`` times the call
+with the banks tiled beforehand, as the Tagger's (``tiled_serving_banks``;
+between the kernel turns: plain, kernel, serving, serving, kernel, plain);
+null on ``mel_kernel_tc``, which takes the banks as they are. First a line with K1's ptxas registers and
 spills, when this process built it, and last the card's name and power
 limit as ``nvidia-smi`` gives them. It uses only K1's public entry points, so
 one copy of it times two checkouts of the package in one run.
@@ -37,14 +43,23 @@ def time_k1(batch: int, n_mels: int, precision: str, turns: int) -> dict:
     err = float((mel_kernel.stft_log_mel(waves, banks, cfg, precision)
                  - mel_kernel.stft_log_mel_plain(waves, banks, cfg, precision))
                 .abs().max())
-    runs = {"plain": [], "kernel": []}
+    route = mel_kernel.k1_route(cfg, precision)
+    calls = {"plain": lambda: mel_kernel.stft_log_mel_plain(waves, banks, cfg, precision),
+             "kernel": lambda: mel_kernel.stft_log_mel(waves, banks, cfg, precision)}
+    order = ("plain", "kernel", "kernel", "plain")
+    if route == "wgmma":
+        tiled = mel_kernel.tiled_serving_banks(cfg, waves.device)
+        calls["serving"] = lambda: mel_kernel.stft_log_mel(waves, banks, cfg, precision,
+                                                           tiled_banks=tiled)
+        order = ("plain", "kernel", "serving", "serving", "kernel", "plain")
+    runs = {which: [] for which in calls}
     for _ in range(turns):
-        for which in ("plain", "kernel", "kernel", "plain"):
-            fn = (mel_kernel.stft_log_mel_plain if which == "plain"
-                  else mel_kernel.stft_log_mel)
-            runs[which].append(median_ms(lambda: fn(waves, banks, cfg, precision)))
+        for which in order:
+            runs[which].append(median_ms(calls[which]))
     return {"precision": precision, "batch": batch, "n_mels": n_mels,
-            "max_abs": err, "kernel_ms": runs["kernel"], "plain_ms": runs["plain"]}
+            "kernel": mel_kernel.ROUTE_KERNELS[route], "max_abs": err,
+            "kernel_ms": runs["kernel"], "serving_ms": runs.get("serving"),
+            "plain_ms": runs["plain"]}
 
 
 def main(argv=None):

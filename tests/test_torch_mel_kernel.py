@@ -170,11 +170,11 @@ def test_kernel_supported_matches_pallas_supported():
 def test_cpu_tensor_runs_plain_version(precision):
     cfg = MelConfig()
     wave = torch.from_numpy(_wave(2, 16000, seed=1))
-    before = dict(mel_kernel.LAUNCHES)
+    before = dict(mel_kernel.LAUNCHES), dict(mel_kernel.ROUTE_LAUNCHES)
     got = mel_kernel.stft_log_mel(wave, _banks(cfg), cfg, precision)
     want = mel_kernel.stft_log_mel_plain(wave, _banks(cfg), cfg, precision)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
-    assert mel_kernel.LAUNCHES == before
+    assert (mel_kernel.LAUNCHES, mel_kernel.ROUTE_LAUNCHES) == before
 
 
 @pytest.mark.parametrize("hop", [320, 640])
@@ -376,6 +376,154 @@ def test_edge_frames_match_jax(hop):
     np.testing.assert_allclose(got, want, rtol=0, atol=5e-5)
 
 
+@pytest.mark.parametrize("precision,n_mels,route", [
+    ("fp32", 40, "tc_fp32"), ("fp32", 128, "tc_fp32"), ("fp32", 300, "tc_fp32"),
+    ("bf16x3", 40, "wgmma"), ("bf16x3", 128, "wgmma"), ("bf16x3", 129, "tc_bf16x3"),
+    ("bf16x3", 256, "tc_bf16x3"), ("bf16x3", 300, "tc_bf16x3")])
+def test_k1_route_by_arguments(precision, n_mels, route):
+    # bf16x3 up to the wgmma kernel's 128 mels takes the wgmma route, wider
+    # banks and fp32 mel_kernel_tc; the hop does not enter
+    for hop in (320, 640):
+        assert mel_kernel.k1_route(MelConfig(n_mels=n_mels, hopsize=hop),
+                                   precision) == route
+    assert route in mel_kernel.ROUTE_KERNELS and route in mel_kernel.ROUTE_LAUNCHES
+    with pytest.raises(ValueError, match="dft_precision"):
+        mel_kernel.k1_route(MelConfig(n_mels=n_mels), "fp16")
+
+
+def _untile_basis(tiled):
+    """The wgmma route's tiled basis (16, 64, 8, 2, 8, 8) back to (samples,
+    columns): [c, P, ng, h, r, e] is sample _k_perm()[P, 8h + e] of column
+    8ng + r of chunk c (cos bin 32c + n for n < 32, else sin bin 32c + n - 32)."""
+    t = np.asarray(tiled, np.float32).transpose(1, 3, 5, 0, 2, 4).reshape(64, 16, 16, 64)
+    out = np.zeros((1024, 1024), np.float32)
+    n = np.arange(64)
+    c = np.arange(16)[:, None]
+    cols = np.where(n < 32, 32 * c + n, 512 + 32 * c + n - 32)
+    out[mel_kernel._k_perm()[:, :, None, None], cols[None, None]] = t
+    return out
+
+
+@pytest.mark.parametrize("part", [0, 1])
+def test_wgmma_basis_untiles_to_the_folded_split(part):
+    # the bf16 tensor the wrapper hands the wgmma route, made as on the card
+    handed = device_const(mel_kernel._tiled_basis, (1024, 800, True, part), "cpu",
+                          torch.bfloat16)
+    assert handed.shape == (16, 64, 8, 2, 8, 8) and handed.is_contiguous()
+    np.testing.assert_array_equal(_untile_basis(handed.float().numpy()),
+                                  mel_kernel._folded_basis_split(1024, 800, part))
+
+
+def _untile_banks(tiled):
+    """The wgmma route's tiled banks (16, 3, 2, 16, 2, 8, 8) back to its
+    three bf16 parts of banks^T, (3, 512 bins, 128 mels)."""
+    return tiled.float().permute(1, 0, 2, 4, 6, 3, 5).reshape(3, 512, 128)
+
+
+@pytest.mark.parametrize("n_mels", [40, 64, 128])
+@pytest.mark.parametrize("jittered", [False, True])
+def test_wgmma_banks_untile_to_banks_t(n_mels, jittered):
+    # the host-float64 serving banks and the fp32 training ones (a tensor
+    # fmin/fmax) alike: part 0 is bf16(banks^T), each part the bf16 of what
+    # the ones before leave, zero past n_mels, and the three parts hold
+    # banks^T to fp32's last bit
+    cfg = MelConfig(n_mels=n_mels)
+    banks = (kaldi_mel_banks(n_mels, 1024, 32000, torch.tensor(7.0),
+                             torch.tensor(14321.0)) if jittered else _banks(cfg))
+    tiled = mel_kernel._tiled_banks(banks, 1024)
+    assert tiled.shape == (16, 3, 2, 16, 2, 8, 8) and tiled.dtype == torch.bfloat16
+    parts = _untile_banks(tiled)
+    bt = torch.zeros(512, 128)
+    bt[:, :n_mels] = banks[:, :512].t()
+    rest = bt.clone()
+    for part in range(3):
+        torch.testing.assert_close(parts[part], rest.bfloat16().float(), rtol=0, atol=0)
+        rest = rest - parts[part]
+    assert not parts[:, :, n_mels:].any()
+    assert (parts.sum(0) - bt).abs().max() <= 2.0 ** -24 * bt.abs().max()
+
+
+def test_serving_banks_tiled_once(monkeypatch):
+    # the Tagger's banks are fixed by its config: the wgmma route's operand
+    # is made once per (n_mels, n_fft, sr, fmin, fmax, device) and kept
+    calls = []
+    tile = mel_kernel._tiled_banks
+    monkeypatch.setattr(mel_kernel, "_tiled_banks",
+                        lambda *a: calls.append(a) or tile(*a))
+    cfg = MelConfig(n_mels=96, fmin=3.0, fmax=14567.0)  # a key no other test makes
+    first = mel_kernel.tiled_serving_banks(cfg, "cpu")
+    second = mel_kernel.tiled_serving_banks(cfg, torch.device("cpu"))
+    assert second is first and len(calls) == 1
+    assert first.dtype == torch.bfloat16 and first.is_contiguous()
+    torch.testing.assert_close(first, tile(_banks(cfg), 1024), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("hop", [320, 640])
+@pytest.mark.parametrize("n_samples", [4096, 4097, 320123])
+def test_block_rows_hold_every_frame_of_the_last_block(n_samples, hop):
+    # the wgmma route reads frame i at rows[:, hop * i] for every frame of
+    # every 128-frame block it runs: the zero-padded frames of the plain
+    # version, then zeros, in rows of a multiple of 64 samples
+    cfg = MelConfig(hopsize=hop)
+    wave = torch.from_numpy(_wave(2, n_samples, seed=n_samples))
+    n_frames = cfg.num_frames(n_samples)
+    rows = mel_kernel._block_rows(wave, cfg, n_frames)
+    blocks = -(-n_frames // mel_kernel.BLOCK) * mel_kernel.BLOCK
+    assert rows.is_contiguous() and rows.shape[1] % 64 == 0
+    assert rows.shape[1] >= hop * (blocks - 1) + cfg.n_fft
+    frames = rows.unfold(1, cfg.n_fft, hop)
+    assert frames.shape[1] >= blocks
+    want = frame_signal(wave, cfg.n_fft, hop, n_frames, pad_mode="constant")
+    torch.testing.assert_close(frames[:, :n_frames], want, rtol=0, atol=0)
+    assert not frames[:, n_frames:blocks, 512 + n_samples - hop * n_frames:].any()
+
+
+def _wgmma_route_plain(wave, banks, cfg, mel_parts):
+    """The wgmma route's function in plain torch, its mel product from the
+    operand the wrapper hands the kernel: the bf16x3 DFT of the plain
+    version, then the power and the tiled banks^T parts in ``mel_parts``
+    bf16 parts (3: the kernel's; 2: a bf16x3 mel product, the third part of
+    banks^T folded into the second) and the products of parts i + j <
+    mel_parts summed in fp32, smallest first, as the kernel sums them."""
+    n_bins = cfg.n_fft // 2
+    frames = frame_signal(wave, cfg.n_fft, cfg.hopsize,
+                          cfg.num_frames(wave.shape[1]), pad_mode="constant")
+    bhi, blo = (torch.from_numpy(mel_kernel._folded_basis_split(1024, 800, p))
+                for p in (0, 1))
+    fh, fl = (f.float() for f in mel_kernel.bf16_split(frames, 2))
+    proj = fh @ bhi + (fh @ blo + fl @ bhi)
+    power = proj[..., :n_bins] ** 2 + proj[..., n_bins:] ** 2
+    bt = _untile_banks(mel_kernel._tiled_banks(banks, cfg.n_fft))[:, :, :cfg.n_mels]
+    if mel_parts == 2:
+        bt = torch.stack([bt[0], bt[1] + bt[2]])
+    pw = [p.float() for p in mel_kernel.bf16_split(power, mel_parts)]
+    mel = sum(pw[i] @ bt[level - i]
+              for level in reversed(range(mel_parts)) for i in range(level + 1))
+    out = ((torch.log(mel + 1e-5) + 4.5) / 5.0).transpose(1, 2).contiguous()
+    return mel_kernel._patch_edges(out, wave, banks, cfg)
+
+
+@pytest.mark.parametrize("hop", [320, 640])
+def test_wgmma_mel_product_emulation_holds_fp32(hop):
+    # on impulse waves (one nonzero sample a frame) the DFT is exact in any
+    # order, so the pre-log mel sums show the mel product alone: the route's
+    # six products from its tiled operand meet chip_smoke.py's 4e-7 bound
+    # against the plain version's fp32 GEMM, a bf16x3 mel product misses it,
+    # and the 1e-4 bound on the log cannot tell the two apart
+    import chip_smoke
+
+    cfg = MelConfig(hopsize=hop)
+    banks = _banks(cfg)
+    wave = torch.from_numpy(chip_smoke.impulse_waves(samples=64000))
+    frames = frame_signal(wave, 1024, hop, cfg.num_frames(64000), pad_mode="constant")
+    assert ((frames != 0).sum(-1) <= 1).all()
+    want = mel_kernel.stft_log_mel_plain(wave, banks, cfg, "bf16x3")
+    six, three = (_wgmma_route_plain(wave, banks, cfg, parts) for parts in (3, 2))
+    assert chip_smoke.mel_sum_gap(six, want) <= chip_smoke.TOL_PROBE_MEL_SUMS
+    assert chip_smoke.mel_sum_gap(three, want) > chip_smoke.TOL_PROBE_MEL_SUMS
+    assert (three - want).abs().max() < ATOL_KERNEL_VS_PLAIN["bf16x3"]
+
+
 # (batch, samples, hop, n_mels): 320123 samples make rows that are not a
 # multiple of 4 and 1001 / 501 frames, a ragged last tile of 128 or 64
 # frames; then one clip of the least length, and single, partly filled tiles
@@ -394,11 +542,13 @@ def test_kernel_matches_plain_on_card(batch, n_samples, hop, n_mels, precision):
     cfg = MelConfig(hopsize=hop, n_mels=n_mels)
     wave = torch.from_numpy(_wave(batch, n_samples, seed=5)).cuda()
     banks = _banks(cfg, device="cuda")
-    before = mel_kernel.LAUNCHES[precision]
+    route = mel_kernel.k1_route(cfg, precision)
+    before = mel_kernel.LAUNCHES[precision], mel_kernel.ROUTE_LAUNCHES[route]
     got = mel_kernel.stft_log_mel(wave, banks, cfg, precision)
     torch.cuda.synchronize()
     groups = -(-n_mels // mel_kernel.MELS_A_LAUNCH)
-    assert mel_kernel.LAUNCHES[precision] == before + groups
+    assert (mel_kernel.LAUNCHES[precision],
+            mel_kernel.ROUTE_LAUNCHES[route]) == (before[0] + groups, before[1] + groups)
     want = mel_kernel.stft_log_mel_plain(wave, banks, cfg, precision)
     assert got.shape == want.shape == (batch, n_mels, cfg.num_frames(n_samples))
     torch.testing.assert_close(got, want, rtol=0,
@@ -438,3 +588,86 @@ def test_kernel_slices_a_batch_over_the_grid_limit():
     want = mel_kernel.stft_log_mel_plain(wave[ends], banks, cfg, "fp32")
     torch.testing.assert_close(got[ends], want, rtol=0,
                                atol=ATOL_KERNEL_VS_PLAIN["fp32"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hop", [320, 640])
+def test_wgmma_route_mel_product_at_fp32_on_card(hop):
+    # the route's pre-log mel sums against its plain version's fp32 GEMM on
+    # impulse waves (chip_smoke.py's k1_mel_sums; a bf16x3 product misses it)
+    import chip_smoke
+
+    cfg = MelConfig(hopsize=hop)
+    banks = _banks(cfg, device="cuda")
+    wave = torch.from_numpy(chip_smoke.impulse_waves(samples=96000)).cuda()
+    before = mel_kernel.ROUTE_LAUNCHES["wgmma"]
+    got = mel_kernel.stft_log_mel(wave, banks, cfg, "bf16x3")
+    assert mel_kernel.ROUTE_LAUNCHES["wgmma"] == before + 1
+    want = mel_kernel.stft_log_mel_plain(wave, banks, cfg, "bf16x3")
+    assert chip_smoke.mel_sum_gap(got, want) <= chip_smoke.TOL_PROBE_MEL_SUMS
+
+
+@pytest.mark.cuda
+def test_wgmma_route_slices_a_batch_over_the_grid_limit():
+    # 65536 clips, one more than a launch takes: two launches of the wgmma
+    # route, the first and the last clip each against the plain version
+    cfg = MelConfig()
+    batch = mel_kernel.MAX_ROWS + 1
+    g = torch.Generator(device="cuda").manual_seed(12)
+    wave = 0.1 * torch.randn(batch, 4096, generator=g, device="cuda")
+    banks = _banks(cfg, device="cuda")
+    before = mel_kernel.ROUTE_LAUNCHES["wgmma"]
+    got = mel_kernel.stft_log_mel(wave, banks, cfg, "bf16x3")
+    torch.cuda.synchronize()
+    assert mel_kernel.ROUTE_LAUNCHES["wgmma"] == before + 2
+    assert got.shape == (batch, cfg.n_mels, cfg.num_frames(4096))
+    ends = [0, batch - 1]
+    want = mel_kernel.stft_log_mel_plain(wave[ends], banks, cfg, "bf16x3")
+    torch.testing.assert_close(got[ends], want, rtol=0,
+                               atol=ATOL_KERNEL_VS_PLAIN["bf16x3"])
+
+
+@pytest.mark.cuda
+def test_wgmma_route_raises_on_wrong_input_on_card():
+    from efficientat_tpu_torch.ops._build import load_library
+
+    cfg = MelConfig()
+    banks = _banks(cfg, device="cuda")
+    wave = torch.from_numpy(_wave(2, 32000)).cuda()
+    tiled = mel_kernel._tiled_banks(banks, cfg.n_fft)
+    for bad in (dict(wave=wave.double()), dict(wave=wave[:, ::2]),
+                dict(banks=banks.cpu()), dict(tiled_banks=tiled.float()),
+                dict(tiled_banks=tiled.cpu()), dict(tiled_banks=tiled[:8])):
+        args = {"wave": wave, "banks": banks, "tiled_banks": tiled, **bad}
+        with pytest.raises(ValueError):
+            mel_kernel.stft_log_mel(args["wave"], args["banks"], cfg, "bf16x3",
+                                    tiled_banks=args["tiled_banks"])
+    # the entry refuses what it does not take, and the wrapper would raise
+    # on its code: no batch, a hop that is not a multiple of 64
+    lib = mel_kernel._bind(load_library("mel_kernel"))
+    rows = mel_kernel._block_rows(wave, cfg, 101)
+    out = torch.empty((2, 128, 101), device="cuda")
+    bhi, blo = (device_const(mel_kernel._tiled_basis, (1024, 800, True, p), "cuda",
+                             torch.bfloat16) for p in (0, 1))
+    for batch, hop in ((0, 320), (2, 330)):
+        assert lib.eat_mel_log_wgmma(rows.data_ptr(), batch, rows.shape[1], hop, 101,
+                                     bhi.data_ptr(), blo.data_ptr(), tiled.data_ptr(),
+                                     128, out.data_ptr(),
+                                     torch.cuda.current_stream().cuda_stream) != 0
+
+
+@pytest.mark.cuda
+def test_serving_mel_takes_the_tiled_banks_once_on_card():
+    # two serving calls through log_mel_spectrogram_fused tile the banks
+    # once, and equal the route with the banks tiled in the call
+    cfg = MelConfig()
+    wave = torch.from_numpy(_wave(2, 32000, seed=13)).cuda()
+    first = mel_kernel.log_mel_spectrogram_fused(wave, cfg, backend="kernel")
+    misses = mel_kernel._serving_tiled_banks.cache_info().misses
+    before = mel_kernel.ROUTE_LAUNCHES["wgmma"]
+    second = mel_kernel.log_mel_spectrogram_fused(wave, cfg, backend="kernel")
+    assert mel_kernel._serving_tiled_banks.cache_info().misses == misses
+    assert mel_kernel.ROUTE_LAUNCHES["wgmma"] == before + 1
+    want = mel_kernel.stft_log_mel(wave, _banks(cfg, device="cuda"), cfg, "bf16x3")
+    torch.testing.assert_close(first, want, rtol=0, atol=0)
+    torch.testing.assert_close(second, want, rtol=0, atol=0)

@@ -77,7 +77,7 @@ def test_profile_traces_one_k1_kernel_a_predict(tmp_path):
     events = _profile(tmp_path / "trace", "cuda", model_name="mn10_as", batch=4,
                       seconds=10, iters=iters)
     k1 = [e for e in events
-          if e.get("cat") == "kernel" and "mel_kernel_tc" in e.get("name", "")]
+          if e.get("cat") == "kernel" and "mel_kernel_wgmma" in e.get("name", "")]
     assert len(k1) == iters
     # the warm-up predict outside the trace launched K1 as well
     assert mel_kernel.LAUNCHES["bf16x3"] - before == iters + 1

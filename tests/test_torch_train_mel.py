@@ -222,12 +222,16 @@ def test_training_kernel_matches_plain_on_card(n_mels, precision):
     cpu_banks = tfb.kaldi_mel_banks(n_mels, cfg.n_fft, cfg.sr,
                                     *tmel.jittered_fmin_fmax(cfg, draws, "cpu"))
     torch.testing.assert_close(banks.cpu(), cpu_banks, rtol=0, atol=ATOL_BANKS)
-    before = mel_kernel.LAUNCHES[precision]
+    # the jittered banks: the wgmma route (bf16x3 at 128 mels) tiles them in
+    # the call; mel_kernel_tc takes them as they are
+    route = mel_kernel.k1_route(cfg, precision)
+    before = mel_kernel.LAUNCHES[precision], mel_kernel.ROUTE_LAUNCHES[route]
     got = mel_kernel.log_mel_spectrogram_fused(wave, cfg, training=True,
                                                draws=draws,
                                                dft_precision=precision)
     torch.cuda.synchronize()
-    assert mel_kernel.LAUNCHES[precision] == before + 1
+    assert (mel_kernel.LAUNCHES[precision],
+            mel_kernel.ROUTE_LAUNCHES[route]) == (before[0] + 1, before[1] + 1)
     plain = tmel.apply_masks(
         mel_kernel.stft_log_mel_plain(wave, banks, cfg, precision), cfg, draws, 0.9)
     assert got.shape == (4, n_mels, 1000)
@@ -241,7 +245,9 @@ def test_training_mel_on_card_never_leaves_it():
     cfg = tmel.MelConfig()
     wave = torch.from_numpy(_wave(2, 32000, seed=10)).cuda()
     draws = tmel.draw_mel_augment(cfg, 2, 100, torch.Generator().manual_seed(3))
-    before = mel_kernel.LAUNCHES["bf16x3"]
+    before = mel_kernel.LAUNCHES["bf16x3"], mel_kernel.ROUTE_LAUNCHES["wgmma"]
     mel = mel_kernel.log_mel_spectrogram_fused(wave, cfg, training=True,
                                                draws=draws)
-    assert mel.is_cuda and mel_kernel.LAUNCHES["bf16x3"] == before + 1
+    assert mel.is_cuda and (mel_kernel.LAUNCHES["bf16x3"],
+                            mel_kernel.ROUTE_LAUNCHES["wgmma"]) == (before[0] + 1,
+                                                                    before[1] + 1)
