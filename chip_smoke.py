@@ -10,17 +10,17 @@ seeded random weights, in phases that each print a line:
 2. build: K1 (``efficientat_tpu_torch/csrc/mel_kernel.cu``, which
    includes ``csrc/mel_wgmma.cuh``) with nvcc, and the ptxas registers and
    spills of each of its kernels: ``mel_kernel_wgmma<2, false, 3, 128>``
-   (bf16x3 at up to 128 mels, the "wgmma" route) and
-   ``mel_kernel_tc<TILE, PARTS>`` (PARTS 2: bf16x3 at 129-256 mels, 64-frame
-   tiles; 3: fp32);
+   and ``<2, false, 6, 128>`` (bf16x3 and fp32 at up to 128 mels, the
+   "wgmma" and "wgmma_fp32" routes) and ``mel_kernel_tc<64, PARTS>``
+   (129-256 mels; PARTS 2: bf16x3, 3: fp32);
 3. K1 against its plain PyTorch version and a float64 oracle on the
-   selftest waves, hop 320 and 640, fp32 and bf16x3 (and bf16x3 at 40 and
+   selftest waves, hop 320 and 640, fp32 and bf16x3 (and both at 40 and
    64 mels against the plain version); two controls that must miss the
    kernel-vs-plain bound: K1 bf16x3 on banks rounded to bf16 against
-   bf16x3's plain version, and K1 bf16x3 against fp32's; the wgmma route's
-   pre-log mel sums on impulse waves against the plain version's fp32 GEMM
-   (a bf16x3 mel product must miss that bound); every bf16x3 call on the
-   wgmma route;
+   bf16x3's plain version, and K1 bf16x3 against fp32's; each wgmma route's
+   pre-log mel sums on impulse waves against its plain version's fp32 GEMM
+   (a bf16x3 mel product must miss that bound, and K1 bf16x3 fp32's); every
+   call on the wgmma route of its precision;
 4. the slice: a B=64 batch of 10 s clips (the demo clip and seeded
    variants) as f32, int16 and mu-law uint8; K1 must have been launched,
    and the card's probs must agree with the CPU's (Taggers with the DFT in
@@ -312,8 +312,10 @@ PROBE_PLAIN = {mel_probe.variant_mel: mel_probe.variant_mel_plain,
                mel_probe.variant_mel_e: mel_probe.variant_mel_e_plain}
 # the variant of each kernel that stands for it in the kernels line
 PROBE_ROW = {"P1": "folded_t128", "P2": "t128", "P3": "passes3"}
-# the body of the wgmma kernel, K1 bf16x3's at up to 128 mels and P1-P3's
+# the body of the wgmma kernel, K1's at up to 128 mels and P1-P3's, and
+# K1's routes to it
 WGMMA_SOURCE = "efficientat_tpu_torch/csrc/mel_wgmma.cuh"
+WGMMA_ROUTES = tuple(mel_kernel.WGMMA_ROUTES.values())
 # K1's bf16 products by precision: parts i and j with i + j < parts
 DFT_PASSES = {prec: n * (n + 1) // 2 for prec, n in mel_kernel.PARTS.items()}
 # H100 SXM dense peaks (NVIDIA's data sheet): bf16 tensor cores, fp32 CUDA
@@ -374,13 +376,15 @@ def reset_k1_launches():
     mel_kernel.ROUTE_LAUNCHES.update(dict.fromkeys(mel_kernel.ROUTE_LAUNCHES, 0))
 
 
-def k1_wgmma_launches():
-    """K1 bf16x3's launches since ``reset_k1_launches``, each of which must
-    have gone through the wgmma route (``mel_kernel.k1_route`` sends it a
-    bank of at most 128 mels: every path's but phase 18's 256-mel one)."""
-    launches = mel_kernel.ROUTE_LAUNCHES["wgmma"]
-    check(launches == mel_kernel.LAUNCHES["bf16x3"],
-          f"K1 bf16x3 took another route than wgmma: {mel_kernel.ROUTE_LAUNCHES}")
+def k1_wgmma_launches(prec="bf16x3"):
+    """K1's launches at ``prec`` since ``reset_k1_launches``, each of which
+    must have gone through that precision's wgmma route ("wgmma" or
+    "wgmma_fp32": ``mel_kernel.k1_route`` sends it a bank of at most 128
+    mels, every path's but phase 18's 256-mel one)."""
+    route = mel_kernel.WGMMA_ROUTES[prec]
+    launches = mel_kernel.ROUTE_LAUNCHES[route]
+    check(launches == mel_kernel.LAUNCHES[prec],
+          f"K1 {prec} took another route than {route}: {mel_kernel.ROUTE_LAUNCHES}")
     return launches
 
 
@@ -555,7 +559,7 @@ def run_step(sd, batch, draws, device, dp=None, dft_precision=None,
     metrics = train_step(net, opt, None, mel_cfg, loss_cfg, tensors, draws,
                          dp=dp, dft_precision=dft_precision,
                          temperature=temperature)
-    launches = mel_kernel.LAUNCHES[dft_precision or "bf16x3"]
+    launches = k1_wgmma_launches(dft_precision or "bf16x3")
     return {"loss": float(metrics["train_loss"]), "x": seen["x"],
             "launches": launches,
             "grads": {n: p.grad.detach().cpu() for n, p in model.named_parameters()},
@@ -933,8 +937,8 @@ def mel_bound_ms(batch, samples, n_mels, dft, mel="fp32"):
     sets it: the DFT products and the mel product, each as ``dft`` / ``mel``
     bf16 passes at the tensor-core rate (6 for an fp32 split) or "fp32" at
     the CUDA-core rate, against the wave read once and the output written
-    once. The wgmma kernel (K1 bf16x3 at up to 128 mels, the probe) runs
-    its mel product as 6 bf16 passes, mel_kernel_tc on the CUDA cores
+    once. The wgmma kernel (K1 at up to 128 mels, the probe) runs its mel
+    product as 6 bf16 passes, mel_kernel_tc on the CUDA cores
     (``k1_bound_ms``)."""
     frames = batch * ((samples - 1) // 320 + 1)
 
@@ -952,14 +956,14 @@ def k1_bound_ms(batch, n_mels, prec):
     priced as the route that ``k1_route`` gives it computes it."""
     route = mel_kernel.k1_route(MelConfig(n_mels=n_mels), prec)
     return mel_bound_ms(batch, CLIP, n_mels, DFT_PASSES[prec],
-                        PROBE_MEL_PASSES if route == "wgmma" else "fp32")
+                        PROBE_MEL_PASSES if route in WGMMA_ROUTES else "fp32")
 
 
 K1_SOURCE = "efficientat_tpu_torch/csrc/mel_kernel.cu"
 
 
 def serving_ms(rec):
-    """A serving path's K1 call from a ``time_k1`` record: the wgmma route's
+    """A serving path's K1 call from a ``time_k1`` record: a wgmma route's
     with the banks tiled beforehand, as the Tagger calls it, else the call."""
     return statistics.mean(rec["serving_ms"] or rec["kernel_ms"])
 
@@ -969,8 +973,9 @@ def k1_row(prec, path, batch, n_mels=128, dp=False, **fields):
     at ``prec`` on ``batch`` clips a launch and an ``n_mels`` bank, on the
     kernel ``k1_route`` gives it."""
     route = mel_kernel.k1_route(MelConfig(n_mels=n_mels), prec)
-    wgmma = route == "wgmma"
-    return {"name": ("mel_kernel_wgmma" if wgmma else "mel_kernel_tc") + ("_dp" if dp else ""),
+    wgmma = route in WGMMA_ROUTES
+    name = (("mel_kernel_" + route) if wgmma else "mel_kernel_tc") + ("_dp" if dp else "")
+    return {"name": name,
             "path": path, "route": "cuda",
             "source": WGMMA_SOURCE if wgmma else K1_SOURCE,
             "entry": f"{K1_SOURCE}::eat_mel_log" + ("_wgmma" if wgmma else ""),
@@ -1127,7 +1132,15 @@ def phase_probe(device, card):
             if hop in (320, 640) and (staged or hop == 320):
                 plans[f"{'p2' if staged else 'p1_p3'}_plan_hop{hop}"] = json.dumps(
                     dict(zip(("smem_bytes", "warpgroups", "kc"), plan)))
-    phase("probe_design", design=repr(mel_probe.DESIGN), ring=mel_probe.RING,
+    # K1 fp32's plan: ring slots of three basis parts, unstaged
+    for hop in (320, 640):
+        plan = mel_probe.card_plan(False, hop, 3)
+        check(plan == mel_probe.smem_plan(False, hop, 3),
+              f"K1 fp32's plan at hop {hop}: library {plan}, mirror "
+              f"{mel_probe.smem_plan(False, hop, 3)}")
+        plans[f"k1_fp32_plan_hop{hop}"] = json.dumps(
+            dict(zip(("smem_bytes", "warpgroups", "kc"), plan)))
+    phase("probe_design", design=repr(mel_probe.DESIGN), ring=json.dumps(mel_probe.RINGS),
           **plans)
 
     # the mel product at fp32's precision (see TOL_PROBE_MEL_SUMS)
@@ -1353,7 +1366,7 @@ def phase_dymn_slice(device, card, batch, coded):
                   probs_std=float(card_probs.std()))
             check(dev <= TOL_CARD_VS_CPU,
                   f"DyMN card vs CPU probs ({weights}, {name})")
-    fp32_launches = mel_kernel.LAUNCHES["fp32"]
+    fp32_launches = k1_wgmma_launches("fp32")
     check(fp32_launches == len(pairs) * len(coded),
           "the card's fp32 DyMN Taggers did not launch K1 fp32 once a predict")
     # what serving dymn10_im at forward's default temperature, 1, would change
@@ -1780,7 +1793,7 @@ def phase_eval_variable(device, card):
 
         reset_k1_launches()
         got = masked().cpu()
-        launches = mel_kernel.LAUNCHES["fp32"]
+        launches = k1_wgmma_launches("fp32")
         total += launches
         alone = torch.cat([eval_step(model, cfg, torch.from_numpy(c[None]).to(device),
                                      dft_precision="fp32", temperature=temperature).cpu()
@@ -2457,21 +2470,23 @@ def main():
           ptxas=repr(regs) if "mel_kernel" in _build.BUILD_LOG
           else "none: another process built the library")
     # what nvcc compiled, where this process built the library: the wgmma
-    # kernel and mel_kernel_tc's three instantiations, no <128, 2>
+    # kernel at 3 and 6 passes and mel_kernel_tc's two 64-frame
+    # instantiations, no 128-frame one
     check("mel_kernel" not in _build.BUILD_LOG or sorted(built) == [
-        "mel_kernel_tc<128,3>", "mel_kernel_tc<64,2>", "mel_kernel_tc<64,3>",
-        "mel_kernel_wgmma<2,0,3,128>"], f"K1's library built {built}")
+        "mel_kernel_tc<64,2>", "mel_kernel_tc<64,3>", "mel_kernel_wgmma<2,0,3,128>",
+        "mel_kernel_wgmma<2,0,6,128>"], f"K1's library built {built}")
 
     lap("2 build")
 
-    # 3. K1 against its plain version and the float64 oracle; K1 bf16x3 at
-    # 128, 40 and 64 mels is the wgmma route, whose mel product must hold
-    # fp32's precision (the pre-log sums on impulse waves, TOL_PROBE_MEL_SUMS)
+    # 3. K1 against its plain version and the float64 oracle; K1 at 128, 40
+    # and 64 mels is the wgmma route of its precision, whose mel product must
+    # hold fp32's precision (the pre-log sums on impulse waves,
+    # TOL_PROBE_MEL_SUMS), and at fp32 its DFT too
     waves = selftest_waves()
     wd = torch.from_numpy(waves).to(device)
     imp = torch.from_numpy(impulse_waves()).to(device)
     reset_k1_launches()
-    wgmma_calls = 0
+    calls = dict.fromkeys(("fp32", "bf16x3"), 0)
     for hop in (320, 640):
         cfg = MelConfig(hopsize=hop)
         banks = kaldi_mel_banks(cfg.n_mels, cfg.n_fft, cfg.sr, cfg.fmin,
@@ -2485,6 +2500,7 @@ def main():
         k1 = {}
         for prec in ("fp32", "bf16x3"):
             k = k1[prec] = mel_kernel.stft_log_mel(wd, banks, cfg, prec)
+            calls[prec] += 1
             torch.cuda.synchronize()
             p = mel_kernel.stft_log_mel_plain(wd, banks, cfg, prec)
             dev_plain = float((k - p).abs().max())
@@ -2501,6 +2517,7 @@ def main():
                                                  "bf16x3")
                          - mel_kernel.stft_log_mel_plain(wd, banks, cfg, "bf16x3"))
                         .abs().max())
+        calls["bf16x3"] += 1
         phase("k1_control", hop=hop, precision="bf16x3", bf16_banks_vs_plain=control,
               bound_plain=TOL_KERNEL_VS_PLAIN["bf16x3"])
         check(control > TOL_KERNEL_VS_PLAIN["bf16x3"],
@@ -2512,35 +2529,44 @@ def main():
         check(control > TOL_KERNEL_VS_PLAIN["fp32"],
               f"K1 bf16x3 passes K1 fp32's kernel bound: {control}")
         del k1
-        wgmma_calls += 2
         for n_mels in (40, 64):
             narrow = MelConfig(hopsize=hop, n_mels=n_mels)
             nb = kaldi_mel_banks(n_mels, narrow.n_fft, narrow.sr, narrow.fmin,
                                  narrow.effective_fmax, device=device)
-            dev_plain = float((mel_kernel.stft_log_mel(wd, nb, narrow, "bf16x3")
-                               - mel_kernel.stft_log_mel_plain(wd, nb, narrow, "bf16x3"))
-                              .abs().max())
-            wgmma_calls += 1
-            phase("k1_selftest", hop=hop, precision="bf16x3", n_mels=n_mels,
-                  route=mel_kernel.k1_route(narrow, "bf16x3"), vs_plain=dev_plain,
-                  bound_plain=TOL_KERNEL_VS_PLAIN["bf16x3"])
-            check(dev_plain <= TOL_KERNEL_VS_PLAIN["bf16x3"],
-                  f"K1 bf16x3 vs plain at {n_mels} mels, hop {hop}")
-        want = mel_kernel.stft_log_mel_plain(imp, banks, cfg, "bf16x3")
-        gap = mel_sum_gap(mel_kernel.stft_log_mel(imp, banks, cfg, "bf16x3"), want)
-        wgmma_calls += 1
-        control = mel_sum_gap(split_mel_plain(imp, banks, cfg, 2), want)
-        phase("k1_mel_sums", hop=hop, route="wgmma", gap=gap,
-              bf16x3_mel_product_control=control, bound=TOL_PROBE_MEL_SUMS,
-              floor=MEL_SUM_FLOOR)
-        check(control > TOL_PROBE_MEL_SUMS,
-              f"a bf16x3 mel product passes the mel-sum bound: {control}")
-        check(gap <= TOL_PROBE_MEL_SUMS,
-              f"K1 bf16x3's mel product is below fp32's precision: {gap}")
+            for prec in ("fp32", "bf16x3"):
+                dev_plain = float((mel_kernel.stft_log_mel(wd, nb, narrow, prec)
+                                   - mel_kernel.stft_log_mel_plain(wd, nb, narrow, prec))
+                                  .abs().max())
+                calls[prec] += 1
+                phase("k1_selftest", hop=hop, precision=prec, n_mels=n_mels,
+                      route=mel_kernel.k1_route(narrow, prec), vs_plain=dev_plain,
+                      bound_plain=TOL_KERNEL_VS_PLAIN[prec])
+                check(dev_plain <= TOL_KERNEL_VS_PLAIN[prec],
+                      f"K1 {prec} vs plain at {n_mels} mels, hop {hop}")
+        # the pre-log mel sums on impulse waves, each route against its plain
+        # version; the controls: a bf16x3 mel product against bf16x3's, K1
+        # bf16x3 (its DFT at 2^-16) against fp32's
+        sums = {prec: mel_kernel.stft_log_mel(imp, banks, cfg, prec)
+                for prec in ("fp32", "bf16x3")}
+        for prec in sums:
+            calls[prec] += 1
+        want = {prec: mel_kernel.stft_log_mel_plain(imp, banks, cfg, prec)
+                for prec in sums}
+        gaps = {prec: mel_sum_gap(sums[prec], want[prec]) for prec in sums}
+        controls = {"bf16x3_mel_product_vs_bf16x3": mel_sum_gap(
+                        split_mel_plain(imp, banks, cfg, 2), want["bf16x3"]),
+                    "k1_bf16x3_vs_fp32": mel_sum_gap(sums["bf16x3"], want["fp32"])}
+        phase("k1_mel_sums", hop=hop, fp32_gap=gaps["fp32"], bf16x3_gap=gaps["bf16x3"],
+              **controls, bound=TOL_PROBE_MEL_SUMS, floor=MEL_SUM_FLOOR)
+        check(min(controls.values()) > TOL_PROBE_MEL_SUMS,
+              f"a lower-precision control passes the mel-sum bound: {controls}")
+        check(max(gaps.values()) <= TOL_PROBE_MEL_SUMS,
+              f"K1's mel sums are below fp32's precision: {gaps}")
+        del sums, want
     phase("k1_routes", launches=json.dumps(mel_kernel.ROUTE_LAUNCHES))
-    check(k1_wgmma_launches() == wgmma_calls,
-          f"phase 3's bf16x3 calls did not all launch the wgmma route: "
-          f"{mel_kernel.ROUTE_LAUNCHES}")
+    check(all(k1_wgmma_launches(prec) == n for prec, n in calls.items()),
+          f"phase 3's calls did not all launch their wgmma route: "
+          f"{mel_kernel.ROUTE_LAUNCHES}, calls {calls}")
     del imp
 
     lap("3 K1 selftest")
@@ -2583,7 +2609,7 @@ def main():
                   max_abs=dev, bound=TOL_CARD_VS_CPU,
                   probs_std=float(card_probs.std()))
             check(dev <= TOL_CARD_VS_CPU, f"card vs CPU probs ({weights}, {name})")
-    slice_fp32_launches = mel_kernel.LAUNCHES["fp32"]
+    slice_fp32_launches = k1_wgmma_launches("fp32")
     phase("slice_vs_cpu_k1", precision="fp32", k1_launches=slice_fp32_launches)
     check(slice_fp32_launches == len(pairs) * len(coded),
           "the card's fp32 Taggers did not launch K1 fp32 once a predict")
@@ -2592,9 +2618,8 @@ def main():
           labels=json.dumps([(lab, round(p, 4)) for lab, p in top5]))
 
     # 5. K1 against its plain version in turns at B=64 of 10 s clips
-    # (tools.time_k1): the tagger's 128 mels (bf16x3 on the wgmma route,
-    # fp32 on mel_kernel_tc's 128-frame blocks) and 256 (mel_kernel_tc's
-    # 64-frame blocks, the widest bank of one launch)
+    # (tools.time_k1): the tagger's 128 mels (the wgmma routes) and 256
+    # (mel_kernel_tc's 64-frame blocks, the widest bank of one launch)
     cfg = tagger.mel_cfg
     times = {}
     for n_mels in (cfg.n_mels, 2 * cfg.n_mels):
@@ -2789,9 +2814,9 @@ def main():
           bf16x3_cuda_core_mel_bound_ms=mel_bound_ms(BATCH, CLIP, cfg.n_mels,
                                                      DFT_PASSES["bf16x3"])[0],
           gemm_kind=GEMM_KIND[0], card=repr(card))
-    check(all(row["name"].startswith("mel_kernel_wgmma") and row["launches"] >= 1
-              for row in kernels if row["precision"] == "bf16x3" and row["n_mels"] <= 128),
-          "a bf16x3 path at up to 128 mels did not launch the wgmma route")
+    check(all(row["kernel"] == mel_kernel.ROUTE_KERNELS[mel_kernel.WGMMA_ROUTES[row["precision"]]]
+              and row["launches"] >= 1 for row in kernels if row["n_mels"] <= 128),
+          "a path at up to 128 mels did not launch the wgmma route of its precision")
 
     lap("bounds and yardsticks")
     kernels.extend(probe_rows)

@@ -13,13 +13,13 @@
 //
 // Two kernels, chosen by the wrapper from its arguments
 // (ops/mel_kernel.py::k1_route):
-//   bf16x3 (the serving and training default) at n_mels <= 128:
+//   at n_mels <= 128, bf16x3 (the serving and training default) and fp32:
 //     eat_mel_log_wgmma, the Hopper design of csrc/mel_wgmma.cuh
-//     (mel_kernel_wgmma<2, false, 3, 128>: wgmma DFT, the basis through a
+//     (mel_kernel_wgmma<2, false, 3 | 6, 128>: wgmma DFT, the basis through a
 //     bulk-copy ring, the mel product on the tensor cores at fp32's
 //     precision); that header describes it;
-//   fp32, and bf16x3 at 129-256 mels: eat_mel_log, mel_kernel_tc<TILE,
-//     PARTS> below, whose mel product is fp32 FMAs on the CUDA cores.
+//   at 129-256 mels: eat_mel_log, mel_kernel_tc<64, PARTS> below, whose mel
+//     product is fp32 FMAs on the CUDA cores.
 //
 // mel_kernel_tc runs the DFT on the tensor cores as products of bf16 parts
 // summed in fp32. The basis comes split into PARTS bf16 parts
@@ -51,12 +51,11 @@
 //
 // The frames come from rows the wrapper prepares: the raw wave behind a
 // 512-sample zero pad, frame i at x[hop * i], 16-byte aligned.
-// A block of 8 warps owns a tile of TILE frames and walks the 512 bins in
-// chunks of 32 (32 cos + the 32 matching sin columns, 8 n-tiles of 8).
-// TILE is 128 for fp32 at n_mels <= 128 (a warp: 16 frames x the chunk's 8
-// n-tiles) and 64 otherwise, up to 256 mels (a warp: 16 frames x 2 cos + 2 sin
-// n-tiles, two warps a chunk), so the fp32 mel accumulators, which stay in
-// registers for the whole tile, are 64 a thread either way. A wider bank is
+// A block of 8 warps owns a tile of TILE = 64 frames and walks the 512 bins
+// in chunks of 32 (32 cos + the 32 matching sin columns, 8 n-tiles of 8): a
+// warp takes 16 frames x 2 cos + 2 sin n-tiles, two warps a chunk, so that
+// the fp32 mel accumulators of up to 256 mels, which stay in registers for
+// the whole tile, are 64 a thread. A wider bank is
 // computed in launches of at most 256 mels, each writing its rows of the
 // output and redoing the DFT (the wrapper's mel groups).
 // The basis is streamed through a ring of RING stages in shared memory by
@@ -64,7 +63,7 @@
 // part (16 KB a part: 32 KB in bf16x3, 48 KB in fp32), so a block reads the
 // basis from L2 once a tile. The warps read their B fragments from a stage
 // as 16-byte reads of 8 consecutive samples of a column (two 8-byte reads
-// in fp32 at 64-frame blocks, which split one group of A at a time), and
+// in fp32, which splits one group of A at a time), and
 // their A fragments as 16-byte loads of 8 consecutive samples of their frame
 // rows, straight from device memory (L1): the reduction runs over a
 // permutation of the samples that is the same for both operands, so the
@@ -213,10 +212,9 @@ mel_kernel_tc(const float* __restrict__ x, int row_len, int hop, int n_frames,
   constexpr int ML = 4 * THREADS / TILE; // mel lanes: a thread has 4 frames x MJ mels
   constexpr int STAGE = PARTS * STAGE_PART;
   // 16-sample groups of A fragments split and live at a time: both, but one
-  // in fp32 at 64-frame blocks, where that measured about 9 % faster at 256
-  // mels on an H100 (tools/time_k1.py); it reads each B fragment as two
-  // 8-byte halves
-  constexpr int GROUPS = PARTS == 3 && TILE == 64 ? 1 : 2;
+  // in fp32, where that measured about 9 % faster at 256 mels on an H100
+  // (tools/time_k1.py); it reads each B fragment as two 8-byte halves
+  constexpr int GROUPS = PARTS == 3 ? 1 : 2;
   static_assert(THREADS / 32 * NT == FG * 8, "the warps cover a chunk once");
   static_assert(PARTS == 2 || PARTS == 3, "bf16x3 or fp32");
   extern __shared__ __align__(16) unsigned char smem_tc[];
@@ -385,23 +383,6 @@ cudaError_t launch(const float* x, int B, int row_len, int hop, int n_frames, Ba
   return cudaGetLastError();
 }
 
-// frames a block: 128 x 128 or 64 x 256 mel accumulators, 64 a thread.
-// bf16x3 takes 64-frame blocks at any width: at <= 128 mels the wrapper
-// launches eat_mel_log_wgmma, and this kernel sees only the narrow last
-// group of a bank wider than 256 mels
-template <int PARTS>
-cudaError_t launch_parts(const float* x, int B, int row_len, int hop, int n_frames,
-                         Basis basis, const float* banks_t, int n_mels, float* out,
-                         int out_mels, cudaStream_t stream) {
-  if constexpr (PARTS == 3) {
-    if (n_mels <= 128)
-      return launch<128, 3>(x, B, row_len, hop, n_frames, basis, banks_t, n_mels, out,
-                            out_mels, stream);
-  }
-  return launch<64, PARTS>(x, B, row_len, hop, n_frames, basis, banks_t, n_mels, out,
-                           out_mels, stream);
-}
-
 }  // namespace
 
 // rows: the kernel's rows (B, S) f32, the raw wave behind a 512-sample zero
@@ -426,27 +407,33 @@ extern "C" int eat_mel_log(const float* rows, int B, int S, int hop, int n_frame
                         static_cast<const __nv_bfloat16*>(b1),
                         static_cast<const __nv_bfloat16*>(b2)}};
   if (parts == 2)
-    return (int)launch_parts<2>(rows, B, S, hop, n_frames, basis, banks_t, n_mels, out,
-                                out_mels, s);
+    return (int)launch<64, 2>(rows, B, S, hop, n_frames, basis, banks_t, n_mels, out, out_mels,
+                              s);
   if (parts == 3)
-    return (int)launch_parts<3>(rows, B, S, hop, n_frames, basis, banks_t, n_mels, out,
-                                out_mels, s);
+    return (int)launch<64, 3>(rows, B, S, hop, n_frames, basis, banks_t, n_mels, out, out_mels,
+                              s);
   return (int)cudaErrorInvalidValue;
 }
 
-// bf16x3 at n_mels <= 128 on mel_kernel_wgmma<2, false, 3, 128>, one
-// 128-frame sub-tile a block: rows (B, S) f32 as ops/mel_kernel.py::
-// _block_rows makes them (the raw wave behind a 512-sample zero pad, frame i
-// at rows[:, hop * i], S a multiple of 4 holding every frame of the last
-// 128-frame block, hop a multiple of 64); bhi, blo the folded basis's bf16
-// parts tiled by _tiled_basis; mel banks^T in three bf16 parts tiled by
-// _tiled_banks; out (B, n_mels, n_frames) f32. B <= 65535. All contiguous on
-// the device. Returns the launch's cudaError_t (0 = success).
+// n_mels <= 128, one 128-frame sub-tile a block, on mel_kernel_wgmma<2,
+// false, 3, 128> (parts 2: bf16x3) or <2, false, 6, 128> (parts 3: fp32):
+// rows (B, S) f32 as ops/mel_kernel.py::_block_rows makes them (the raw wave
+// behind a 512-sample zero pad, frame i at rows[:, hop * i], S a multiple of
+// 4 holding every frame of the last 128-frame block, hop a multiple of 64);
+// b0, b1, b2 the folded basis's bf16 parts tiled by _tiled_basis (b2 unread
+// at parts 2); mel banks^T in three bf16 parts tiled by _tiled_banks; out
+// (B, n_mels, n_frames) f32. B <= 65535. All contiguous on the device.
+// Returns the launch's cudaError_t (0 = success).
 extern "C" int eat_mel_log_wgmma(const float* rows, int B, int S, int hop, int n_frames,
-                                 const void* bhi, const void* blo, const void* mel,
-                                 int n_mels, float* out, void* stream) {
-  return (int)mel_wgmma::launch<false, 3>(rows, B, S, hop, n_frames, 128, bhi, blo, mel,
-                                          n_mels, out, stream);
+                                 const void* b0, const void* b1, const void* b2, int parts,
+                                 const void* mel, int n_mels, float* out, void* stream) {
+  if (parts == 2)
+    return (int)mel_wgmma::launch<false, 3>(rows, B, S, hop, n_frames, 128, b0, b1, nullptr,
+                                            mel, n_mels, out, stream);
+  if (parts == 3)
+    return (int)mel_wgmma::launch<false, 6>(rows, B, S, hop, n_frames, 128, b0, b1, b2, mel,
+                                            n_mels, out, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" const char* eat_error_string(int err) {

@@ -1,21 +1,26 @@
-// The Hopper design of the fused log-mel at bf16x3, CUDA C++ for sm_90a:
-// one kernel body, mel_kernel_wgmma<WG, STAGED, PASSES, KC>, and its launch.
+// The Hopper design of the fused log-mel at bf16x3 and fp32, CUDA C++ for
+// sm_90a: one kernel body, mel_kernel_wgmma<WG, STAGED, PASSES, KC>, and its
+// launch.
 //
 // Two libraries include this header and launch it:
-//   K1 bf16x3 at n_mels <= 128, csrc/mel_kernel.cu::eat_mel_log_wgmma
-//     (mel_kernel_wgmma<2, false, 3, 128>), in place of the Pallas kernel
-//     efficientat_tpu/ops/mel_pallas.py::_mel_kernel at bf16x3;
+//   K1 at n_mels <= 128, csrc/mel_kernel.cu::eat_mel_log_wgmma: bf16x3
+//     (mel_kernel_wgmma<2, false, 3, 128>) and fp32 (<2, false, 6, 128>), in
+//     place of the Pallas kernel efficientat_tpu/ops/mel_pallas.py::_mel_kernel
+//     at bf16x3 and at Precision.HIGHEST (its DFT at :190-192);
 //   the probe variants P1-P3, csrc/mel_probe_kernel.cu, in place of the
 //     Pallas kernels of scripts/probe_mel_kernel.py.
 // For one clip and one tile of frames, in one kernel:
 //   frame i is x[hop * i, hop * i + 1024) of the row the wrapper prepares
 //   (ops/mel_kernel.py::_block_rows: the raw wave behind a 512-sample zero
 //   pad for the folded basis, or the pre-emphasised, reflect-padded wave for
-//   the probe's plain one), split here into bf16 hi + lo (fh = bf16(f),
-//   fl = bf16(f - fh));
-//   times the basis, split into bf16 hi + lo by the wrapper (1024 x 1024:
-//   512 cos columns, then 512 sin columns, no Nyquist bin), in PASSES:
+//   the probe's plain one), split here into bf16 parts (part 0 = bf16(f),
+//   part p the bf16 of what parts 0 .. p-1 leave): hi + lo, or hi + mid + lo
+//   at 6 passes;
+//   times the basis, split into as many bf16 parts by the wrapper (1024 x
+//   1024: 512 cos columns, then 512 sin columns, no Nyquist bin), in PASSES:
 //     3:  fh * bhi + (fh * blo + fl * bhi)   (the JAX package's bf16x3)
+//     6:  fh * bhi + (the five products of parts i + j < 3 but hi * hi)
+//         (fp32: the six passes the TPU runs for Precision.HIGHEST)
 //     21: fh * bhi + fl * bhi    (frames exact, basis hi only; P3)
 //     22: fh * bhi + fh * blo    (basis exact, frames hi only; P3)
 //   -> power re^2 + im^2 -> times banks^T (512 x n_mels, n_mels <= 128) at
@@ -28,8 +33,9 @@
 // DFT product, 64,000 x 1024 x 1024 x 2 = 134.2 GFLOP a pass, 402.7 GFLOP for
 // 3 passes, 0.41 ms at 989 TFLOP/s bf16; the mel product, 8.4 GFLOP, here 6
 // bf16 passes on the tensor cores, 0.05 ms; 0.46 ms together (0.32 ms at 2
-// DFT passes). The bytes (82 MB of wave, 33 MB of output) take 34 us at 3.35
-// TB/s, so the arithmetic bounds every variant. What held the first CUDA
+// DFT passes; 0.865 ms at fp32's 6, 805.3 GFLOP of DFT). The bytes (82 MB
+// of wave, 33 MB of output) take 34 us at 3.35 TB/s, so the arithmetic
+// bounds every variant. What held the first CUDA
 // version (mma.sync, 4 warps on 64 frames, 2.6-2.7 ms) was traffic: every
 // warp read the whole 4.2 MB basis (both parts) from L2 through L1 for
 // every 64 frames, 16.8 GB a call (32 TB/s through L1 to meet the bound);
@@ -38,17 +44,19 @@
 // tensor cores idle.
 //
 // The design:
-// - The basis comes through a ring of RING stages in shared memory. The
-//   wrapper pre-tiles it (ops/mel_kernel.py::_tiled_basis) so that a stage,
-//   KC samples x a chunk's 64 columns (32 cos + the 32 matching sin) of a
-//   bf16 part, is one contiguous block: one elected thread brings each part
-//   in with one cp.async.bulk completed on the slot's mbarrier. A block
-//   covers 128 frames (two warpgroups), so the basis leaves L2 once per 128
-//   frames: 2.1 GB a call at B = 64.
+// - The basis comes through a ring of RING stages in shared memory (3 at 6
+//   passes, ring_stages). The wrapper pre-tiles it
+//   (ops/mel_kernel.py::_tiled_basis) so that a stage, KC samples x a
+//   chunk's 64 columns (32 cos + the 32 matching sin) of a bf16 part, is
+//   one contiguous block: one elected thread brings each part (two, or
+//   three at 6 passes: a slot is 256 or 384 KC bytes) in with one
+//   cp.async.bulk completed on the slot's mbarrier. A block covers 128
+//   frames (two warpgroups), so the basis leaves L2 once per 128 frames:
+//   2.1 GB a call at B = 64 (3.1 GB at 6 passes).
 // - The DFT products are wgmma.mma_async m64n64k16 (bf16 in, fp32
 //   accumulators): a warpgroup owns 64 frames, A comes from registers (its
-//   frames, split into hi/lo as they are loaded, a step ahead), B from the
-//   ring stage through a matrix descriptor, so the four warps of a
+//   frames, split into bf16 parts as they are loaded, a step ahead), B from
+//   the ring stage through a matrix descriptor, so the four warps of a
 //   warpgroup share one read of B: 6.3 GB of shared-memory reads a call at
 //   3 passes. The tiles hold the canonical K-major layout without swizzle
 //   (8 columns x 16 bytes a core matrix) with the samples of each k16 step
@@ -57,7 +65,13 @@
 //   products of a 32-sample step with no shuffle. The main product (hi x
 //   hi) and the corrections have separate accumulators, so the corrections
 //   are not rounded at the main sum's scale. A warpgroup keeps one wgmma
-//   group in flight while it makes the next step's A fragments.
+//   group in flight while it makes the next group's A fragments: a group is
+//   a 32-sample step's two k16 products at 2 parts (3 wgmma each, 32 A
+//   registers for two groups), but one k16 product at 6 passes (6 wgmma,
+//   24 registers for two), so that fp32's third part fits beside the 128
+//   accumulators: 254 registers, no spill (bf16x3's 230), where two k32
+//   steps of three parts (48 A registers) spilled 104 bytes and read 2-4 %
+//   slower.
 // - The mel product runs on the tensor cores at fp32's precision, as the
 //   TPU's Precision.HIGHEST does it: at a chunk's end the power, computed
 //   in the DFT accumulators' registers, is split into three bf16 parts and
@@ -85,6 +99,10 @@
 //       + the mel product on the tensor cores, bf16x3      1.21-1.48
 //       + that product at fp32's precision (landed)        1.24-1.59
 //   K1 bf16x3 then (mel_kernel_tc<128, 2>, mma.sync)       2.02-2.24
+// K1 fp32 (6 passes) on this kernel, the wrapper call at B = 64 with the
+// banks tiled once: 1.59-1.65 ms against 2.98-3.10 for mel_kernel_tc<128,
+// 3> (mma.sync, the six products' first tensor-core kernel) in the same
+// call; the kernel alone 1.34-1.35 against 2.74 (tools/time_k1.py).
 // The bf16x3 mel product (a two-part split, three products) was off by
 // 2^-16 of the mel sums; at six products the landed kernel reads 1.24-1.59
 // ms against 1.30-1.43 for the bf16x3 one in the same calls, a gap within
@@ -123,16 +141,18 @@ constexpr int MAX_MELS = 128;          // the mel wgmma's N
 constexpr int MEL_SPLIT = 3;           // bf16 parts of the power and of banks^T
 constexpr int MEL_PART = NB * MAX_MELS;      // bf16 values of a chunk's banks^T tiles, a part
 constexpr int MEL_PART_BYTES = 2 * MEL_PART;
-constexpr int RING = 4;                // ring stages
+constexpr int RING = 4;                // ring stages at two basis parts a slot
 constexpr int BARRIER_BYTES = 128;     // the ring's and the segment's mbarriers
 constexpr size_t MAX_SMEM = 232448;    // 227 KB, a block's most on sm_90
 
 // The shared-memory plan of a launch (ops/mel_probe.py::smem_plan mirrors
-// it): `wg` warpgroups of 64 frames a block and a ring of RING slots of KC
-// samples (the chunk's 64 columns of both basis parts, 256 KC bytes; the
-// chunk's banks^T tiles pass through the same slots), and P2's segment of
-// the block's frames. K1, P1 and P3 take P1_PLAN; P2 the first of P2_PLANS that
-// fits: two warpgroups while their segment fits (hop <= 320), else one.
+// it): `wg` warpgroups of 64 frames a block and a ring of ring_stages
+// slots of KC samples (the chunk's 64 columns of each of `parts` basis
+// parts, 128 KC bytes a part: 2 parts, or 3 at 6 passes; the chunk's
+// banks^T tiles pass through the same slots), and P2's segment of the
+// block's frames. K1, P1 and P3 take P1_PLAN; P2 the first of P2_PLANS
+// that fits: two warpgroups while their segment fits (hop <= 320), else
+// one.
 constexpr int P1_PLAN[2] = {2, 128};  // warpgroups, KC
 constexpr int P2_PLANS[3][2] = {{2, 64}, {1, 64}, {1, 32}};
 struct Plan {
@@ -140,15 +160,21 @@ struct Plan {
   size_t bytes;
 };
 
-inline size_t plan_bytes(bool staged, int hop, const int (&c)[2]) {
+// the basis parts a ring slot holds at PASSES, and the ring's stages at
+// `parts` a slot: RING, but 3 at three parts, where 4 x 48 KB read 1.3 %
+// slower (the kernel alone at B = 64 and 120, PERF.md section 6)
+__host__ __device__ constexpr int slot_parts(int passes) { return passes == 6 ? 3 : 2; }
+__host__ __device__ constexpr int ring_stages(int parts) { return parts == 3 ? 3 : RING; }
+
+inline size_t plan_bytes(bool staged, int hop, int parts, const int (&c)[2]) {
   const size_t seg = staged ? sizeof(float) * ((size_t)(TF * c[0] - 1) * hop + N_FFT) : 0;
-  return BARRIER_BYTES + (size_t)RING * 256 * c[1] + seg;
+  return BARRIER_BYTES + (size_t)ring_stages(parts) * 128 * parts * c[1] + seg;
 }
 
-inline Plan plan(bool staged, int hop) {
-  if (!staged) return {P1_PLAN[0], P1_PLAN[1], plan_bytes(false, hop, P1_PLAN)};
+inline Plan plan(bool staged, int hop, int parts) {
+  if (!staged) return {P1_PLAN[0], P1_PLAN[1], plan_bytes(false, hop, parts, P1_PLAN)};
   for (const auto& c : P2_PLANS) {
-    const size_t bytes = plan_bytes(true, hop, c);
+    const size_t bytes = plan_bytes(true, hop, parts, c);
     if (bytes <= MAX_SMEM) return {c[0], c[1], bytes};
   }
   return {0, 0, 0};
@@ -222,18 +248,15 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
-template <int P>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[P][2][4]) {
+template <int P, int G>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[P][G][4]) {
 #pragma unroll
   for (int p = 0; p < P; ++p)
 #pragma unroll
-    for (int s = 0; s < 2; ++s)
+    for (int s = 0; s < G; ++s)
 #pragma unroll
       for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(r[p][s][i])::"memory");
 }
-
-// the A fragments of one k32 step: [hi, lo][k16 product][register]
-typedef uint32_t AFrag[2][2][4];
 
 #define WGMMA_ACC8(d, i)                                                                  \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
@@ -291,13 +314,6 @@ __device__ __forceinline__ void split(float a, float b, uint32_t* parts) {
   }
 }
 
-__device__ __forceinline__ void split2(float a, float b, uint32_t& hi, uint32_t& lo) {
-  uint32_t parts[2];
-  split<2>(a, b, parts);
-  hi = parts[0];
-  lo = parts[1];
-}
-
 template <bool STAGED>
 __device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
   float4 a, b;
@@ -312,40 +328,60 @@ __device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
   v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
 }
 
-// A fragments of 8 consecutive samples of each of rows g and g + 8: product
-// s takes the four from 4s, its registers 0/2 (k pairs 2t and 2t + 8) hold
-// samples 4s + {0, 1} / {2, 3}, rows g (0, 2) and g + 8 (1, 3): the order
-// _tiled_basis gives the basis rows
-__device__ __forceinline__ void split_step(const float (&v0)[8], const float (&v1)[8], AFrag& a) {
+// A fragments of 8 consecutive samples of each of rows g and g + 8, in P
+// bf16 parts: [part][k16 product][register]. Product s0 + s of the step
+// takes the four from 4 (s0 + s): its registers 0/2 (k pairs 2t and 2t + 8)
+// hold samples 4 (s0 + s) + {0, 1} / {2, 3}, rows g (0, 2) and g + 8 (1, 3):
+// the order _tiled_basis gives the basis rows. G is 2 (the step's two
+// products) or 1 (product s0 alone)
+template <int P, int G>
+__device__ __forceinline__ void split_group(const float (&v0)[8], const float (&v1)[8], int s0,
+                                            uint32_t (&a)[P][G][4]) {
 #pragma unroll
-  for (int s = 0; s < 2; ++s) {
-    split2(v0[4 * s], v0[4 * s + 1], a[0][s][0], a[1][s][0]);
-    split2(v1[4 * s], v1[4 * s + 1], a[0][s][1], a[1][s][1]);
-    split2(v0[4 * s + 2], v0[4 * s + 3], a[0][s][2], a[1][s][2]);
-    split2(v1[4 * s + 2], v1[4 * s + 3], a[0][s][3], a[1][s][3]);
+  for (int s = 0; s < G; ++s) {
+    const int v = 4 * (s0 + s);
+    uint32_t parts[4][P];
+    split<P>(v0[v], v0[v + 1], parts[0]);
+    split<P>(v1[v], v1[v + 1], parts[1]);
+    split<P>(v0[v + 2], v0[v + 3], parts[2]);
+    split<P>(v1[v + 2], v1[v + 3], parts[3]);
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) a[p][s][r] = parts[r][p];
   }
 }
 
-// the DFT's k16 products of one k32 step of a stage, committed as one wgmma
-// group: st is the stage's part 0 in shared memory, part 1 KC * COLS values
-// after it; product 2 kq + s of the stage takes A group s
-template <int PASSES, int KC>
-__device__ __forceinline__ void step_products(float (&cm)[32], float (&cc)[32], AFrag& a,
-                                              uint32_t st, int kq) {
+// the DFT's k16 products k0 .. k0 + G - 1 of a stage, committed as one
+// wgmma group: st is the stage's part 0 in shared memory, part j j * KC *
+// COLS values after it; product k0 + s takes A group s. At 6 passes the
+// five corrections go smallest first: lo * hi, mid * mid, hi * lo (2^-16
+// of the main product), then mid * hi, hi * mid (2^-8)
+template <int PASSES, int KC, int P, int G>
+__device__ __forceinline__ void group_products(float (&cm)[32], float (&cc)[32],
+                                               uint32_t (&a)[P][G][4], uint32_t st, int k0) {
+  constexpr int BP = slot_parts(PASSES);
   // the descriptors are made before the fence: a register a wgmma reads,
   // defined between the fence and the commit, makes ptxas serialise the group
-  uint64_t hi[2], lo[2];
+  uint64_t d[BP][G];
 #pragma unroll
-  for (int s = 0; s < 2; ++s) {
-    hi[s] = b_desc(st + 2 * (2 * kq + s) * PRODUCT);
-    lo[s] = b_desc(st + 2 * (2 * kq + s) * PRODUCT + 2 * KC * COLS);
-  }
+  for (int j = 0; j < BP; ++j)
+#pragma unroll
+    for (int s = 0; s < G; ++s) d[j][s] = b_desc(st + 2 * ((k0 + s) * PRODUCT + j * KC * COLS));
   wgmma_fence();
 #pragma unroll
-  for (int s = 0; s < 2; ++s) {
-    wgmma64(cm, a[0][s], hi[s]);
-    if (PASSES != 21) wgmma64(cc, a[0][s], lo[s]);
-    if (PASSES != 22) wgmma64(cc, a[1][s], hi[s]);
+  for (int s = 0; s < G; ++s) {
+    wgmma64(cm, a[0][s], d[0][s]);
+    if constexpr (PASSES == 6) {
+      wgmma64(cc, a[2][s], d[0][s]);
+      wgmma64(cc, a[1][s], d[1][s]);
+      wgmma64(cc, a[0][s], d[2][s]);
+      wgmma64(cc, a[1][s], d[0][s]);
+      wgmma64(cc, a[0][s], d[1][s]);
+    } else {
+      if (PASSES != 21) wgmma64(cc, a[0][s], d[1][s]);
+      if (PASSES != 22) wgmma64(cc, a[1][s], d[0][s]);
+    }
   }
   wgmma_commit();
 }
@@ -414,25 +450,29 @@ __device__ __forceinline__ void mel_stage(float (&d0)[32], float (&d1)[32],
 template <int WG, bool STAGED, int PASSES, int KC>
 __global__ void __launch_bounds__(128 * WG, 1)
 mel_kernel_wgmma(const float* __restrict__ x, int row_len, int hop, int n_frames, int tile,
-             const __nv_bfloat16* __restrict__ bhi,  // _tiled_basis, part 0
-             const __nv_bfloat16* __restrict__ blo,  // part 1
+             const __nv_bfloat16* __restrict__ b0,   // _tiled_basis, part 0
+             const __nv_bfloat16* __restrict__ b1,   // part 1
+             const __nv_bfloat16* __restrict__ b2,   // part 2 (6 passes)
              const __nv_bfloat16* __restrict__ mel,  // _tiled_banks: per chunk, parts 0-2
              int n_mels, float* __restrict__ out) {  // (B, n_mels, n_frames)
   constexpr int BF = TF * WG;             // frames a block computes at a time
-  constexpr int PARTS = PASSES == 21 ? 1 : 2;
+  constexpr int A_PARTS = slot_parts(PASSES);  // bf16 parts of the frames
+  constexpr int PARTS = PASSES == 21 ? 1 : A_PARTS;  // basis parts a stage brings in
+  constexpr int G = A_PARTS == 3 ? 1 : 2; // k16 products a wgmma group
+  constexpr int GROUPS = KC / 16 / G;  // wgmma groups a stage
   constexpr int K_ST = N_FFT / KC;        // basis stages a chunk
-  constexpr int STEPS = KC / 32;          // k32 steps a stage
   constexpr int PART_BYTES = 2 * KC * COLS;   // a basis part of a stage
-  constexpr int SLOT_BYTES = 2 * PART_BYTES;
+  constexpr int SLOT_BYTES = A_PARTS * PART_BYTES;
+  constexpr int STAGES = ring_stages(A_PARTS);  // ring slots
   constexpr int PER_SLOT = SLOT_BYTES / MEL_PART_BYTES;  // banks^T parts a slot
   constexpr int M_ST = (MEL_SPLIT + PER_SLOT - 1) / PER_SLOT;  // banks^T stages a chunk
   constexpr int SPC = K_ST + M_ST;        // ring stages a chunk
   static_assert(PER_SLOT >= 1 && M_ST <= 3, "a slot holds a banks^T part");
   extern __shared__ __align__(128) unsigned char smem[];
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem);          // [RING]
-  uint64_t* seg_full = full + RING;
-  unsigned char* slots = smem + BARRIER_BYTES;                 // [RING][SLOT_BYTES]
-  float* seg = reinterpret_cast<float*>(slots + RING * SLOT_BYTES);  // P2's segment
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);          // [STAGES]
+  uint64_t* seg_full = full + STAGES;
+  unsigned char* slots = smem + BARRIER_BYTES;                 // [STAGES][SLOT_BYTES]
+  float* seg = reinterpret_cast<float*>(slots + STAGES * SLOT_BYTES);  // P2's segment
   const int seg_len = STAGED ? (BF - 1) * hop + N_FFT : 0;
 
   const int tid = threadIdx.x;
@@ -447,18 +487,19 @@ mel_kernel_wgmma(const float* __restrict__ x, int row_len, int hop, int n_frames
   const int n_sub = (tile_end - tile0 + BF - 1) / BF;
   const int total = n_sub * N_CHUNKS * SPC;
 
-  // stage q of the walk into slot q % RING: of chunk q / SPC of its
-  // sub-tile, K_ST basis stages (samples j KC .. of both parts), then M_ST
+  // stage q of the walk into slot q % STAGES: of chunk q / SPC of its
+  // sub-tile, K_ST basis stages (samples j KC .. of each part), then M_ST
   // of banks^T parts, the last parts first; the segment of sub-tile u
   auto issue_stage = [&](int q) {
     const int j = q % SPC, c = q / SPC % N_CHUNKS;
-    unsigned char* dst = slots + q % RING * SLOT_BYTES;
-    uint64_t* bar = full + q % RING;
+    unsigned char* dst = slots + q % STAGES * SLOT_BYTES;
+    uint64_t* bar = full + q % STAGES;
     if (j < K_ST) {
       const size_t off = (size_t)c * CHUNK + (size_t)j * KC / 16 * PRODUCT;
       expect_bytes(bar, PARTS * PART_BYTES);
-      bulk_copy(dst, bhi + off, PART_BYTES, bar);
-      if (PARTS == 2) bulk_copy(dst + PART_BYTES, blo + off, PART_BYTES, bar);
+      bulk_copy(dst, b0 + off, PART_BYTES, bar);
+      if (PARTS >= 2) bulk_copy(dst + PART_BYTES, b1 + off, PART_BYTES, bar);
+      if (PARTS == 3) bulk_copy(dst + 2 * PART_BYTES, b2 + off, PART_BYTES, bar);
     } else {
       const int hi = MEL_SPLIT - (j - K_ST) * PER_SLOT, lo = max(0, hi - PER_SLOT);
       expect_bytes(bar, (hi - lo) * MEL_PART_BYTES);
@@ -471,22 +512,22 @@ mel_kernel_wgmma(const float* __restrict__ x, int row_len, int hop, int n_frames
     expect_bytes(seg_full, bytes);
     bulk_copy(seg, xb + (size_t)hop * (tile0 + u * BF), bytes, seg_full);
   };
-  // the stage's slot, once its copy has landed; the copy of stage q + RING
+  // the stage's slot, once its copy has landed; the copy of stage q + STAGES
   // - 2 starts now, once every thread has passed this barrier: its slot's
   // last reader, stage q - 2, ended its wgmma groups by then (a thread keeps
   // one group in flight past a basis stage, none past a banks^T stage)
   auto next_stage = [&](int q) {
     __syncthreads();
-    if (tid == 0 && q + RING - 2 < total) issue_stage(q + RING - 2);
+    if (tid == 0 && q + STAGES - 2 < total) issue_stage(q + STAGES - 2);
     __syncwarp();
-    mbar_wait(full + q % RING, (q / RING) & 1);
-    return smem_addr(slots + q % RING * SLOT_BYTES);
+    mbar_wait(full + q % STAGES, (q / STAGES) & 1);
+    return smem_addr(slots + q % STAGES * SLOT_BYTES);
   };
 
   if (tid == 0) {
-    for (int i = 0; i <= RING; ++i) mbar_init(full + i, 1);  // and seg_full
+    for (int i = 0; i <= STAGES; ++i) mbar_init(full + i, 1);  // and seg_full
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    for (int q = 0; q < min(RING - 2, total); ++q) issue_stage(q);
+    for (int q = 0; q < min(STAGES - 2, total); ++q) issue_stage(q);
     if (STAGED) issue_segment(0);
   }
   __syncthreads();
@@ -499,9 +540,9 @@ mel_kernel_wgmma(const float* __restrict__ x, int row_len, int hop, int n_frames
   for (int e = 0; e < 64; ++e) macc[e] = 0.f;
 #pragma unroll
   for (int e = 0; e < 32; ++e) cm[e] = cc[e] = 0.f;
-  // the A fragments of two steps: step kq's in a[kq % 2], read by its wgmma
-  // group while the next step's are made
-  AFrag a[2];
+  // the A fragments of two wgmma groups: group n's in a[n % 2], read by its
+  // wgmma group while the next group's are made
+  uint32_t a[2][A_PARTS][G][4];
 
   int q = 0;
   for (int u = 0; u < n_sub; ++u) {
@@ -517,7 +558,8 @@ mel_kernel_wgmma(const float* __restrict__ x, int row_len, int hop, int n_frames
       row0 = xb + (size_t)hop * min(f0 + r0, n_frames - 1) + 8 * t;
       row1 = xb + (size_t)hop * min(f0 + r0 + 8, n_frames - 1) + 8 * t;
     }
-    // samples 8t .. 8t + 7 of the next step, both rows, loaded a step ahead
+    // samples 8t .. 8t + 7 of the next k32 step, both rows, loaded a step
+    // ahead
     float v0[8], v1[8];
     load8<STAGED>(row0, v0);
     load8<STAGED>(row1, v1);
@@ -526,17 +568,21 @@ mel_kernel_wgmma(const float* __restrict__ x, int row_len, int hop, int n_frames
       for (int ks = 0; ks < K_ST; ++ks, ++q) {
         const uint32_t st = next_stage(q);
 #pragma unroll
-        for (int kq = 0; kq < STEPS; ++kq) {
-          split_step(v0, v1, a[kq % 2]);
-          step_products<PASSES, KC>(cm, cc, a[kq % 2], st, kq);
-          const int k_next = (ks * KC + kq * 32 + 32) % N_FFT;
-          load8<STAGED>(row0 + k_next, v0);
-          load8<STAGED>(row1 + k_next, v1);
-          // the previous step's group is done: its A registers are free
+        for (int n = 0; n < GROUPS; ++n) {
+          // products n G .. n G + G - 1 of the stage: of k32 step n G / 2
+          const int s0 = n * G % 2;
+          split_group(v0, v1, s0, a[n % 2]);
+          group_products<PASSES, KC>(cm, cc, a[n % 2], st, n * G);
+          if (s0 + G == 2) {  // the step's last group: load the next step
+            const int k_next = (ks * KC + n * G / 2 * 32 + 32) % N_FFT;
+            load8<STAGED>(row0 + k_next, v0);
+            load8<STAGED>(row1 + k_next, v1);
+          }
+          // the previous group is done: its A registers are free
           wgmma_wait<1>();
-          fence_regs(a[(kq + 1) % 2]);
+          fence_regs(a[(n + 1) % 2]);
         }
-        if (STEPS % 2) {  // the next stage's first step refills a[0]
+        if (GROUPS % 2) {  // the next stage's first group refills a[0]
           wgmma_wait<0>();
           fence_regs(a[0]);
         }
@@ -552,7 +598,7 @@ mel_kernel_wgmma(const float* __restrict__ x, int row_len, int hop, int n_frames
       power_frags(cm, cc, pa);
 #pragma unroll
       for (int e = 0; e < 32; ++e) cm[e] = cc[e] = 0.f;
-      // PER_SLOT is 4 (KC 128), 2 (KC 64) or 1 (KC 32)
+      // PER_SLOT is 4 or 6 (KC 128), 2 or 3 (KC 64) or 1 (KC 32)
       if constexpr (PER_SLOT >= MEL_SPLIT) {
         mel_stage<0, 3>(cm, cc, pa, next_stage(q++));
       } else if constexpr (PER_SLOT == 2) {
@@ -593,30 +639,31 @@ mel_kernel_wgmma(const float* __restrict__ x, int row_len, int hop, int n_frames
 
 template <int WG, bool STAGED, int PASSES, int KC>
 cudaError_t launch_kc(const float* x, int B, int row_len, int hop, int n_frames, int tile,
-                      const void* bhi, const void* blo, const void* mel, int n_mels,
-                      float* out, const Plan& p, cudaStream_t stream) {
+                      const void* b0, const void* b1, const void* b2, const void* mel,
+                      int n_mels, float* out, const Plan& p, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(mel_kernel_wgmma<WG, STAGED, PASSES, KC>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)p.bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((n_frames + tile - 1) / tile, B);
   mel_kernel_wgmma<WG, STAGED, PASSES, KC><<<grid, 128 * WG, p.bytes, stream>>>(
-      x, row_len, hop, n_frames, tile, static_cast<const __nv_bfloat16*>(bhi),
-      static_cast<const __nv_bfloat16*>(blo), static_cast<const __nv_bfloat16*>(mel), n_mels,
-      out);
+      x, row_len, hop, n_frames, tile, static_cast<const __nv_bfloat16*>(b0),
+      static_cast<const __nv_bfloat16*>(b1), static_cast<const __nv_bfloat16*>(b2),
+      static_cast<const __nv_bfloat16*>(mel), n_mels, out);
   return cudaGetLastError();
 }
 
 // K1, P1 and P3 (P1_PLAN) or P2 (STAGED, by its plan): x (B, row_len) f32,
-// frame i at x[:, hop * i]; bhi/blo the basis parts pre-tiled by
-// ops/mel_kernel.py::_tiled_basis (16 x 64 x 1024 bf16 each); mel the banks^T
+// frame i at x[:, hop * i]; b0, b1 (and b2 at 6 passes, else unread) the
+// basis parts pre-tiled by ops/mel_kernel.py::_tiled_basis (16 x 64 x 1024
+// bf16 each); mel the banks^T
 // split into three bf16 parts and tiled by _tiled_banks (16 chunks x 3 parts
 // x 32 x 128 bf16, zero past n_mels); out (B, n_mels, n_frames) f32. All
 // contiguous on the device; 16-byte aligned rows (row_len a multiple of 4)
 // holding every frame of the last 128-frame sub-tile.
 template <bool STAGED, int PASSES>
 cudaError_t launch(const float* x, int B, int row_len, int hop, int n_frames,
-                   int frame_tile, const void* bhi, const void* blo,
+                   int frame_tile, const void* b0, const void* b1, const void* b2,
                    const void* mel, int n_mels, float* out, void* stream) {
   if (B < 1 || B > 65535 || n_frames < 1 || n_mels < 1 || n_mels > MAX_MELS ||
       hop < 64 || hop % 64 != 0 || frame_tile < TF || frame_tile % TF != 0 ||
@@ -625,22 +672,22 @@ cudaError_t launch(const float* x, int B, int row_len, int hop, int n_frames,
   // every frame of every 128-frame sub-tile that runs lies inside the row
   const long long sub_frames = (long long)(n_frames + 2 * TF - 1) / (2 * TF) * (2 * TF);
   if ((long long)hop * (sub_frames - 1) + N_FFT > row_len) return cudaErrorInvalidValue;
-  const Plan p = plan(STAGED, hop);
+  const Plan p = plan(STAGED, hop, slot_parts(PASSES));
   if (p.bytes == 0) return cudaErrorInvalidValue;
   const int bf = TF * p.wg;
   const int tile = (frame_tile + bf - 1) / bf * bf;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if constexpr (!STAGED) {
     return launch_kc<P1_PLAN[0], false, PASSES, P1_PLAN[1]>(x, B, row_len, hop, n_frames, tile,
-                                                            bhi, blo, mel, n_mels, out, p, s);
+                                                            b0, b1, b2, mel, n_mels, out, p, s);
   } else {
     if (p.wg == 2)
-      return launch_kc<2, true, PASSES, 64>(x, B, row_len, hop, n_frames, tile, bhi, blo, mel,
+      return launch_kc<2, true, PASSES, 64>(x, B, row_len, hop, n_frames, tile, b0, b1, b2, mel,
                                             n_mels, out, p, s);
     if (p.kc == 64)
-      return launch_kc<1, true, PASSES, 64>(x, B, row_len, hop, n_frames, tile, bhi, blo, mel,
+      return launch_kc<1, true, PASSES, 64>(x, B, row_len, hop, n_frames, tile, b0, b1, b2, mel,
                                             n_mels, out, p, s);
-    return launch_kc<1, true, PASSES, 32>(x, B, row_len, hop, n_frames, tile, bhi, blo, mel,
+    return launch_kc<1, true, PASSES, 32>(x, B, row_len, hop, n_frames, tile, b0, b1, b2, mel,
                                           n_mels, out, p, s);
   }
 }

@@ -6,24 +6,26 @@ Nyquist bin) -> power -> x banks^T -> ``(log(x + 1e-5) + 4.5) / 5``, written
 as (B, n_mels, n_frames). The frames whose window reaches the reflect pad (at
 most 4 a clip) are recomputed here in plain PyTorch with the exact reference
 math and patched in, as the JAX wrapper does. K1 runs the DFT on the
-tensor cores as products of bf16 parts, on one of two kernels that
-``k1_route`` picks from the arguments alone:
+tensor cores as products of bf16 parts: bf16x3 (the JAX package's 3-pass
+split, the serving and training default) or fp32 (the 6-pass split the TPU
+runs for ``Precision.HIGHEST``), on one of two kernels that ``k1_route``
+picks from the arguments alone:
 
-- ``"wgmma"``, bf16x3 (the JAX package's 3-pass split) at up to 128 mels,
-  the serving and training default: ``eat_mel_log_wgmma``, the Hopper
-  design of ``csrc/mel_wgmma.cuh`` (``wgmma`` DFT, the basis through a
-  bulk-copy ring, the mel product on the tensor cores at fp32's precision:
-  power and banks in three bf16 parts, six products). Its operands are made
-  here: the folded basis's bf16 hi/lo pre-tiled for the ring
+- ``"wgmma"`` (bf16x3) and ``"wgmma_fp32"`` at up to 128 mels:
+  ``eat_mel_log_wgmma``, the Hopper design of ``csrc/mel_wgmma.cuh``
+  (``wgmma`` DFT, the basis through a bulk-copy ring, the mel product on
+  the tensor cores at fp32's precision: power and banks in three bf16
+  parts, six products). Its operands are made here: the folded basis's
+  bf16 parts (two, or three for fp32) pre-tiled for the ring
   (``_tiled_basis``), banks^T in three bf16 parts, tiled
   (``_tiled_banks``; the fixed serving banks once a config and device,
   ``tiled_serving_banks``), and rows holding every frame of the last
   128-frame block (``_block_rows``);
-- ``"tc_bf16x3"`` (bf16x3 at 129-256 mels) and ``"tc_fp32"`` (the 6-pass
-  split the TPU runs for ``Precision.HIGHEST``): ``eat_mel_log``,
-  ``mel_kernel_tc`` of ``csrc/mel_kernel.cu``, with the basis's bf16 parts
-  transposed to (columns, samples) (``_folded_basis_t``) and rows made by
-  ``_frame_rows``: the wave behind a zero pad, 16-byte aligned.
+- ``"tc_bf16x3"`` and ``"tc_fp32"`` at 129-256 mels (a launch a group of
+  256 above): ``eat_mel_log``, ``mel_kernel_tc`` of ``csrc/mel_kernel.cu``,
+  with the basis's bf16 parts transposed to (columns, samples)
+  (``_folded_basis_t``) and rows made by ``_frame_rows``: the wave behind a
+  zero pad, 16-byte aligned.
 
 ``stft_log_mel`` launches K1 for a CUDA tensor and runs its plain PyTorch
 version, ``stft_log_mel_plain``, for a CPU tensor; nothing else chooses
@@ -69,12 +71,12 @@ PARTS = {"fp32": 3, "bf16x3": 2}
 DFT_PRECISIONS = tuple(PARTS)
 # the edge patch reads 2 * n_fft-sample slivers from both ends of the clip
 MIN_SAMPLES = 4096
-# mels a launch (K1's mel accumulators: 64 a thread, 64 or 128 frames a
-# block); a wider bank takes one launch for each group of as many
+# mels a launch of mel_kernel_tc (its mel accumulators: 64 a thread, 64
+# frames a block); a wider bank takes one launch for each group of as many
 MELS_A_LAUNCH = 256
 MAX_ROWS = 65535  # clips a launch: the grid's y limit; a larger batch is sliced
 
-# The wgmma route's design (csrc/mel_wgmma.cuh): frames a block (two
+# The wgmma routes' design (csrc/mel_wgmma.cuh): frames a block (two
 # warpgroups of 64), a chunk's basis columns (32 cos + the 32 matching sin),
 # bf16 parts of the power and of banks^T in the mel product, and the mel
 # product's N, its most mels
@@ -85,9 +87,12 @@ WGMMA_MAX_MELS = 128
 # K1's kernel by route (``k1_route``)
 ROUTE_KERNELS = {
     "wgmma": "mel_wgmma::mel_kernel_wgmma<2, false, 3, 128>",
+    "wgmma_fp32": "mel_wgmma::mel_kernel_wgmma<2, false, 6, 128>",
     "tc_bf16x3": "mel_kernel_tc<64, 2>",
-    "tc_fp32": "mel_kernel_tc<TILE, 3>",
+    "tc_fp32": "mel_kernel_tc<64, 3>",
 }
+# the routes of the wgmma kernel, by dft_precision
+WGMMA_ROUTES = {"bf16x3": "wgmma", "fp32": "wgmma_fp32"}
 
 # K1 launches in this process, by dft_precision and by route; a run sets
 # them to 0 and reads them after
@@ -102,15 +107,15 @@ def kernel_supported(cfg: MelConfig) -> bool:
 
 def k1_route(cfg: MelConfig, dft_precision: str) -> str:
     """The kernel ``stft_log_mel`` launches for ``cfg`` and ``dft_precision``
-    (a key of ``ROUTE_KERNELS``): ``"wgmma"`` for bf16x3 at up to
-    ``WGMMA_MAX_MELS`` mels, ``"tc_bf16x3"`` for bf16x3 at more (a launch a
-    group of ``MELS_A_LAUNCH``), ``"tc_fp32"`` for fp32 at any width."""
+    (a key of ``ROUTE_KERNELS``): ``"wgmma"`` (bf16x3) or ``"wgmma_fp32"``
+    at up to ``WGMMA_MAX_MELS`` mels, ``"tc_bf16x3"`` or ``"tc_fp32"`` at
+    more (a launch a group of ``MELS_A_LAUNCH``)."""
     if dft_precision not in DFT_PRECISIONS:
         raise ValueError(f"dft_precision must be one of {DFT_PRECISIONS}, "
                          f"got {dft_precision!r}")
-    if dft_precision == "fp32":
-        return "tc_fp32"
-    return "wgmma" if cfg.n_mels <= WGMMA_MAX_MELS else "tc_bf16x3"
+    if cfg.n_mels <= WGMMA_MAX_MELS:
+        return WGMMA_ROUTES[dft_precision]
+    return f"tc_{dft_precision}"
 
 
 def auto_takes_kernel(cfg: MelConfig, device_type: str, n_samples: int) -> bool:
@@ -240,7 +245,7 @@ def _serving_tiled_banks(n_mels: int, n_fft: int, sr: int, fmin: float,
 
 
 def tiled_serving_banks(cfg: MelConfig, device) -> torch.Tensor:
-    """The wgmma route's mel operand for ``cfg``'s fixed banks (fmin,
+    """The wgmma routes' mel operand for ``cfg``'s fixed banks (fmin,
     effective fmax: every eval and serving call), tiled once a (n_mels,
     n_fft, sr, fmin, fmax, device) and kept there, as ``device_const``
     keeps the basis."""
@@ -368,8 +373,9 @@ def stft_log_mel(wave: torch.Tensor, banks: torch.Tensor, cfg: MelConfig,
     defaults to exact fp32, as ``stft_log_mel_pallas``'s does. On the
     ``"tc_*"`` routes a bank of more than ``MELS_A_LAUNCH`` mels takes one
     launch for each group of as many. ``tiled_banks``, read by the
-    ``"wgmma"`` route only, is ``_tiled_banks(banks)`` made beforehand (the
-    serving banks', ``tiled_serving_banks``); by default it is made here."""
+    ``"wgmma*"`` routes only, is ``_tiled_banks(banks)`` made beforehand
+    (the serving banks', ``tiled_serving_banks``); by default it is made
+    here."""
     if wave.device.type == "cpu":
         return stft_log_mel_plain(wave, banks, cfg, dft_precision)
     _check_args(wave, banks, cfg, dft_precision)
@@ -392,7 +398,8 @@ def stft_log_mel(wave: torch.Tensor, banks: torch.Tensor, cfg: MelConfig,
     out = torch.empty((batch, cfg.n_mels, n_frames), device=wave.device,
                       dtype=torch.float32)
     stream = torch.cuda.current_stream(wave.device).cuda_stream
-    if route == "wgmma":
+    parts = PARTS[dft_precision]
+    if route in WGMMA_ROUTES.values():
         if tiled_banks is None:
             tiled_banks = _tiled_banks(banks, n_fft)
         want = (n_bins // 32, MEL_SPLIT, 2, WGMMA_MAX_MELS // 8, 2, 8, 8)
@@ -401,19 +408,19 @@ def stft_log_mel(wave: torch.Tensor, banks: torch.Tensor, cfg: MelConfig,
                 or not tiled_banks.is_contiguous()):
             raise ValueError(f"tiled_banks must be a contiguous bfloat16 {tuple(want)} "
                              "tensor on the wave's device (_tiled_banks)")
-        bhi, blo = (device_const(_tiled_basis, (n_fft, cfg.win_length, True, p),
-                                 device, torch.bfloat16).data_ptr() for p in (0, 1))
+        basis = [device_const(_tiled_basis, (n_fft, cfg.win_length, True, p),
+                              device, torch.bfloat16).data_ptr() for p in range(parts)]
+        basis += [None] * (3 - parts)  # bf16x3 reads no third part
         x = _block_rows(wave, cfg, n_frames)
 
         def launches(start, rows):
             yield lib.eat_mel_log_wgmma(x[start].data_ptr(), rows, x.shape[1], hop,
-                                        n_frames, bhi, blo, tiled_banks.data_ptr(),
+                                        n_frames, *basis, parts, tiled_banks.data_ptr(),
                                         cfg.n_mels, out[start].data_ptr(), stream)
     else:
         banks_t = banks[:, :n_bins].t()
         groups = [(m0, banks_t[:, m0:m0 + MELS_A_LAUNCH].contiguous())
                   for m0 in range(0, cfg.n_mels, MELS_A_LAUNCH)]
-        parts = PARTS[dft_precision]
         basis = [device_const(_folded_basis_t, (n_fft, cfg.win_length, p), device,
                               torch.bfloat16).data_ptr() for p in range(parts)]
         basis += [None] * (3 - parts)  # bf16x3 reads no third part
@@ -461,7 +468,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.eat_mel_log.argtypes = [p, i, i, i, i, p, p, p, i, p, i, p, i, p]
     lib.eat_mel_log.restype = i
-    lib.eat_mel_log_wgmma.argtypes = [p, i, i, i, i, p, p, p, i, p, p]
+    lib.eat_mel_log_wgmma.argtypes = [p, i, i, i, i, p, p, p, i, p, i, p, p]
     lib.eat_mel_log_wgmma.restype = i
     lib.eat_error_string.argtypes = [i]
     lib.eat_error_string.restype = ctypes.c_char_p
@@ -485,7 +492,7 @@ def log_mel_spectrogram_fused(waveform: torch.Tensor,
 
     ``training=True`` needs ``draws`` (this call's rows of them): K1 gets the
     jittered fp32 banks as its runtime input and its output is masked with
-    0.9. Otherwise the banks are fixed, and the wgmma route takes them tiled
+    0.9. Otherwise the banks are fixed, and the wgmma routes take them tiled
     once (``tiled_serving_banks``). ``sharded=True`` runs K1 as K1-dp (``stft_log_mel_sharded``), as
     the JAX step does under a mesh of more than one device.
 
@@ -509,7 +516,7 @@ def log_mel_spectrogram_fused(waveform: torch.Tensor,
     dft_precision = dft_precision or "bf16x3"
     tiled = None
     if (not training and waveform.device.type == "cuda" and kernel_supported(cfg)
-            and k1_route(cfg, dft_precision) == "wgmma"):
+            and k1_route(cfg, dft_precision) in WGMMA_ROUTES.values()):
         tiled = tiled_serving_banks(cfg, waveform.device)
     run = stft_log_mel_sharded if sharded else stft_log_mel
     mel = run(waveform.to(torch.float32).contiguous(), banks, cfg,

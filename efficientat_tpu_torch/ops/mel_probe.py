@@ -70,12 +70,13 @@ MAX_STAGED_HOP = 768
 P3_HOP = 320
 
 # The kernel's shared-memory plan, mirrored from csrc/mel_wgmma.cuh
-# (``mel_wgmma::plan``): warpgroups of 64 frames a block, a ring of RING
-# slots of KC samples (a chunk's CHUNK_COLS columns of both bf16 basis parts,
-# 256 KC bytes), through which the chunk's banks^T tiles pass too, and P2's
-# segment of the block's frames, next to a few mbarriers.
+# (``mel_wgmma::plan``): warpgroups of 64 frames a block, a ring of RINGS
+# slots of KC samples (a chunk's CHUNK_COLS columns of each bf16 basis part,
+# 128 KC bytes a part: the probe's 2, K1 fp32's 3), through which the
+# chunk's banks^T tiles pass too, and P2's segment of the block's frames,
+# next to a few mbarriers.
 N_FFT = 1024
-RING = 4
+RINGS = {2: 4, 3: 3}  # ring slots by basis parts a slot (``ring_stages``)
 P1_PLAN = (2, 128)  # warpgroups, KC
 # P2's choices, in order: two warpgroups while their segment fits, else one
 P2_PLANS = ((2, 64), (1, 64), (1, 32))
@@ -95,14 +96,14 @@ LAUNCHES_P2 = 0
 LAUNCHES_P3 = 0
 
 
-def smem_plan(staged: bool, hop: int) -> tuple:
-    """(bytes, warpgroups, KC) of the kernel's shared memory, as ``plan``
-    in csrc/mel_wgmma.cuh picks it (``card_plan`` reads that one):
-    P1/P3 ``P1_PLAN``; P2 the first of ``P2_PLANS`` that fits. Raises where
-    nothing fits."""
+def smem_plan(staged: bool, hop: int, parts: int = 2) -> tuple:
+    """(bytes, warpgroups, KC) of the kernel's shared memory with ring
+    slots of ``parts`` basis parts, as ``plan`` in csrc/mel_wgmma.cuh picks
+    it (``card_plan`` reads that one): P1/P3 and K1 ``P1_PLAN``; P2 the
+    first of ``P2_PLANS`` that fits. Raises where nothing fits."""
     def size(wg, kc):
         seg = 4 * ((SUB_TILE * wg - 1) * hop + N_FFT) if staged else 0
-        return BARRIER_BYTES + RING * 2 * (2 * kc * CHUNK_COLS) + seg
+        return BARRIER_BYTES + RINGS[parts] * parts * (2 * kc * CHUNK_COLS) + seg
 
     for plan in ((P1_PLAN,) if not staged else P2_PLANS):
         if size(*plan) <= MAX_SMEM:
@@ -111,14 +112,15 @@ def smem_plan(staged: bool, hop: int) -> tuple:
                      f"{hop} (staged={staged})")
 
 
-def card_plan(staged: bool, hop: int) -> tuple:
-    """(bytes, warpgroups, KC) that the built library plans at ``hop``;
-    bytes 0 where nothing fits. Needs the library, so the card."""
+def card_plan(staged: bool, hop: int, parts: int = 2) -> tuple:
+    """(bytes, warpgroups, KC) that the built library plans at ``hop`` with
+    slots of ``parts`` basis parts; bytes 0 where nothing fits. Needs the
+    library, so the card."""
     from efficientat_tpu_torch.ops._build import load_library
 
     lib = _bind(load_library("mel_probe_kernel"))
     wg, kc = ctypes.c_int(), ctypes.c_int()
-    size = lib.eat_probe_plan(int(staged), hop, ctypes.byref(wg),
+    size = lib.eat_probe_plan(int(staged), hop, parts, ctypes.byref(wg),
                               ctypes.byref(kc))
     return size, wg.value, kc.value
 
@@ -216,7 +218,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn = getattr(lib, entry)
         fn.argtypes = [p, i, i, i, i, i, p, p, p, i, p, p]
         fn.restype = i
-    lib.eat_probe_plan.argtypes = [i, i, p, p]
+    lib.eat_probe_plan.argtypes = [i, i, i, p, p]
     lib.eat_probe_plan.restype = ctypes.c_longlong
     lib.eat_probe_error_string.argtypes = [i]
     lib.eat_probe_error_string.restype = ctypes.c_char_p

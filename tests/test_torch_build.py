@@ -45,7 +45,8 @@ def test_lib_path_ignores_what_is_not_a_header(tmp_path, monkeypatch):
 def test_the_port_sources_share_one_wgmma_body():
     # K1's library and the probe's include the one header that holds the
     # wgmma kernel: the header has its only body, the probe's source none,
-    # K1's only mel_kernel_tc's, whose bf16x3 128-frame instantiation is gone
+    # K1's only mel_kernel_tc's, whose 128-frame instantiations are gone (K1
+    # at up to 128 mels launches the wgmma kernel at 3 and 6 passes)
     k1 = (_build.CSRC / "mel_kernel.cu").read_text()
     probe = (_build.CSRC / "mel_probe_kernel.cu").read_text()
     header = (_build.CSRC / "mel_wgmma.cuh").read_text()
@@ -53,4 +54,5 @@ def test_the_port_sources_share_one_wgmma_body():
     assert header.count("__global__") == 1 and "mel_kernel_wgmma(" in header
     assert probe.count("__global__") == 0
     assert k1.count("__global__") == 1 and "mel_kernel_tc(" in k1
-    assert "launch<128, PARTS>" not in k1 and "launch<128, 3>" in k1
+    assert "launch<128" not in k1 and "launch<64, 2>" in k1 and "launch<64, 3>" in k1
+    assert "launch<false, 3>" in k1 and "launch<false, 6>" in k1

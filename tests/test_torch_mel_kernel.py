@@ -377,12 +377,13 @@ def test_edge_frames_match_jax(hop):
 
 
 @pytest.mark.parametrize("precision,n_mels,route", [
-    ("fp32", 40, "tc_fp32"), ("fp32", 128, "tc_fp32"), ("fp32", 300, "tc_fp32"),
+    ("fp32", 40, "wgmma_fp32"), ("fp32", 128, "wgmma_fp32"), ("fp32", 129, "tc_fp32"),
+    ("fp32", 300, "tc_fp32"),
     ("bf16x3", 40, "wgmma"), ("bf16x3", 128, "wgmma"), ("bf16x3", 129, "tc_bf16x3"),
     ("bf16x3", 256, "tc_bf16x3"), ("bf16x3", 300, "tc_bf16x3")])
 def test_k1_route_by_arguments(precision, n_mels, route):
-    # bf16x3 up to the wgmma kernel's 128 mels takes the wgmma route, wider
-    # banks and fp32 mel_kernel_tc; the hop does not enter
+    # up to the wgmma kernel's 128 mels each precision takes its wgmma
+    # route, wider banks mel_kernel_tc; the hop does not enter
     for hop in (320, 640):
         assert mel_kernel.k1_route(MelConfig(n_mels=n_mels, hopsize=hop),
                                    precision) == route
@@ -404,7 +405,7 @@ def _untile_basis(tiled):
     return out
 
 
-@pytest.mark.parametrize("part", [0, 1])
+@pytest.mark.parametrize("part", [0, 1, 2])
 def test_wgmma_basis_untiles_to_the_folded_split(part):
     # the bf16 tensor the wrapper hands the wgmma route, made as on the card
     handed = device_const(mel_kernel._tiled_basis, (1024, 800, True, part), "cpu",
@@ -478,20 +479,29 @@ def test_block_rows_hold_every_frame_of_the_last_block(n_samples, hop):
     assert not frames[:, n_frames:blocks, 512 + n_samples - hop * n_frames:].any()
 
 
-def _wgmma_route_plain(wave, banks, cfg, mel_parts):
-    """The wgmma route's function in plain torch, its mel product from the
-    operand the wrapper hands the kernel: the bf16x3 DFT of the plain
-    version, then the power and the tiled banks^T parts in ``mel_parts``
-    bf16 parts (3: the kernel's; 2: a bf16x3 mel product, the third part of
-    banks^T folded into the second) and the products of parts i + j <
-    mel_parts summed in fp32, smallest first, as the kernel sums them."""
+def _wgmma_route_plain(wave, banks, cfg, mel_parts, dft_parts=2):
+    """A wgmma route's function in plain torch, from the operands the
+    wrapper hands the kernel (``_tiled_basis`` and ``_tiled_banks``,
+    untiled): the frames and the basis in ``dft_parts`` bf16 parts (2: the
+    "wgmma" route's bf16x3, hi*hi + (hi*lo + lo*hi); 3: "wgmma_fp32"'s six
+    products, hi*hi apart from the five corrections, which are summed
+    smallest first as the kernel issues them), then the power and the tiled
+    banks^T parts in ``mel_parts`` bf16 parts (3: the kernel's; 2: a bf16x3
+    mel product, the third part of banks^T folded into the second) and the
+    products of parts i + j < mel_parts summed in fp32, smallest first, as
+    the kernel sums them."""
     n_bins = cfg.n_fft // 2
     frames = frame_signal(wave, cfg.n_fft, cfg.hopsize,
                           cfg.num_frames(wave.shape[1]), pad_mode="constant")
-    bhi, blo = (torch.from_numpy(mel_kernel._folded_basis_split(1024, 800, p))
-                for p in (0, 1))
-    fh, fl = (f.float() for f in mel_kernel.bf16_split(frames, 2))
-    proj = fh @ bhi + (fh @ blo + fl @ bhi)
+    b = [torch.from_numpy(_untile_basis(device_const(
+        mel_kernel._tiled_basis, (1024, 800, True, p), "cpu", torch.bfloat16).float()))
+        for p in range(dft_parts)]
+    f = [part.float() for part in mel_kernel.bf16_split(frames, dft_parts)]
+    if dft_parts == 2:
+        proj = f[0] @ b[0] + (f[0] @ b[1] + f[1] @ b[0])
+    else:
+        proj = f[0] @ b[0] + (f[2] @ b[0] + f[1] @ b[1] + f[0] @ b[2]
+                              + f[1] @ b[0] + f[0] @ b[1])
     power = proj[..., :n_bins] ** 2 + proj[..., n_bins:] ** 2
     bt = _untile_banks(mel_kernel._tiled_banks(banks, cfg.n_fft))[:, :, :cfg.n_mels]
     if mel_parts == 2:
@@ -522,6 +532,65 @@ def test_wgmma_mel_product_emulation_holds_fp32(hop):
     assert chip_smoke.mel_sum_gap(six, want) <= chip_smoke.TOL_PROBE_MEL_SUMS
     assert chip_smoke.mel_sum_gap(three, want) > chip_smoke.TOL_PROBE_MEL_SUMS
     assert (three - want).abs().max() < ATOL_KERNEL_VS_PLAIN["bf16x3"]
+
+
+@pytest.mark.parametrize("hop", [320, 640])
+def test_wgmma_fp32_route_mel_sums_emulation_hold_fp32(hop):
+    # the fp32 route's pre-log mel sums on impulse waves, its six DFT and six
+    # mel products from its tiled operands, meet the 4e-7 bound against the
+    # plain fp32 version, as the card's are held to it (k1_mel_sums); the
+    # bf16x3 DFT (two parts) misses it
+    import chip_smoke
+
+    cfg = MelConfig(hopsize=hop)
+    banks = _banks(cfg)
+    wave = torch.from_numpy(chip_smoke.impulse_waves(samples=64000))
+    want = mel_kernel.stft_log_mel_plain(wave, banks, cfg, "fp32")
+    fp32, bf16x3 = (_wgmma_route_plain(wave, banks, cfg, 3, parts) for parts in (3, 2))
+    assert chip_smoke.mel_sum_gap(fp32, want) <= chip_smoke.TOL_PROBE_MEL_SUMS
+    assert chip_smoke.mel_sum_gap(bf16x3, want) > chip_smoke.TOL_PROBE_MEL_SUMS
+
+
+@pytest.mark.parametrize("hop", [320, 640])
+def test_wgmma_fp32_route_emulation_matches_plain_and_oracle(selftest_waves, hop):
+    # the fp32 route's function from its operands is the exact fp32 one:
+    # within the bound the card's kernel is held to of the plain version,
+    # and of the float64 oracle; with two parts (bf16x3's DFT) it misses it
+    cfg = MelConfig(hopsize=hop)
+    wave = torch.from_numpy(selftest_waves)
+    banks = _banks(cfg)
+    want = mel_kernel.stft_log_mel_plain(wave, banks, cfg, "fp32")
+    got = _wgmma_route_plain(wave, banks, cfg, 3, 3)
+    assert got.shape == want.shape == (4, cfg.n_mels, cfg.num_frames(wave.shape[1]))
+    assert (got - want).abs().max() <= ATOL_KERNEL_VS_PLAIN["fp32"]
+    oracle = mel_oracle_f64(selftest_waves, cfg, banks.numpy())
+    assert np.abs(got.numpy() - oracle).max() < ATOL_VS_ORACLE["fp32"]
+    control = _wgmma_route_plain(wave, banks, cfg, 3, 2)
+    assert (control - want).abs().max() > ATOL_KERNEL_VS_PLAIN["fp32"]
+
+
+@pytest.mark.parametrize("hop", [320, 640])
+def test_wgmma_fp32_route_emulation_matches_pallas_interpret(hop):
+    # against the JAX kernel at HIGHEST (dft_precision None), in TPU
+    # interpret mode, as test_plain_matches_pallas_interpret runs it
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+
+    from efficientat_tpu.ops import filterbank as jfb
+    from efficientat_tpu.ops import mel_pallas
+    from efficientat_tpu.ops import melspec as jmel
+
+    wave = _wave(1, 32000, seed=hop + 2)
+    jcfg = jmel.MelConfig(hopsize=hop)
+    jbanks = jfb.kaldi_mel_banks(jcfg.n_mels, jcfg.n_fft, jcfg.sr, jcfg.fmin,
+                                 jcfg.effective_fmax)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(mel_pallas.stft_log_mel_pallas(jnp.asarray(wave), jbanks,
+                                                         jcfg, None))
+    cfg = MelConfig(hopsize=hop)
+    got = _wgmma_route_plain(torch.from_numpy(wave), _banks(cfg), cfg, 3, 3).numpy()
+    assert got.shape == want.shape == (1, cfg.n_mels, cfg.num_frames(32000))
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL_VS_PALLAS["fp32"])
 
 
 # (batch, samples, hop, n_mels): 320123 samples make rows that are not a
@@ -608,6 +677,26 @@ def test_wgmma_route_mel_product_at_fp32_on_card(hop):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("hop", [320, 640])
+def test_wgmma_fp32_route_mel_sums_at_fp32_on_card(hop):
+    # the fp32 route's pre-log mel sums against the plain fp32 version on
+    # impulse waves (chip_smoke.py's k1_mel_sums): its DFT and its mel
+    # product at fp32's precision; K1 bf16x3's DFT misses the bound
+    import chip_smoke
+
+    cfg = MelConfig(hopsize=hop)
+    banks = _banks(cfg, device="cuda")
+    wave = torch.from_numpy(chip_smoke.impulse_waves(samples=96000)).cuda()
+    before = mel_kernel.ROUTE_LAUNCHES["wgmma_fp32"]
+    got = mel_kernel.stft_log_mel(wave, banks, cfg, "fp32")
+    assert mel_kernel.ROUTE_LAUNCHES["wgmma_fp32"] == before + 1
+    want = mel_kernel.stft_log_mel_plain(wave, banks, cfg, "fp32")
+    assert chip_smoke.mel_sum_gap(got, want) <= chip_smoke.TOL_PROBE_MEL_SUMS
+    control = mel_kernel.stft_log_mel(wave, banks, cfg, "bf16x3")
+    assert chip_smoke.mel_sum_gap(control, want) > chip_smoke.TOL_PROBE_MEL_SUMS
+
+
+@pytest.mark.cuda
 def test_wgmma_route_slices_a_batch_over_the_grid_limit():
     # 65536 clips, one more than a launch takes: two launches of the wgmma
     # route, the first and the last clip each against the plain version
@@ -643,31 +732,36 @@ def test_wgmma_route_raises_on_wrong_input_on_card():
             mel_kernel.stft_log_mel(args["wave"], args["banks"], cfg, "bf16x3",
                                     tiled_banks=args["tiled_banks"])
     # the entry refuses what it does not take, and the wrapper would raise
-    # on its code: no batch, a hop that is not a multiple of 64
+    # on its code: no batch, a hop that is not a multiple of 64, parts
+    # other than 2 (bf16x3) and 3 (fp32)
     lib = mel_kernel._bind(load_library("mel_kernel"))
     rows = mel_kernel._block_rows(wave, cfg, 101)
     out = torch.empty((2, 128, 101), device="cuda")
-    bhi, blo = (device_const(mel_kernel._tiled_basis, (1024, 800, True, p), "cuda",
-                             torch.bfloat16) for p in (0, 1))
-    for batch, hop in ((0, 320), (2, 330)):
+    basis = [device_const(mel_kernel._tiled_basis, (1024, 800, True, p), "cuda",
+                          torch.bfloat16).data_ptr() for p in (0, 1, 2)]
+    for batch, hop, parts in ((0, 320, 2), (2, 330, 2), (0, 320, 3), (2, 330, 3),
+                              (2, 320, 4)):
         assert lib.eat_mel_log_wgmma(rows.data_ptr(), batch, rows.shape[1], hop, 101,
-                                     bhi.data_ptr(), blo.data_ptr(), tiled.data_ptr(),
-                                     128, out.data_ptr(),
+                                     *basis, parts, tiled.data_ptr(), 128, out.data_ptr(),
                                      torch.cuda.current_stream().cuda_stream) != 0
 
 
 @pytest.mark.cuda
-def test_serving_mel_takes_the_tiled_banks_once_on_card():
+@pytest.mark.parametrize("precision", ["bf16x3", "fp32"])
+def test_serving_mel_takes_the_tiled_banks_once_on_card(precision):
     # two serving calls through log_mel_spectrogram_fused tile the banks
     # once, and equal the route with the banks tiled in the call
     cfg = MelConfig()
+    route = mel_kernel.WGMMA_ROUTES[precision]
     wave = torch.from_numpy(_wave(2, 32000, seed=13)).cuda()
-    first = mel_kernel.log_mel_spectrogram_fused(wave, cfg, backend="kernel")
+    first = mel_kernel.log_mel_spectrogram_fused(wave, cfg, backend="kernel",
+                                                 dft_precision=precision)
     misses = mel_kernel._serving_tiled_banks.cache_info().misses
-    before = mel_kernel.ROUTE_LAUNCHES["wgmma"]
-    second = mel_kernel.log_mel_spectrogram_fused(wave, cfg, backend="kernel")
+    before = mel_kernel.ROUTE_LAUNCHES[route]
+    second = mel_kernel.log_mel_spectrogram_fused(wave, cfg, backend="kernel",
+                                                  dft_precision=precision)
     assert mel_kernel._serving_tiled_banks.cache_info().misses == misses
-    assert mel_kernel.ROUTE_LAUNCHES["wgmma"] == before + 1
-    want = mel_kernel.stft_log_mel(wave, _banks(cfg, device="cuda"), cfg, "bf16x3")
+    assert mel_kernel.ROUTE_LAUNCHES[route] == before + 1
+    want = mel_kernel.stft_log_mel(wave, _banks(cfg, device="cuda"), cfg, precision)
     torch.testing.assert_close(first, want, rtol=0, atol=0)
     torch.testing.assert_close(second, want, rtol=0, atol=0)

@@ -246,6 +246,9 @@ def test_smem_plan_takes_every_input(hop):
             mel_probe._check_args(wave, _banks(c), c, tile,
                                   max_hop=mel_probe.MAX_STAGED_HOP)
     assert mel_probe.smem_plan(False, hop)[1:] == (2, 128)
+    # K1 fp32's plan: slots of three basis parts, 3 x 48 KB of ring
+    assert mel_probe.smem_plan(False, hop, 3) == (mel_probe.BARRIER_BYTES + 3 * 49152, 2, 128)
+    assert mel_probe.smem_plan(False, hop, 3)[0] <= mel_probe.MAX_SMEM
 
 
 @pytest.mark.parametrize("name,fn,kwargs", VARIANTS, ids=[v[0] for v in VARIANTS])
