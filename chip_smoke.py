@@ -11,30 +11,33 @@ seeded random weights, in phases that each print a line:
    includes ``csrc/mel_wgmma.cuh``) with nvcc, and the ptxas registers and
    spills of each of its kernels: ``mel_kernel_wgmma<2, false, 3, 128>``
    and ``<2, false, 6, 128>`` (bf16x3 and fp32 at up to 128 mels, the
-   "wgmma" and "wgmma_fp32" routes) and ``mel_kernel_tc<64, PARTS>``
-   (129-256 mels; PARTS 2: bf16x3, 3: fp32);
+   "wgmma" and "wgmma_fp32" routes) and ``<2, false, 3, 128, 256>`` and
+   ``<2, false, 6, 128, 256>`` (129-256 mels, and each group of 256 of a
+   wider bank: "wgmma256" and "wgmma256_fp32");
 3. K1 against its plain PyTorch version and a float64 oracle on the
-   selftest waves, hop 320 and 640, fp32 and bf16x3 (and both at 40 and
-   64 mels against the plain version); two controls that must miss the
-   kernel-vs-plain bound: K1 bf16x3 on banks rounded to bf16 against
-   bf16x3's plain version, and K1 bf16x3 against fp32's; each wgmma route's
-   pre-log mel sums on impulse waves against its plain version's fp32 GEMM
-   (a bf16x3 mel product must miss that bound, and K1 bf16x3 fp32's); every
-   call on the wgmma route of its precision;
+   selftest waves, hop 320 and 640, fp32 and bf16x3, at 128, 256 and 300
+   mels (and both at 40 and 64 mels against the plain version); two
+   controls that must miss the kernel-vs-plain bound: K1 bf16x3 on banks
+   rounded to bf16 against bf16x3's plain version, and K1 bf16x3 against
+   fp32's; each route's pre-log mel sums on impulse waves against its
+   plain version's fp32 GEMM at 128, 256 and 300 mels (a bf16x3 mel
+   product must miss that bound, and K1 bf16x3 fp32's); every launch on
+   the route ``mel_kernel.mel_groups`` gives it;
 4. the slice: a B=64 batch of 10 s clips (the demo clip and seeded
    variants) as f32, int16 and mu-law uint8; K1 must have been launched,
    and the card's probs must agree with the CPU's (Taggers with the DFT in
    fp32, which must launch K1 fp32);
 5. times at B=64: K1 against its plain version in both precisions at 128
-   and 256 mels, the wrapper's row copies, banks tiling and edge patch, the
-   model alone, and the whole pipeline in clips/s; the pipeline's device
-   time by kernel group (``torch.profiler``).
+   and 256 mels (each bound beside the one that priced the 256-mel mel
+   product on the CUDA cores), the wrapper's row copy, banks tiling and
+   edge patch, the model alone, and the whole pipeline in clips/s; the
+   pipeline's device time by kernel group (``torch.profiler``).
 
 and the training path, ``train audioset`` (KD, mixup, fmin/fmax jitter):
 
 6. training-mode K1 at B=120, 10 s clips, with jittered banks and masks,
    against its plain version on the same draws, and its time, both
-   precisions;
+   precisions; K1 at 256 mels with the banks tiled in the call;
 7. ``run_train("audioset", ...)`` at full width, B=120, fp32 and --bf16:
    finite losses, K1 at every step, the export loads into the Tagger; then
    one step on the card (K1 fp32) against the same step on the CPU;
@@ -92,7 +95,8 @@ and the rest of serving and exact-length eval, full width, seeded weights:
     ``eval_step(..., time_valid=...)`` (K1 fp32), ``mn10_as`` and
     ``dymn10_as``: each row against its clip alone at batch 1 and against
     the CPU; then ``mn10_as_mels_256`` through the Tagger, K1 counted
-    (``mel_kernel_tc<64, 2>`` and ``<64, 3>``).
+    (``mel_kernel_wgmma<2, false, 3, 128, 256>`` and ``<2, false, 6, 128,
+    256>``).
 
 and the analysis tools, the profiler and member-parallel ensembles:
 
@@ -312,10 +316,11 @@ PROBE_PLAIN = {mel_probe.variant_mel: mel_probe.variant_mel_plain,
                mel_probe.variant_mel_e: mel_probe.variant_mel_e_plain}
 # the variant of each kernel that stands for it in the kernels line
 PROBE_ROW = {"P1": "folded_t128", "P2": "t128", "P3": "passes3"}
-# the body of the wgmma kernel, K1's at up to 128 mels and P1-P3's, and
-# K1's routes to it
+# the body of the wgmma kernel, K1's and P1-P3's
 WGMMA_SOURCE = "efficientat_tpu_torch/csrc/mel_wgmma.cuh"
-WGMMA_ROUTES = tuple(mel_kernel.WGMMA_ROUTES.values())
+# K1's bank widths in phase 3: the narrow and the wide instantiation, and
+# a bank of two launches (256 + 44 mels)
+K1_CHECK_MELS = (128, 256, 300)
 # K1's bf16 products by precision: parts i and j with i + j < parts
 DFT_PASSES = {prec: n * (n + 1) // 2 for prec, n in mel_kernel.PARTS.items()}
 # H100 SXM dense peaks (NVIDIA's data sheet): bf16 tensor cores, fp32 CUDA
@@ -370,6 +375,13 @@ def check(ok, what):
         raise AssertionError(what)
 
 
+def wgmma_instance(line):
+    """``mel_kernel_wgmma<WG,STAGED,PASSES,KC,MELS>`` of the kernel whose
+    mangled name a ptxas line holds, or None."""
+    m = re.search(r"mel_kernel_wgmmaILi(\d+)ELb(\d)ELi(\d+)ELi(\d+)ELi(\d+)E", line)
+    return "mel_kernel_wgmma<%s,%s,%s,%s,%s>" % m.groups() if m else None
+
+
 def reset_k1_launches():
     """Set K1's launch counts, by precision and by route, to 0."""
     mel_kernel.LAUNCHES.update(dict.fromkeys(mel_kernel.LAUNCHES, 0))
@@ -378,7 +390,7 @@ def reset_k1_launches():
 
 def k1_wgmma_launches(prec="bf16x3"):
     """K1's launches at ``prec`` since ``reset_k1_launches``, each of which
-    must have gone through that precision's wgmma route ("wgmma" or
+    must have gone through that precision's 128-mel route ("wgmma" or
     "wgmma_fp32": ``mel_kernel.k1_route`` sends it a bank of at most 128
     mels, every path's but phase 18's 256-mel one)."""
     route = mel_kernel.WGMMA_ROUTES[prec]
@@ -663,6 +675,16 @@ def phase_train_k1(device, card):
         out[prec] = {"max_abs_err": err, "ms": statistics.mean(runs["kernel"]),
                      "plain_ms": statistics.mean(runs["plain"]),
                      "launches": launched}
+    del waves, banks
+    # K1 at 256 mels as a training call makes it, the banks tiled in the
+    # call (kernel_ms), on the 256-mel instantiation
+    for prec in ("fp32", "bf16x3"):
+        rec = time_k1.time_k1(TRAIN_BATCH, 256, prec, turns=1)
+        check(rec["max_abs"] <= TOL_KERNEL_VS_PLAIN[prec],
+              f"K1 {prec} vs plain at B={TRAIN_BATCH}, 256 mels")
+        phase("k1_time", **rec, mode="train", card=repr(card),
+              bound_ms=k1_bound_ms(TRAIN_BATCH, 256, prec)[0],
+              cuda_core_mel_bound_ms=k1_bound_ms(TRAIN_BATCH, 256, prec, "fp32")[0])
     return out
 
 
@@ -937,9 +959,8 @@ def mel_bound_ms(batch, samples, n_mels, dft, mel="fp32"):
     sets it: the DFT products and the mel product, each as ``dft`` / ``mel``
     bf16 passes at the tensor-core rate (6 for an fp32 split) or "fp32" at
     the CUDA-core rate, against the wave read once and the output written
-    once. The wgmma kernel (K1 at up to 128 mels, the probe) runs its mel
-    product as 6 bf16 passes, mel_kernel_tc on the CUDA cores
-    (``k1_bound_ms``)."""
+    once. The wgmma kernel (K1, the probe) runs its mel product as 6 bf16
+    passes (``k1_bound_ms``)."""
     frames = batch * ((samples - 1) // 320 + 1)
 
     def seconds(passes, flop):
@@ -951,21 +972,22 @@ def mel_bound_ms(batch, samples, n_mels, dft, mel="fp32"):
     return 1e3 * max(ops_s, bytes_s), "operations" if ops_s >= bytes_s else "bytes"
 
 
-def k1_bound_ms(batch, n_mels, prec):
+def k1_bound_ms(batch, n_mels, prec, mel=PROBE_MEL_PASSES):
     """``mel_bound_ms`` of a K1 call on ``batch`` 10 s clips, its mel product
-    priced as the route that ``k1_route`` gives it computes it."""
-    route = mel_kernel.k1_route(MelConfig(n_mels=n_mels), prec)
-    return mel_bound_ms(batch, CLIP, n_mels, DFT_PASSES[prec],
-                        PROBE_MEL_PASSES if route in WGMMA_ROUTES else "fp32")
+    priced as the kernel computes it (6 bf16 passes); ``mel="fp32"`` prices
+    it at the CUDA cores' fp32 rate, the bound of a kernel whose mel product
+    runs there, printed beside the 256-mel rows' bounds so that their
+    shares compare with those of such a kernel."""
+    return mel_bound_ms(batch, CLIP, n_mels, DFT_PASSES[prec], mel)
 
 
 K1_SOURCE = "efficientat_tpu_torch/csrc/mel_kernel.cu"
 
 
 def serving_ms(rec):
-    """A serving path's K1 call from a ``time_k1`` record: a wgmma route's
-    with the banks tiled beforehand, as the Tagger calls it, else the call."""
-    return statistics.mean(rec["serving_ms"] or rec["kernel_ms"])
+    """A serving path's K1 call from a ``time_k1`` record: with the banks
+    tiled beforehand, as the Tagger calls it."""
+    return statistics.mean(rec["serving_ms"])
 
 
 def k1_row(prec, path, batch, n_mels=128, dp=False, **fields):
@@ -973,12 +995,10 @@ def k1_row(prec, path, batch, n_mels=128, dp=False, **fields):
     at ``prec`` on ``batch`` clips a launch and an ``n_mels`` bank, on the
     kernel ``k1_route`` gives it."""
     route = mel_kernel.k1_route(MelConfig(n_mels=n_mels), prec)
-    wgmma = route in WGMMA_ROUTES
-    name = (("mel_kernel_" + route) if wgmma else "mel_kernel_tc") + ("_dp" if dp else "")
-    return {"name": name,
+    return {"name": "mel_kernel_" + route + ("_dp" if dp else ""),
             "path": path, "route": "cuda",
-            "source": WGMMA_SOURCE if wgmma else K1_SOURCE,
-            "entry": f"{K1_SOURCE}::eat_mel_log" + ("_wgmma" if wgmma else ""),
+            "source": WGMMA_SOURCE,
+            "entry": f"{K1_SOURCE}::eat_mel_log_wgmma",
             "kernel": mel_kernel.ROUTE_KERNELS[route],
             "replaces": "efficientat_tpu/ops/mel_pallas.py:" + ("347" if dp else "109"),
             "precision": prec, "n_mels": n_mels, "batch": batch, **fields}
@@ -1110,12 +1130,11 @@ def phase_probe(device, card):
     path's entry point, with the counters set to 0. Returns the kernels
     line's rows for P1, P2 and P3."""
     # ptxas's registers and spills of each mel_kernel_wgmma<WG, STAGED,
-    # PASSES, KC> the probe's library builds
+    # PASSES, KC, MELS> the probe's library builds
     regs, entry = {}, "?"
     for ln in _build.BUILD_LOG.get("mel_probe_kernel", "").splitlines():
-        m = re.search(r"mel_kernel_wgmmaILi(\d+)ELb(\d)ELi(\d+)ELi(\d+)E", ln)
-        if m:
-            entry = "<%s,%s,%s,%s>" % m.groups()
+        if wgmma_instance(ln):
+            entry = wgmma_instance(ln)
         elif "registers" in ln or "spill" in ln:
             regs.setdefault(entry, []).append(ln.split(":", 1)[-1].strip())
     phase("probe_build", source="efficientat_tpu_torch/csrc/mel_probe_kernel.cu",
@@ -1140,6 +1159,14 @@ def phase_probe(device, card):
               f"{mel_probe.smem_plan(False, hop, 3)}")
         plans[f"k1_fp32_plan_hop{hop}"] = json.dumps(
             dict(zip(("smem_bytes", "warpgroups", "kc"), plan)))
+        # K1 at 256 mels: the sums of mels 128-255 in shared memory
+        for parts in (2, 3):
+            plan = mel_probe.card_plan(False, hop, parts, 256)
+            check(plan == mel_probe.smem_plan(False, hop, parts, 256) and plan[0] > 0,
+                  f"K1's 256-mel plan at hop {hop}, {parts} parts: library {plan}, "
+                  f"mirror {mel_probe.smem_plan(False, hop, parts, 256)}")
+            plans[f"k1_{parts}parts_256mels_plan_hop{hop}"] = json.dumps(
+                dict(zip(("smem_bytes", "warpgroups", "kc"), plan)))
     phase("probe_design", design=repr(mel_probe.DESIGN), ring=json.dumps(mel_probe.RINGS),
           **plans)
 
@@ -2456,11 +2483,8 @@ def main():
     _build.load_libraries(["mel_kernel", "mel_probe_kernel"])
     regs, built = [], []  # each kernel's name, then its spill and register lines
     for ln in _build.BUILD_LOG.get("mel_kernel", "").splitlines():
-        tc = re.search(r"mel_kernel_tcILi(\d+)ELi(\d+)E", ln)
-        wg = re.search(r"mel_kernel_wgmmaILi(\d+)ELb(\d)ELi(\d+)ELi(\d+)E", ln)
-        if "Compiling entry function" in ln and (tc or wg):
-            built.append(f"mel_kernel_tc<{tc[1]},{tc[2]}>" if tc
-                         else "mel_kernel_wgmma<%s,%s,%s,%s>" % wg.groups())
+        if "Compiling entry function" in ln:
+            built.append(wgmma_instance(ln) or ln.split("'")[1])
             regs.append(built[-1])
         elif "registers" in ln or "spill" in ln:
             regs.append(ln.split(":", 1)[-1].strip())
@@ -2470,54 +2494,87 @@ def main():
           ptxas=repr(regs) if "mel_kernel" in _build.BUILD_LOG
           else "none: another process built the library")
     # what nvcc compiled, where this process built the library: the wgmma
-    # kernel at 3 and 6 passes and mel_kernel_tc's two 64-frame
-    # instantiations, no 128-frame one
+    # kernel at 3 and 6 passes, each at 128 and 256 mels, and nothing else
+    # (no mel_kernel_tc)
     check("mel_kernel" not in _build.BUILD_LOG or sorted(built) == [
-        "mel_kernel_tc<64,2>", "mel_kernel_tc<64,3>", "mel_kernel_wgmma<2,0,3,128>",
-        "mel_kernel_wgmma<2,0,6,128>"], f"K1's library built {built}")
+        "mel_kernel_wgmma<2,0,3,128,128>", "mel_kernel_wgmma<2,0,3,128,256>",
+        "mel_kernel_wgmma<2,0,6,128,128>", "mel_kernel_wgmma<2,0,6,128,256>"],
+          f"K1's library built {built}")
 
     lap("2 build")
 
-    # 3. K1 against its plain version and the float64 oracle; K1 at 128, 40
-    # and 64 mels is the wgmma route of its precision, whose mel product must
-    # hold fp32's precision (the pre-log sums on impulse waves,
-    # TOL_PROBE_MEL_SUMS), and at fp32 its DFT too
+    # 3. K1 against its plain version and the float64 oracle at 128, 256
+    # and 300 mels (40 and 64 against the plain version), on the route
+    # ``mel_groups`` gives each launch; its mel product must hold fp32's
+    # precision (the pre-log sums on impulse waves, TOL_PROBE_MEL_SUMS), and
+    # at fp32 its DFT too
     waves = selftest_waves()
     wd = torch.from_numpy(waves).to(device)
     imp = torch.from_numpy(impulse_waves()).to(device)
     reset_k1_launches()
-    calls = dict.fromkeys(("fp32", "bf16x3"), 0)
+    calls = dict.fromkeys(mel_kernel.ROUTE_LAUNCHES, 0)  # launches by route
+
+    def k1_call(w, banks, cfg, prec):
+        for _, _, route in mel_kernel.mel_groups(cfg.n_mels, prec):
+            calls[route] += 1
+        return mel_kernel.stft_log_mel(w, banks, cfg, prec)
+
     for hop in (320, 640):
+        k1 = {}  # K1's output at 128 mels, by precision, for the controls
+        for n_mels in K1_CHECK_MELS:
+            cfg = MelConfig(hopsize=hop, n_mels=n_mels)
+            banks = kaldi_mel_banks(cfg.n_mels, cfg.n_fft, cfg.sr, cfg.fmin,
+                                    cfg.effective_fmax, device=device)
+            oracle = mel_oracle_f64(waves, cfg, banks.cpu().numpy())
+            if n_mels == 128:
+                melspec = log_mel_spectrogram(wd, cfg).cpu().numpy()
+                dev_melspec = float(np.abs(melspec - oracle).max())
+                phase("k1_selftest", hop=hop, path="melspec", vs_oracle=dev_melspec,
+                      bound=TOL_MELSPEC_VS_ORACLE)
+                check(dev_melspec < TOL_MELSPEC_VS_ORACLE, "melspec path vs oracle")
+            for prec in ("fp32", "bf16x3"):
+                k = k1_call(wd, banks, cfg, prec)
+                if n_mels == 128:
+                    k1[prec] = k
+                torch.cuda.synchronize()
+                p = mel_kernel.stft_log_mel_plain(wd, banks, cfg, prec)
+                dev_plain = float((k - p).abs().max())
+                dev_oracle = float(np.abs(k.cpu().numpy() - oracle).max())
+                phase("k1_selftest", hop=hop, precision=prec, n_mels=cfg.n_mels,
+                      routes=[r for _, _, r in mel_kernel.mel_groups(n_mels, prec)],
+                      shape=tuple(k.shape), vs_plain=dev_plain,
+                      bound_plain=TOL_KERNEL_VS_PLAIN[prec], vs_oracle=dev_oracle,
+                      bound_oracle=TOL_VS_ORACLE[prec])
+                check(dev_plain <= TOL_KERNEL_VS_PLAIN[prec],
+                      f"K1 {prec} vs plain at {n_mels} mels, hop {hop}")
+                check(dev_oracle < TOL_VS_ORACLE[prec],
+                      f"K1 {prec} vs oracle at {n_mels} mels, hop {hop}")
+            # the pre-log mel sums on impulse waves, each route against its
+            # plain version; the controls: a bf16x3 mel product against
+            # bf16x3's, K1 bf16x3 (its DFT at 2^-16) against fp32's
+            sums = {prec: k1_call(imp, banks, cfg, prec) for prec in ("fp32", "bf16x3")}
+            want = {prec: mel_kernel.stft_log_mel_plain(imp, banks, cfg, prec)
+                    for prec in sums}
+            gaps = {prec: mel_sum_gap(sums[prec], want[prec]) for prec in sums}
+            controls = {"bf16x3_mel_product_vs_bf16x3": mel_sum_gap(
+                            split_mel_plain(imp, banks, cfg, 2), want["bf16x3"]),
+                        "k1_bf16x3_vs_fp32": mel_sum_gap(sums["bf16x3"], want["fp32"])}
+            phase("k1_mel_sums", hop=hop, n_mels=n_mels, fp32_gap=gaps["fp32"],
+                  bf16x3_gap=gaps["bf16x3"], **controls, bound=TOL_PROBE_MEL_SUMS,
+                  floor=MEL_SUM_FLOOR)
+            check(min(controls.values()) > TOL_PROBE_MEL_SUMS,
+                  f"a lower-precision control passes the mel-sum bound: {controls}")
+            check(max(gaps.values()) <= TOL_PROBE_MEL_SUMS,
+                  f"K1's mel sums are below fp32's precision at {n_mels} mels: {gaps}")
+            del sums, want
         cfg = MelConfig(hopsize=hop)
         banks = kaldi_mel_banks(cfg.n_mels, cfg.n_fft, cfg.sr, cfg.fmin,
                                 cfg.effective_fmax, device=device)
-        oracle = mel_oracle_f64(waves, cfg, banks.cpu().numpy())
-        melspec = log_mel_spectrogram(wd, cfg).cpu().numpy()
-        dev_melspec = float(np.abs(melspec - oracle).max())
-        phase("k1_selftest", hop=hop, path="melspec", vs_oracle=dev_melspec,
-              bound=TOL_MELSPEC_VS_ORACLE)
-        check(dev_melspec < TOL_MELSPEC_VS_ORACLE, "melspec path vs oracle")
-        k1 = {}
-        for prec in ("fp32", "bf16x3"):
-            k = k1[prec] = mel_kernel.stft_log_mel(wd, banks, cfg, prec)
-            calls[prec] += 1
-            torch.cuda.synchronize()
-            p = mel_kernel.stft_log_mel_plain(wd, banks, cfg, prec)
-            dev_plain = float((k - p).abs().max())
-            dev_oracle = float(np.abs(k.cpu().numpy() - oracle).max())
-            phase("k1_selftest", hop=hop, precision=prec, n_mels=cfg.n_mels,
-                  route=mel_kernel.k1_route(cfg, prec), shape=tuple(k.shape),
-                  vs_plain=dev_plain, bound_plain=TOL_KERNEL_VS_PLAIN[prec],
-                  vs_oracle=dev_oracle, bound_oracle=TOL_VS_ORACLE[prec])
-            check(dev_plain <= TOL_KERNEL_VS_PLAIN[prec], f"K1 {prec} vs plain")
-            check(dev_oracle < TOL_VS_ORACLE[prec], f"K1 {prec} vs oracle")
         # the controls: what a bf16 mel product does to one of its operands,
         # and what bf16x3's three products do to fp32's six
-        control = float((mel_kernel.stft_log_mel(wd, banks.bfloat16().float(), cfg,
-                                                 "bf16x3")
+        control = float((k1_call(wd, banks.bfloat16().float(), cfg, "bf16x3")
                          - mel_kernel.stft_log_mel_plain(wd, banks, cfg, "bf16x3"))
                         .abs().max())
-        calls["bf16x3"] += 1
         phase("k1_control", hop=hop, precision="bf16x3", bf16_banks_vs_plain=control,
               bound_plain=TOL_KERNEL_VS_PLAIN["bf16x3"])
         check(control > TOL_KERNEL_VS_PLAIN["bf16x3"],
@@ -2534,39 +2591,19 @@ def main():
             nb = kaldi_mel_banks(n_mels, narrow.n_fft, narrow.sr, narrow.fmin,
                                  narrow.effective_fmax, device=device)
             for prec in ("fp32", "bf16x3"):
-                dev_plain = float((mel_kernel.stft_log_mel(wd, nb, narrow, prec)
+                dev_plain = float((k1_call(wd, nb, narrow, prec)
                                    - mel_kernel.stft_log_mel_plain(wd, nb, narrow, prec))
                                   .abs().max())
-                calls[prec] += 1
                 phase("k1_selftest", hop=hop, precision=prec, n_mels=n_mels,
                       route=mel_kernel.k1_route(narrow, prec), vs_plain=dev_plain,
                       bound_plain=TOL_KERNEL_VS_PLAIN[prec])
                 check(dev_plain <= TOL_KERNEL_VS_PLAIN[prec],
                       f"K1 {prec} vs plain at {n_mels} mels, hop {hop}")
-        # the pre-log mel sums on impulse waves, each route against its plain
-        # version; the controls: a bf16x3 mel product against bf16x3's, K1
-        # bf16x3 (its DFT at 2^-16) against fp32's
-        sums = {prec: mel_kernel.stft_log_mel(imp, banks, cfg, prec)
-                for prec in ("fp32", "bf16x3")}
-        for prec in sums:
-            calls[prec] += 1
-        want = {prec: mel_kernel.stft_log_mel_plain(imp, banks, cfg, prec)
-                for prec in sums}
-        gaps = {prec: mel_sum_gap(sums[prec], want[prec]) for prec in sums}
-        controls = {"bf16x3_mel_product_vs_bf16x3": mel_sum_gap(
-                        split_mel_plain(imp, banks, cfg, 2), want["bf16x3"]),
-                    "k1_bf16x3_vs_fp32": mel_sum_gap(sums["bf16x3"], want["fp32"])}
-        phase("k1_mel_sums", hop=hop, fp32_gap=gaps["fp32"], bf16x3_gap=gaps["bf16x3"],
-              **controls, bound=TOL_PROBE_MEL_SUMS, floor=MEL_SUM_FLOOR)
-        check(min(controls.values()) > TOL_PROBE_MEL_SUMS,
-              f"a lower-precision control passes the mel-sum bound: {controls}")
-        check(max(gaps.values()) <= TOL_PROBE_MEL_SUMS,
-              f"K1's mel sums are below fp32's precision: {gaps}")
-        del sums, want
     phase("k1_routes", launches=json.dumps(mel_kernel.ROUTE_LAUNCHES))
-    check(all(k1_wgmma_launches(prec) == n for prec, n in calls.items()),
-          f"phase 3's calls did not all launch their wgmma route: "
-          f"{mel_kernel.ROUTE_LAUNCHES}, calls {calls}")
+    check(mel_kernel.ROUTE_LAUNCHES == calls
+          and sum(mel_kernel.LAUNCHES.values()) == sum(calls.values()),
+          f"phase 3's launches did not all take the route mel_groups gives them: "
+          f"{mel_kernel.ROUTE_LAUNCHES}, {mel_kernel.LAUNCHES}, expected {calls}")
     del imp
 
     lap("3 K1 selftest")
@@ -2618,8 +2655,9 @@ def main():
           labels=json.dumps([(lab, round(p, 4)) for lab, p in top5]))
 
     # 5. K1 against its plain version in turns at B=64 of 10 s clips
-    # (tools.time_k1): the tagger's 128 mels (the wgmma routes) and 256
-    # (mel_kernel_tc's 64-frame blocks, the widest bank of one launch)
+    # (tools.time_k1): the tagger's 128 mels (the 128-mel instantiation)
+    # and 256 (the 256-mel one, the widest bank of one launch; its bound
+    # beside the one with the mel product on the CUDA cores)
     cfg = tagger.mel_cfg
     times = {}
     for n_mels in (cfg.n_mels, 2 * cfg.n_mels):
@@ -2630,20 +2668,24 @@ def main():
             times[prec, n_mels] = (serving_ms(rec),
                                    statistics.mean(rec["plain_ms"]), rec["max_abs"])
             phase("k1_time", **rec, card=repr(card),
-                  bound_ms=k1_bound_ms(BATCH, n_mels, prec)[0])
+                  bound_ms=k1_bound_ms(BATCH, n_mels, prec)[0],
+                  cuda_core_mel_bound_ms=k1_bound_ms(BATCH, n_mels, prec, "fp32")[0])
     banks = kaldi_mel_banks(cfg.n_mels, cfg.n_fft, cfg.sr, cfg.fmin,
                             cfg.effective_fmax, device=device)
     xb = torch.from_numpy(batch).to(device)
     # the parts of a K1 call around the kernel: the copy of the wave into
-    # the kernel's rows (the wgmma route's block rows; mel_kernel_tc's), the
-    # tiling of the banks (a training call's; the Tagger's are tiled once),
-    # and the reflect-pad edge frames' patch
+    # the kernel's rows, the tiling of the banks at 128 and 256 mels (a
+    # training call's; the Tagger's are tiled once), and the reflect-pad
+    # edge frames' patch
     n_frames = cfg.num_frames(CLIP)
     out = torch.empty((BATCH, cfg.n_mels, n_frames), device=device)
+    banks_256 = kaldi_mel_banks(2 * cfg.n_mels, cfg.n_fft, cfg.sr, cfg.fmin,
+                                cfg.effective_fmax, device=device)
     phase("k1_wrapper", batch=BATCH,
           block_rows_ms=median_ms(lambda: mel_kernel._block_rows(xb, cfg, n_frames)),
-          frame_rows_ms=median_ms(lambda: mel_kernel._frame_rows(xb, cfg, n_frames)),
-          tile_banks_ms=median_ms(lambda: mel_kernel._tiled_banks(banks, cfg.n_fft)),
+          tile_banks_ms=median_ms(lambda: mel_kernel._tiled_groups(banks, cfg.n_fft)),
+          tile_banks_256_ms=median_ms(lambda: mel_kernel._tiled_groups(banks_256,
+                                                                       cfg.n_fft)),
           patch_edges_ms=median_ms(lambda: mel_kernel._patch_edges(out, xb, banks, cfg)),
           card=repr(card))
     with torch.inference_mode():
@@ -2659,7 +2701,7 @@ def main():
     k_ms, plain_ms, err = times["bf16x3", cfg.n_mels]
     kernels = [k1_row("bf16x3", "tag", BATCH, launches=launches, max_abs_err=err,
                       ms=k_ms, plain_ms=plain_ms)]
-    del tagger, pairs, xb, mel, out
+    del tagger, pairs, xb, mel, out, banks_256
     torch.cuda.empty_cache()
 
     lap("4-5 tag")
@@ -2737,8 +2779,8 @@ def main():
     phase_train_surgery(device)  # K1 in training mode: its launches on its line
 
     # a 256-mel registry model through the Tagger: one launch a predict, on
-    # mel_kernel_tc<64, 2> (bf16x3) and mel_kernel_tc<64, 3> (fp32); its rows
-    # take phase 5's times at 256 mels
+    # mel_kernel_wgmma<2, false, 3, 128, 256> (bf16x3) and <2, false, 6,
+    # 128, 256> (fp32); its rows take phase 5's times at 256 mels
     mels_256 = {}
     for prec in ("bf16x3", "fp32"):
         tagger = Tagger("mn10_as_mels_256", pretrained=False, device=device,
@@ -2747,7 +2789,8 @@ def main():
         probs = tagger.predict(batch)
         route = mel_kernel.k1_route(tagger.mel_cfg, prec)
         mels_256[prec] = mel_kernel.ROUTE_LAUNCHES[route]
-        check(route.startswith("tc_") and mel_kernel.LAUNCHES[prec] == mels_256[prec],
+        check(route == mel_kernel.WIDE_ROUTES[prec]
+              and mel_kernel.LAUNCHES[prec] == mels_256[prec],
               f"the 256-mel Tagger's K1 {prec} took route {route}: "
               f"{mel_kernel.ROUTE_LAUNCHES}")
         check(bool(np.isfinite(probs).all()), "mn10_as_mels_256 probs")
@@ -2814,9 +2857,13 @@ def main():
           bf16x3_cuda_core_mel_bound_ms=mel_bound_ms(BATCH, CLIP, cfg.n_mels,
                                                      DFT_PASSES["bf16x3"])[0],
           gemm_kind=GEMM_KIND[0], card=repr(card))
-    check(all(row["kernel"] == mel_kernel.ROUTE_KERNELS[mel_kernel.WGMMA_ROUTES[row["precision"]]]
-              and row["launches"] >= 1 for row in kernels if row["n_mels"] <= 128),
-          "a path at up to 128 mels did not launch the wgmma route of its precision")
+    # every K1 row, at any width, on the wgmma kernel's instantiation of its
+    # precision that holds its mels
+    check(all(row["kernel"] == mel_kernel.ROUTE_KERNELS[
+                  (mel_kernel.WGMMA_ROUTES if row["n_mels"] <= mel_kernel.WGMMA_MAX_MELS
+                   else mel_kernel.WIDE_ROUTES)[row["precision"]]]
+              and row["launches"] >= 1 for row in kernels),
+          "a K1 path did not launch the wgmma route of its precision and width")
 
     lap("bounds and yardsticks")
     kernels.extend(probe_rows)

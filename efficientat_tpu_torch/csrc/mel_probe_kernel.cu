@@ -28,14 +28,14 @@ extern "C" int eat_probe_p1(const float* x, int B, int row_len, int hop, int n_f
                             int frame_tile, const void* bhi, const void* blo,
                             const void* mel, int n_mels, float* out, void* stream) {
   return (int)mel_wgmma::launch<false, 3>(x, B, row_len, hop, n_frames, frame_tile, bhi, blo,
-                                          nullptr, mel, n_mels, out, stream);
+                                          nullptr, mel, n_mels, n_mels, out, stream);
 }
 
 extern "C" int eat_probe_p2(const float* x, int B, int row_len, int hop, int n_frames,
                             int frame_tile, const void* bhi, const void* blo,
                             const void* mel, int n_mels, float* out, void* stream) {
   return (int)mel_wgmma::launch<true, 3>(x, B, row_len, hop, n_frames, frame_tile, bhi, blo,
-                                         nullptr, mel, n_mels, out, stream);
+                                         nullptr, mel, n_mels, n_mels, out, stream);
 }
 
 extern "C" int eat_probe_p3(const float* x, int B, int row_len, int hop, int n_frames,
@@ -45,23 +45,25 @@ extern "C" int eat_probe_p3(const float* x, int B, int row_len, int hop, int n_f
   switch (passes) {
     case 3:
       return (int)mel_wgmma::launch<false, 3>(x, B, row_len, hop, n_frames, P3_TILE, bhi,
-                                              blo, nullptr, mel, n_mels, out, stream);
+                                              blo, nullptr, mel, n_mels, n_mels, out, stream);
     case 21:
       return (int)mel_wgmma::launch<false, 21>(x, B, row_len, hop, n_frames, P3_TILE, bhi,
-                                               blo, nullptr, mel, n_mels, out, stream);
+                                               blo, nullptr, mel, n_mels, n_mels, out, stream);
     case 22:
       return (int)mel_wgmma::launch<false, 22>(x, B, row_len, hop, n_frames, P3_TILE, bhi,
-                                               blo, nullptr, mel, n_mels, out, stream);
+                                               blo, nullptr, mel, n_mels, n_mels, out, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
 // the shared-memory plan P1/P3 (staged 0) or P2 (1) launch at `hop`, with
-// ring slots of `parts` basis parts (2; 3 is K1 fp32's, unstaged): its
-// bytes (0 where nothing fits), warpgroups and KC
-extern "C" long long eat_probe_plan(int staged, int hop, int parts, int* wg, int* kc) {
-  const mel_wgmma::Plan p = mel_wgmma::plan(staged != 0, hop, parts);
+// ring slots of `parts` basis parts (2; 3 is K1 fp32's, unstaged) and sums
+// of `mels` mels (128; 256 is K1's widest, unstaged): its bytes (0 where
+// nothing fits), warpgroups and KC
+extern "C" long long eat_probe_plan(int staged, int hop, int parts, int mels, int* wg,
+                                    int* kc) {
+  const mel_wgmma::Plan p = mel_wgmma::plan(staged != 0, hop, parts, mels);
   *wg = p.wg;
   *kc = p.kc;
   return (long long)p.bytes;

@@ -1,12 +1,14 @@
 // The Hopper design of the fused log-mel at bf16x3 and fp32, CUDA C++ for
-// sm_90a: one kernel body, mel_kernel_wgmma<WG, STAGED, PASSES, KC>, and its
-// launch.
+// sm_90a: one kernel body, mel_kernel_wgmma<WG, STAGED, PASSES, KC, MELS>, and
+// its launch.
 //
 // Two libraries include this header and launch it:
-//   K1 at n_mels <= 128, csrc/mel_kernel.cu::eat_mel_log_wgmma: bf16x3
-//     (mel_kernel_wgmma<2, false, 3, 128>) and fp32 (<2, false, 6, 128>), in
-//     place of the Pallas kernel efficientat_tpu/ops/mel_pallas.py::_mel_kernel
-//     at bf16x3 and at Precision.HIGHEST (its DFT at :190-192);
+//   K1, csrc/mel_kernel.cu::eat_mel_log_wgmma: bf16x3 (mel_kernel_wgmma<2,
+//     false, 3, 128> at n_mels <= 128, <2, false, 3, 128, 256> at 129-256)
+//     and fp32 (<2, false, 6, 128> and <2, false, 6, 128, 256>), in place of
+//     the Pallas kernel efficientat_tpu/ops/mel_pallas.py::_mel_kernel at
+//     bf16x3 and at Precision.HIGHEST (its DFT at :190-192); a wider bank
+//     takes a launch for each group of 256 mels;
 //   the probe variants P1-P3, csrc/mel_probe_kernel.cu, in place of the
 //     Pallas kernels of scripts/probe_mel_kernel.py.
 // For one clip and one tile of frames, in one kernel:
@@ -23,9 +25,10 @@
 //         (fp32: the six passes the TPU runs for Precision.HIGHEST)
 //     21: fh * bhi + fl * bhi    (frames exact, basis hi only; P3)
 //     22: fh * bhi + fh * blo    (basis exact, frames hi only; P3)
-//   -> power re^2 + im^2 -> times banks^T (512 x n_mels, n_mels <= 128) at
-//   fp32's precision (the TPU's Precision.HIGHEST, mel_pallas.py:197-198)
-//   -> (log(x + 1e-5) + 4.5) / 5, written into the (B, n_mels, n_frames) output.
+//   -> power re^2 + im^2 -> times banks^T (512 x n_mels, n_mels <= MELS: 128
+//   or 256) at fp32's precision (the TPU's Precision.HIGHEST, mel_pallas.py:197-198)
+//   -> (log(x + 1e-5) + 4.5) / 5, written into rows 0 .. n_mels - 1 of each
+//   clip's out_mels rows of the (B, out_mels, n_frames) output.
 // The wrappers patch the few frames whose window reaches the reflect pad, as
 // the JAX functions do.
 //
@@ -83,6 +86,26 @@
 //   times a chunk. The banks^T parts of a chunk pass through the same ring
 //   slots as the basis, one to three stages after its basis stages. The
 //   power never leaves the registers.
+// - 256 mels (MELS 256): the mel wgmma's N is 128 and a warpgroup keeps its
+//   64 frames x 128 mels of sums in registers (fp32 at 128 mels already
+//   holds 254), so the power's parts go through the mel product twice, once
+//   for each half of banks^T: mels 0-127 into the registers' sums as at
+//   128, mels 128-255 added in fp32 to a tile of sums in shared memory, 64
+//   frames x 128 mels a warpgroup (64 KB a block), laid out [sum][thread]
+//   so that the read-modify-write is conflict-free (2 MB of shared-memory
+//   traffic a block at B = 64, beside some 8 MB of basis reads). A chunk's
+//   banks^T is two halves of three 8 KB parts: two ring stages at two basis
+//   parts a slot, one at three. Everything else (the 128-frame blocks, the
+//   DFT loop, the ring and its basis traffic) is the 128-mel kernel's. The
+//   DFT loop there needs a few registers more than at 128 mels, so the
+//   write-out's coordinates are made afresh after it (fresh_sreg), where
+//   held across it they spilled 24 bytes at fp32: 228 registers at bf16x3
+//   and 254 at fp32, no spill. The kernel alone at B = 64 and 256 mels:
+//   1.04-1.08 ms at bf16x3 and 1.51-1.54 at fp32, against 2.53-2.54 and
+//   3.41-3.56 for mel_kernel_tc<64, 2 | 3> (mma.sync, 64-frame blocks, the
+//   mel product as fp32 FMAs on the CUDA cores), which it replaced
+//   (tools/time_k1.py in turns, one NVIDIA H100 80GB HBM3 at 700 W;
+//   PERF.md section 6).
 // - P2 (the TPU's DMA frame assembly): the copy engine brings each
 //   sub-tile's wave segment ((frames - 1) hop + 1024 fp32) into shared
 //   memory with one bulk copy, and the A fragments are read from there: 128
@@ -137,7 +160,7 @@ constexpr int COLS = 2 * NB;           // the DFT wgmma's N
 constexpr int TF = 64;                 // frames a warpgroup: the wgmma's M
 constexpr int PRODUCT = COLS * 16;     // bf16 values of one k16 product of a chunk
 constexpr int CHUNK = N_FFT / 16 * PRODUCT;  // bf16 values of a chunk's tiles
-constexpr int MAX_MELS = 128;          // the mel wgmma's N
+constexpr int MAX_MELS = 128;          // the mel wgmma's N: mels a half of banks^T
 constexpr int MEL_SPLIT = 3;           // bf16 parts of the power and of banks^T
 constexpr int MEL_PART = NB * MAX_MELS;      // bf16 values of a chunk's banks^T tiles, a part
 constexpr int MEL_PART_BYTES = 2 * MEL_PART;
@@ -149,10 +172,10 @@ constexpr size_t MAX_SMEM = 232448;    // 227 KB, a block's most on sm_90
 // it): `wg` warpgroups of 64 frames a block and a ring of ring_stages
 // slots of KC samples (the chunk's 64 columns of each of `parts` basis
 // parts, 128 KC bytes a part: 2 parts, or 3 at 6 passes; the chunk's
-// banks^T tiles pass through the same slots), and P2's segment of the
-// block's frames. K1, P1 and P3 take P1_PLAN; P2 the first of P2_PLANS
-// that fits: two warpgroups while their segment fits (hop <= 320), else
-// one.
+// banks^T tiles pass through the same slots), the sums of mels 128-255 at
+// `mels` 256 (32 KB a warpgroup), and P2's segment of the block's frames.
+// K1, P1 and P3 take P1_PLAN; P2 the first of P2_PLANS that fits: two
+// warpgroups while their segment fits (hop <= 320), else one.
 constexpr int P1_PLAN[2] = {2, 128};  // warpgroups, KC
 constexpr int P2_PLANS[3][2] = {{2, 64}, {1, 64}, {1, 32}};
 struct Plan {
@@ -166,15 +189,22 @@ struct Plan {
 __host__ __device__ constexpr int slot_parts(int passes) { return passes == 6 ? 3 : 2; }
 __host__ __device__ constexpr int ring_stages(int parts) { return parts == 3 ? 3 : RING; }
 
-inline size_t plan_bytes(bool staged, int hop, int parts, const int (&c)[2]) {
-  const size_t seg = staged ? sizeof(float) * ((size_t)(TF * c[0] - 1) * hop + N_FFT) : 0;
-  return BARRIER_BYTES + (size_t)ring_stages(parts) * 128 * parts * c[1] + seg;
+// the bytes of the shared-memory sums of mels MAX_MELS .. mels - 1, for `wg`
+// warpgroups
+__host__ __device__ constexpr size_t mel_sum_bytes(int mels, int wg) {
+  return sizeof(float) * (size_t)(mels - MAX_MELS) * TF * wg;
 }
 
-inline Plan plan(bool staged, int hop, int parts) {
-  if (!staged) return {P1_PLAN[0], P1_PLAN[1], plan_bytes(false, hop, parts, P1_PLAN)};
+inline size_t plan_bytes(bool staged, int hop, int parts, int mels, const int (&c)[2]) {
+  const size_t seg = staged ? sizeof(float) * ((size_t)(TF * c[0] - 1) * hop + N_FFT) : 0;
+  return BARRIER_BYTES + (size_t)ring_stages(parts) * 128 * parts * c[1] +
+         mel_sum_bytes(mels, c[0]) + seg;
+}
+
+inline Plan plan(bool staged, int hop, int parts, int mels = MAX_MELS) {
+  if (!staged) return {P1_PLAN[0], P1_PLAN[1], plan_bytes(false, hop, parts, mels, P1_PLAN)};
   for (const auto& c : P2_PLANS) {
-    const size_t bytes = plan_bytes(true, hop, parts, c);
+    const size_t bytes = plan_bytes(true, hop, parts, mels, c);
     if (bytes <= MAX_SMEM) return {c[0], c[1], bytes};
   }
   return {0, 0, 0};
@@ -225,6 +255,22 @@ __device__ __forceinline__ void expect_bytes(uint64_t* bar, int bytes) {
 __device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(128 >> 4) << 16) |
          ((uint64_t)(256 >> 4) << 32);
+}
+
+// %tid.x (R 0), %ctaid.x (1) or %ctaid.y (2), read where it is used: an
+// asm volatile is not hoisted, so what is made from it holds no register
+// across the loops before
+template <int R>
+__device__ __forceinline__ int fresh_sreg() {
+  int v;
+  if constexpr (R == 0) {
+    asm volatile("mov.u32 %0, %%tid.x;" : "=r"(v));
+  } else if constexpr (R == 1) {
+    asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(v));
+  } else {
+    asm volatile("mov.u32 %0, %%ctaid.y;" : "=r"(v));
+  }
+  return v;
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -446,15 +492,16 @@ __device__ __forceinline__ void mel_stage(float (&d0)[32], float (&d1)[32],
 }
 
 // WG warpgroups of 64 frames a block; STAGED: P2's segment in shared memory;
-// KC samples a ring stage
-template <int WG, bool STAGED, int PASSES, int KC>
+// KC samples a ring stage; MELS: the most mels, 128 or 256 (unstaged, KC 128)
+template <int WG, bool STAGED, int PASSES, int KC, int MELS = MAX_MELS>
 __global__ void __launch_bounds__(128 * WG, 1)
 mel_kernel_wgmma(const float* __restrict__ x, int row_len, int hop, int n_frames, int tile,
              const __nv_bfloat16* __restrict__ b0,   // _tiled_basis, part 0
              const __nv_bfloat16* __restrict__ b1,   // part 1
              const __nv_bfloat16* __restrict__ b2,   // part 2 (6 passes)
-             const __nv_bfloat16* __restrict__ mel,  // _tiled_banks: per chunk, parts 0-2
-             int n_mels, float* __restrict__ out) {  // (B, n_mels, n_frames)
+             const __nv_bfloat16* __restrict__ mel,  // _tiled_banks: per chunk, halves x parts
+             int n_mels, float* __restrict__ out,    // (B, out_mels, n_frames)
+             int out_mels) {
   constexpr int BF = TF * WG;             // frames a block computes at a time
   constexpr int A_PARTS = slot_parts(PASSES);  // bf16 parts of the frames
   constexpr int PARTS = PASSES == 21 ? 1 : A_PARTS;  // basis parts a stage brings in
@@ -465,14 +512,22 @@ mel_kernel_wgmma(const float* __restrict__ x, int row_len, int hop, int n_frames
   constexpr int SLOT_BYTES = A_PARTS * PART_BYTES;
   constexpr int STAGES = ring_stages(A_PARTS);  // ring slots
   constexpr int PER_SLOT = SLOT_BYTES / MEL_PART_BYTES;  // banks^T parts a slot
-  constexpr int M_ST = (MEL_SPLIT + PER_SLOT - 1) / PER_SLOT;  // banks^T stages a chunk
+  constexpr int HALVES = MELS / MAX_MELS;  // halves of banks^T, MEL_SPLIT parts each
+  constexpr int HALF_SLOT = PER_SLOT / MEL_SPLIT;  // whole halves a slot
+  // banks^T stages a chunk: its parts, PER_SLOT a stage, or its halves
+  constexpr int M_ST = HALVES == 1 ? (MEL_SPLIT + PER_SLOT - 1) / PER_SLOT : HALVES / HALF_SLOT;
   constexpr int SPC = K_ST + M_ST;        // ring stages a chunk
   static_assert(PER_SLOT >= 1 && M_ST <= 3, "a slot holds a banks^T part");
+  static_assert(HALVES == 1 || (HALVES == 2 && !STAGED && HALF_SLOT >= 1 &&
+                                HALVES % HALF_SLOT == 0),
+                "256 mels: unstaged, a slot holds a half of banks^T");
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);          // [STAGES]
   uint64_t* seg_full = full + STAGES;
   unsigned char* slots = smem + BARRIER_BYTES;                 // [STAGES][SLOT_BYTES]
-  float* seg = reinterpret_cast<float*>(slots + STAGES * SLOT_BYTES);  // P2's segment
+  // the sums of mels 128-255 at MELS 256: [sum 4j + e][thread]
+  float* msum = reinterpret_cast<float*>(slots + STAGES * SLOT_BYTES);
+  float* seg = msum + mel_sum_bytes(MELS, WG) / sizeof(float);  // P2's segment
   const int seg_len = STAGED ? (BF - 1) * hop + N_FFT : 0;
 
   const int tid = threadIdx.x;
@@ -481,7 +536,7 @@ mel_kernel_wgmma(const float* __restrict__ x, int row_len, int hop, int n_frames
   const int r0 = 16 * warp + g;           // this thread's fragment rows r0, r0 + 8 of the block
   const int b = blockIdx.y;
   const float* xb = x + (size_t)b * row_len;
-  float* o = out + (size_t)b * n_mels * n_frames;
+  float* o = out + (size_t)b * out_mels * n_frames;
   const int tile0 = blockIdx.x * tile;
   const int tile_end = min(n_frames, tile0 + tile);
   const int n_sub = (tile_end - tile0 + BF - 1) / BF;
@@ -489,7 +544,8 @@ mel_kernel_wgmma(const float* __restrict__ x, int row_len, int hop, int n_frames
 
   // stage q of the walk into slot q % STAGES: of chunk q / SPC of its
   // sub-tile, K_ST basis stages (samples j KC .. of each part), then M_ST
-  // of banks^T parts, the last parts first; the segment of sub-tile u
+  // of banks^T parts, the last parts first (at 256 mels, HALF_SLOT halves
+  // of three parts a stage, the first half first); the segment of sub-tile u
   auto issue_stage = [&](int q) {
     const int j = q % SPC, c = q / SPC % N_CHUNKS;
     unsigned char* dst = slots + q % STAGES * SLOT_BYTES;
@@ -500,6 +556,11 @@ mel_kernel_wgmma(const float* __restrict__ x, int row_len, int hop, int n_frames
       bulk_copy(dst, b0 + off, PART_BYTES, bar);
       if (PARTS >= 2) bulk_copy(dst + PART_BYTES, b1 + off, PART_BYTES, bar);
       if (PARTS == 3) bulk_copy(dst + 2 * PART_BYTES, b2 + off, PART_BYTES, bar);
+    } else if constexpr (HALVES == 2) {
+      const int bytes = HALF_SLOT * MEL_SPLIT * MEL_PART_BYTES;
+      expect_bytes(bar, bytes);
+      bulk_copy(dst, mel + (size_t)(c * HALVES + (j - K_ST) * HALF_SLOT) * MEL_SPLIT * MEL_PART,
+                bytes, bar);
     } else {
       const int hi = MEL_SPLIT - (j - K_ST) * PER_SLOT, lo = max(0, hi - PER_SLOT);
       expect_bytes(bar, (hi - lo) * MEL_PART_BYTES);
@@ -538,6 +599,10 @@ mel_kernel_wgmma(const float* __restrict__ x, int row_len, int hop, int n_frames
   float macc[64], cm[32], cc[32];
 #pragma unroll
   for (int e = 0; e < 64; ++e) macc[e] = 0.f;
+  if constexpr (HALVES == 2) {
+#pragma unroll
+    for (int e = 0; e < 64; ++e) msum[e * 128 * WG + tid] = 0.f;
+  }
 #pragma unroll
   for (int e = 0; e < 32; ++e) cm[e] = cc[e] = 0.f;
   // the A fragments of two wgmma groups: group n's in a[n % 2], read by its
@@ -598,34 +663,76 @@ mel_kernel_wgmma(const float* __restrict__ x, int row_len, int hop, int n_frames
       power_frags(cm, cc, pa);
 #pragma unroll
       for (int e = 0; e < 32; ++e) cm[e] = cc[e] = 0.f;
-      // PER_SLOT is 4 or 6 (KC 128), 2 or 3 (KC 64) or 1 (KC 32)
-      if constexpr (PER_SLOT >= MEL_SPLIT) {
-        mel_stage<0, 3>(cm, cc, pa, next_stage(q++));
-      } else if constexpr (PER_SLOT == 2) {
-        mel_stage<1, 3>(cm, cc, pa, next_stage(q++));
-        mel_stage<0, 1>(cm, cc, pa, next_stage(q++));
-      } else {
-        mel_stage<2, 3>(cm, cc, pa, next_stage(q++));
-        mel_stage<1, 2>(cm, cc, pa, next_stage(q++));
-        mel_stage<0, 1>(cm, cc, pa, next_stage(q++));
-      }
+      if constexpr (HALVES == 2) {
+        // mels 0-127 into the registers' sums, then 128-255 into shared
+        // memory's, from the next stage (HALF_SLOT 1) or the same one
+        uint32_t st = next_stage(q++);
+        mel_stage<0, 3>(cm, cc, pa, st);
 #pragma unroll
-      for (int e = 0; e < 32; ++e) {
-        macc[e] += cm[e];
-        macc[32 + e] += cc[e];
-        cm[e] = cc[e] = 0.f;
+        for (int e = 0; e < 32; ++e) {
+          macc[e] += cm[e];
+          macc[32 + e] += cc[e];
+          cm[e] = cc[e] = 0.f;
+        }
+        if constexpr (HALF_SLOT == 1) {
+          st = next_stage(q++);
+        } else {
+          st += MEL_SPLIT * MEL_PART_BYTES;
+        }
+        mel_stage<0, 3>(cm, cc, pa, st);
+        const int id = fresh_sreg<0>();
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          msum[e * 128 * WG + id] += cm[e];
+          msum[(32 + e) * 128 * WG + id] += cc[e];
+          cm[e] = cc[e] = 0.f;
+        }
+      } else {
+        // PER_SLOT is 4 or 6 (KC 128), 2 or 3 (KC 64) or 1 (KC 32)
+        if constexpr (PER_SLOT >= MEL_SPLIT) {
+          mel_stage<0, 3>(cm, cc, pa, next_stage(q++));
+        } else if constexpr (PER_SLOT == 2) {
+          mel_stage<1, 3>(cm, cc, pa, next_stage(q++));
+          mel_stage<0, 1>(cm, cc, pa, next_stage(q++));
+        } else {
+          mel_stage<2, 3>(cm, cc, pa, next_stage(q++));
+          mel_stage<1, 2>(cm, cc, pa, next_stage(q++));
+          mel_stage<0, 1>(cm, cc, pa, next_stage(q++));
+        }
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          macc[e] += cm[e];
+          macc[32 + e] += cc[e];
+          cm[e] = cc[e] = 0.f;
+        }
       }
     }
 
-    // mel sum 4j + e: frame r0 + 8 (e / 2), mel 8j + 2t + e % 2
+    // the write-out's coordinates; at 256 mels made afresh from the special
+    // registers (fresh_sreg): the DFT loop there needs a few registers more
+    // than at 128 mels, and these, held across it, spilled 24 bytes
+    const int wid = HALVES == 2 ? fresh_sreg<0>() : tid;
+    const int wr0 = HALVES == 2 ? 16 * (wid / 32) + wid % 32 / 4 : r0;
+    const int wt = HALVES == 2 ? wid % 4 : t;
+    const int wf0 = HALVES == 2 ? fresh_sreg<1>() * tile + u * BF : f0;
+    const int wend = HALVES == 2 ? min(n_frames, fresh_sreg<1>() * tile + tile) : tile_end;
+    float* wo = HALVES == 2 ? out + (size_t)fresh_sreg<2>() * out_mels * n_frames : o;
+    // mel sum 4j + e: frame r0 + 8 (e / 2), mel 8j + 2t + e % 2 (and 128 +
+    // that of shared memory's, at 256 mels)
 #pragma unroll
     for (int j = 0; j < 16; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int f = f0 + r0 + 8 * (e / 2), m = 8 * j + 2 * t + e % 2;
-        if (f < tile_end && m < n_mels)
-          o[(size_t)m * n_frames + f] = (logf(macc[4 * j + e] + 1e-5f) + 4.5f) / 5.0f;
+        const int f = wf0 + wr0 + 8 * (e / 2), m = 8 * j + 2 * wt + e % 2;
+        if (f < wend && m < n_mels)
+          wo[(size_t)m * n_frames + f] = (logf(macc[4 * j + e] + 1e-5f) + 4.5f) / 5.0f;
         macc[4 * j + e] = 0.f;
+        if constexpr (HALVES == 2) {
+          float& s = msum[(4 * j + e) * 128 * WG + wid];
+          if (f < wend && MAX_MELS + m < n_mels)
+            wo[(size_t)(MAX_MELS + m) * n_frames + f] = (logf(s + 1e-5f) + 4.5f) / 5.0f;
+          s = 0.f;
+        }
       }
     // every thread is done with this sub-tile's segment: the copy engine
     // refills it with the next sub-tile's
@@ -637,19 +744,20 @@ mel_kernel_wgmma(const float* __restrict__ x, int row_len, int hop, int n_frames
   }
 }
 
-template <int WG, bool STAGED, int PASSES, int KC>
+template <int WG, bool STAGED, int PASSES, int KC, int MELS>
 cudaError_t launch_kc(const float* x, int B, int row_len, int hop, int n_frames, int tile,
                       const void* b0, const void* b1, const void* b2, const void* mel,
-                      int n_mels, float* out, const Plan& p, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(mel_kernel_wgmma<WG, STAGED, PASSES, KC>,
+                      int n_mels, int out_mels, float* out, const Plan& p,
+                      cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(mel_kernel_wgmma<WG, STAGED, PASSES, KC, MELS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)p.bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((n_frames + tile - 1) / tile, B);
-  mel_kernel_wgmma<WG, STAGED, PASSES, KC><<<grid, 128 * WG, p.bytes, stream>>>(
+  mel_kernel_wgmma<WG, STAGED, PASSES, KC, MELS><<<grid, 128 * WG, p.bytes, stream>>>(
       x, row_len, hop, n_frames, tile, static_cast<const __nv_bfloat16*>(b0),
       static_cast<const __nv_bfloat16*>(b1), static_cast<const __nv_bfloat16*>(b2),
-      static_cast<const __nv_bfloat16*>(mel), n_mels, out);
+      static_cast<const __nv_bfloat16*>(mel), n_mels, out, out_mels);
   return cudaGetLastError();
 }
 
@@ -657,38 +765,41 @@ cudaError_t launch_kc(const float* x, int B, int row_len, int hop, int n_frames,
 // frame i at x[:, hop * i]; b0, b1 (and b2 at 6 passes, else unread) the
 // basis parts pre-tiled by ops/mel_kernel.py::_tiled_basis (16 x 64 x 1024
 // bf16 each); mel the banks^T
-// split into three bf16 parts and tiled by _tiled_banks (16 chunks x 3 parts
-// x 32 x 128 bf16, zero past n_mels); out (B, n_mels, n_frames) f32. All
-// contiguous on the device; 16-byte aligned rows (row_len a multiple of 4)
-// holding every frame of the last 128-frame sub-tile.
-template <bool STAGED, int PASSES>
+// split into three bf16 parts and tiled by _tiled_banks at MELS mels (16
+// chunks x MELS / 128 halves x 3 parts x 32 x 128 bf16, zero past n_mels);
+// out the first n_mels rows of each clip's out_mels rows of a (B, out_mels,
+// n_frames) f32 output. All contiguous on the device; 16-byte aligned rows
+// (row_len a multiple of 4) holding every frame of the last 128-frame
+// sub-tile. MELS 256 is unstaged.
+template <bool STAGED, int PASSES, int MELS = MAX_MELS>
 cudaError_t launch(const float* x, int B, int row_len, int hop, int n_frames,
                    int frame_tile, const void* b0, const void* b1, const void* b2,
-                   const void* mel, int n_mels, float* out, void* stream) {
-  if (B < 1 || B > 65535 || n_frames < 1 || n_mels < 1 || n_mels > MAX_MELS ||
-      hop < 64 || hop % 64 != 0 || frame_tile < TF || frame_tile % TF != 0 ||
-      row_len % 4 != 0)
+                   const void* mel, int n_mels, int out_mels, float* out, void* stream) {
+  static_assert(MELS == MAX_MELS || (MELS == 2 * MAX_MELS && !STAGED), "128 or 256 mels");
+  if (B < 1 || B > 65535 || n_frames < 1 || n_mels < 1 || n_mels > MELS ||
+      out_mels < n_mels || hop < 64 || hop % 64 != 0 || frame_tile < TF ||
+      frame_tile % TF != 0 || row_len % 4 != 0)
     return cudaErrorInvalidValue;
   // every frame of every 128-frame sub-tile that runs lies inside the row
   const long long sub_frames = (long long)(n_frames + 2 * TF - 1) / (2 * TF) * (2 * TF);
   if ((long long)hop * (sub_frames - 1) + N_FFT > row_len) return cudaErrorInvalidValue;
-  const Plan p = plan(STAGED, hop, slot_parts(PASSES));
+  const Plan p = plan(STAGED, hop, slot_parts(PASSES), MELS);
   if (p.bytes == 0) return cudaErrorInvalidValue;
   const int bf = TF * p.wg;
   const int tile = (frame_tile + bf - 1) / bf * bf;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if constexpr (!STAGED) {
-    return launch_kc<P1_PLAN[0], false, PASSES, P1_PLAN[1]>(x, B, row_len, hop, n_frames, tile,
-                                                            b0, b1, b2, mel, n_mels, out, p, s);
+    return launch_kc<P1_PLAN[0], false, PASSES, P1_PLAN[1], MELS>(
+        x, B, row_len, hop, n_frames, tile, b0, b1, b2, mel, n_mels, out_mels, out, p, s);
   } else {
     if (p.wg == 2)
-      return launch_kc<2, true, PASSES, 64>(x, B, row_len, hop, n_frames, tile, b0, b1, b2, mel,
-                                            n_mels, out, p, s);
+      return launch_kc<2, true, PASSES, 64, MELS>(x, B, row_len, hop, n_frames, tile, b0, b1,
+                                                  b2, mel, n_mels, out_mels, out, p, s);
     if (p.kc == 64)
-      return launch_kc<1, true, PASSES, 64>(x, B, row_len, hop, n_frames, tile, b0, b1, b2, mel,
-                                            n_mels, out, p, s);
-    return launch_kc<1, true, PASSES, 32>(x, B, row_len, hop, n_frames, tile, b0, b1, b2, mel,
-                                          n_mels, out, p, s);
+      return launch_kc<1, true, PASSES, 64, MELS>(x, B, row_len, hop, n_frames, tile, b0, b1,
+                                                  b2, mel, n_mels, out_mels, out, p, s);
+    return launch_kc<1, true, PASSES, 32, MELS>(x, B, row_len, hop, n_frames, tile, b0, b1, b2,
+                                                mel, n_mels, out_mels, out, p, s);
   }
 }
 

@@ -8,24 +8,21 @@ most 4 a clip) are recomputed here in plain PyTorch with the exact reference
 math and patched in, as the JAX wrapper does. K1 runs the DFT on the
 tensor cores as products of bf16 parts: bf16x3 (the JAX package's 3-pass
 split, the serving and training default) or fp32 (the 6-pass split the TPU
-runs for ``Precision.HIGHEST``), on one of two kernels that ``k1_route``
-picks from the arguments alone:
-
-- ``"wgmma"`` (bf16x3) and ``"wgmma_fp32"`` at up to 128 mels:
-  ``eat_mel_log_wgmma``, the Hopper design of ``csrc/mel_wgmma.cuh``
-  (``wgmma`` DFT, the basis through a bulk-copy ring, the mel product on
-  the tensor cores at fp32's precision: power and banks in three bf16
-  parts, six products). Its operands are made here: the folded basis's
-  bf16 parts (two, or three for fp32) pre-tiled for the ring
-  (``_tiled_basis``), banks^T in three bf16 parts, tiled
-  (``_tiled_banks``; the fixed serving banks once a config and device,
-  ``tiled_serving_banks``), and rows holding every frame of the last
-  128-frame block (``_block_rows``);
-- ``"tc_bf16x3"`` and ``"tc_fp32"`` at 129-256 mels (a launch a group of
-  256 above): ``eat_mel_log``, ``mel_kernel_tc`` of ``csrc/mel_kernel.cu``,
-  with the basis's bf16 parts transposed to (columns, samples)
-  (``_folded_basis_t``) and rows made by ``_frame_rows``: the wave behind a
-  zero pad, 16-byte aligned.
+runs for ``Precision.HIGHEST``), on ``eat_mel_log_wgmma``, the Hopper design
+of ``csrc/mel_wgmma.cuh`` (``wgmma`` DFT, the basis through a bulk-copy
+ring, the mel product on the tensor cores at fp32's precision: power and
+banks in three bf16 parts, six products). Its instantiation holds 128 or
+256 mels; a wider bank takes one launch for each group of ``MELS_A_LAUNCH``
+mels, each on the narrowest instantiation that holds it (``mel_groups``).
+A launch's route, picked from the arguments alone, names its instantiation:
+``"wgmma"`` (bf16x3) and ``"wgmma_fp32"`` at up to 128 mels,
+``"wgmma256"`` and ``"wgmma256_fp32"`` at 129-256; ``k1_route`` is a
+call's widest. The operands are made here: the folded basis's bf16 parts
+(two, or three for fp32) pre-tiled for the ring (``_tiled_basis``), each
+group's banks^T in three bf16 parts, tiled (``_tiled_banks``, one tensor a
+group, ``_tiled_groups``; the fixed serving banks once a config and
+device, ``tiled_serving_banks``), and rows holding every frame of the last
+128-frame block (``_block_rows``).
 
 ``stft_log_mel`` launches K1 for a CUDA tensor and runs its plain PyTorch
 version, ``stft_log_mel_plain``, for a CPU tensor; nothing else chooses
@@ -71,28 +68,30 @@ PARTS = {"fp32": 3, "bf16x3": 2}
 DFT_PRECISIONS = tuple(PARTS)
 # the edge patch reads 2 * n_fft-sample slivers from both ends of the clip
 MIN_SAMPLES = 4096
-# mels a launch of mel_kernel_tc (its mel accumulators: 64 a thread, 64
-# frames a block); a wider bank takes one launch for each group of as many
+# mels a launch (the kernel's widest instantiation); a wider bank takes one
+# launch for each group of as many
 MELS_A_LAUNCH = 256
 MAX_ROWS = 65535  # clips a launch: the grid's y limit; a larger batch is sliced
 
-# The wgmma routes' design (csrc/mel_wgmma.cuh): frames a block (two
-# warpgroups of 64), a chunk's basis columns (32 cos + the 32 matching sin),
-# bf16 parts of the power and of banks^T in the mel product, and the mel
-# product's N, its most mels
+# The kernel's design (csrc/mel_wgmma.cuh): frames a block (two warpgroups
+# of 64), a chunk's basis columns (32 cos + the 32 matching sin), bf16 parts
+# of the power and of banks^T in the mel product, and the mel product's N:
+# the mels of a half of banks^T, the narrow instantiation's most
 BLOCK = 128
 CHUNK_COLS = 64
 MEL_SPLIT = 3
 WGMMA_MAX_MELS = 128
-# K1's kernel by route (``k1_route``)
+# K1's kernel by route (``mel_groups``)
 ROUTE_KERNELS = {
     "wgmma": "mel_wgmma::mel_kernel_wgmma<2, false, 3, 128>",
     "wgmma_fp32": "mel_wgmma::mel_kernel_wgmma<2, false, 6, 128>",
-    "tc_bf16x3": "mel_kernel_tc<64, 2>",
-    "tc_fp32": "mel_kernel_tc<64, 3>",
+    "wgmma256": "mel_wgmma::mel_kernel_wgmma<2, false, 3, 128, 256>",
+    "wgmma256_fp32": "mel_wgmma::mel_kernel_wgmma<2, false, 6, 128, 256>",
 }
-# the routes of the wgmma kernel, by dft_precision
+# the routes by dft_precision: up to WGMMA_MAX_MELS mels, and up to
+# MELS_A_LAUNCH
 WGMMA_ROUTES = {"bf16x3": "wgmma", "fp32": "wgmma_fp32"}
+WIDE_ROUTES = {"bf16x3": "wgmma256", "fp32": "wgmma256_fp32"}
 
 # K1 launches in this process, by dft_precision and by route; a run sets
 # them to 0 and reads them after
@@ -105,17 +104,34 @@ def kernel_supported(cfg: MelConfig) -> bool:
     return cfg.n_fft == 1024 and cfg.hopsize in (320, 640)
 
 
-def k1_route(cfg: MelConfig, dft_precision: str) -> str:
-    """The kernel ``stft_log_mel`` launches for ``cfg`` and ``dft_precision``
-    (a key of ``ROUTE_KERNELS``): ``"wgmma"`` (bf16x3) or ``"wgmma_fp32"``
-    at up to ``WGMMA_MAX_MELS`` mels, ``"tc_bf16x3"`` or ``"tc_fp32"`` at
-    more (a launch a group of ``MELS_A_LAUNCH``)."""
+def launch_mels(n_mels: int) -> int:
+    """The mels of the narrowest instantiation that holds a launch of
+    ``n_mels``: ``WGMMA_MAX_MELS`` or ``MELS_A_LAUNCH``."""
+    return WGMMA_MAX_MELS if n_mels <= WGMMA_MAX_MELS else MELS_A_LAUNCH
+
+
+def mel_groups(n_mels: int, dft_precision: str) -> list[tuple[int, int, str]]:
+    """K1's launches for an ``n_mels`` bank: (first mel, mels, route) of each
+    group of at most ``MELS_A_LAUNCH`` mels, on the narrowest instantiation
+    that holds it: ``WGMMA_ROUTES`` up to ``WGMMA_MAX_MELS`` mels, else
+    ``WIDE_ROUTES``."""
     if dft_precision not in DFT_PRECISIONS:
         raise ValueError(f"dft_precision must be one of {DFT_PRECISIONS}, "
                          f"got {dft_precision!r}")
-    if cfg.n_mels <= WGMMA_MAX_MELS:
-        return WGMMA_ROUTES[dft_precision]
-    return f"tc_{dft_precision}"
+    groups = []
+    for m0 in range(0, n_mels, MELS_A_LAUNCH):
+        n = min(MELS_A_LAUNCH, n_mels - m0)
+        routes = WGMMA_ROUTES if launch_mels(n) == WGMMA_MAX_MELS else WIDE_ROUTES
+        groups.append((m0, n, routes[dft_precision]))
+    return groups
+
+
+def k1_route(cfg: MelConfig, dft_precision: str) -> str:
+    """The kernel ``stft_log_mel`` launches for ``cfg`` and ``dft_precision``
+    (a key of ``ROUTE_KERNELS``), for its first and widest group of mels:
+    ``"wgmma"`` (bf16x3) or ``"wgmma_fp32"`` at up to ``WGMMA_MAX_MELS``
+    mels, ``"wgmma256"`` or ``"wgmma256_fp32"`` at more (``mel_groups``)."""
+    return mel_groups(cfg.n_mels, dft_precision)[0][2]
 
 
 def auto_takes_kernel(cfg: MelConfig, device_type: str, n_samples: int) -> bool:
@@ -159,14 +175,6 @@ def bf16_part(basis: np.ndarray, part: int) -> np.ndarray:
 def _folded_basis_split(n_fft: int, win_length: int, part: int) -> np.ndarray:
     """``bf16_part`` of the folded basis."""
     return bf16_part(_folded_basis_no_nyquist(n_fft, win_length), part)
-
-
-@lru_cache(maxsize=8)
-def _folded_basis_t(n_fft: int, win_length: int, part: int) -> np.ndarray:
-    """K1's basis operand: ``_folded_basis_split`` transposed to (columns,
-    samples), so that a thread reads 8 samples of one column as one 16-byte
-    copy."""
-    return np.ascontiguousarray(_folded_basis_split(n_fft, win_length, part).T)
 
 
 @lru_cache(maxsize=8)
@@ -220,43 +228,55 @@ def _tiled_basis(n_fft: int, win_length: int, folded: bool,
     return np.ascontiguousarray(t.transpose(3, 0, 4, 1, 5, 2))
 
 
-def _tiled_banks(banks: torch.Tensor, n_fft: int) -> torch.Tensor:
-    """The wgmma kernel's mel operand: banks^T (n_fft // 2 bins x
-    WGMMA_MAX_MELS, zero past n_mels) split into MEL_SPLIT bf16 parts
-    (``bf16_split``) and tiled as (16 chunks, 3 parts, 2 k16 products, 16
-    mel groups, 2 k halves, 8 mels, 8 bins): element ``[c, p, s, mg, h, r,
-    e]`` = part p of banks^T[bin 32c + 16s + 8h + e, mel 8mg + r], the
-    layout of ``_tiled_basis`` with mels for columns, so that a chunk's
-    parts are contiguous blocks of 8 KB."""
+def _tiled_banks(banks: torch.Tensor, n_fft: int,
+                 mels: int = WGMMA_MAX_MELS) -> torch.Tensor:
+    """The kernel's mel operand at ``mels`` (128 or 256): banks^T (n_fft //
+    2 bins x mels, zero past n_mels) split into MEL_SPLIT bf16 parts
+    (``bf16_split``) and tiled as (16 chunks, mels / 128 halves x 3 parts, 2
+    k16 products, 16 mel groups, 2 k halves, 8 mels, 8 bins): element ``[c,
+    3 a + p, s, mg, h, r, e]`` = part p of banks^T[bin 32c + 16s + 8h + e,
+    mel 128a + 8mg + r], the layout of ``_tiled_basis`` with mels for
+    columns, so that a chunk's parts are contiguous blocks of 8 KB, half by
+    half."""
     bins = n_fft // 2
-    bt = banks.new_zeros((bins, WGMMA_MAX_MELS))
+    bt = banks.new_zeros((bins, mels))
     bt[:, :banks.shape[0]] = banks[:, :bins].t()
-    parts = [part.reshape(bins // 32, 2, 2, 8, WGMMA_MAX_MELS // 8, 8)
-             .permute(0, 1, 4, 2, 5, 3) for part in bf16_split(bt, MEL_SPLIT)]
-    return torch.stack(parts, 1).contiguous()
+    halves = mels // WGMMA_MAX_MELS
+    parts = [part.reshape(bins // 32, 2, 2, 8, halves, WGMMA_MAX_MELS // 8, 8)
+             .permute(0, 4, 1, 5, 2, 6, 3) for part in bf16_split(bt, MEL_SPLIT)]
+    tiled = torch.stack(parts, 2)  # (c, half, part, s, mg, h, r, e)
+    return tiled.reshape(bins // 32, halves * MEL_SPLIT, *tiled.shape[3:]).contiguous()
+
+
+def _tiled_groups(banks: torch.Tensor, n_fft: int) -> tuple[torch.Tensor, ...]:
+    """``_tiled_banks`` of each of ``mel_groups``' launches (the same groups
+    at either precision), at its instantiation's width: the ``tiled_banks``
+    of ``stft_log_mel``."""
+    return tuple(_tiled_banks(banks[m0:m0 + n], n_fft, launch_mels(n))
+                 for m0, n, _ in mel_groups(banks.shape[0], "bf16x3"))
 
 
 @lru_cache(maxsize=16)
 def _serving_tiled_banks(n_mels: int, n_fft: int, sr: int, fmin: float,
-                         fmax: float) -> np.ndarray:
-    """``_tiled_banks`` of the fixed banks, as fp32 numpy holding bf16 values."""
+                         fmax: float, device: str) -> tuple[torch.Tensor, ...]:
+    """``_tiled_groups`` of the fixed banks (made on the host in float64),
+    on ``device``."""
     banks = kaldi_mel_banks(n_mels, n_fft, sr, fmin, fmax)
-    return _tiled_banks(banks, n_fft).to(torch.float32).numpy()
+    return tuple(t.to(device) for t in _tiled_groups(banks, n_fft))
 
 
-def tiled_serving_banks(cfg: MelConfig, device) -> torch.Tensor:
-    """The wgmma routes' mel operand for ``cfg``'s fixed banks (fmin,
-    effective fmax: every eval and serving call), tiled once a (n_mels,
+def tiled_serving_banks(cfg: MelConfig, device) -> tuple[torch.Tensor, ...]:
+    """K1's mel operand for ``cfg``'s fixed banks (fmin, effective fmax:
+    every eval and serving call), one tensor a launch, tiled once a (n_mels,
     n_fft, sr, fmin, fmax, device) and kept there, as ``device_const``
     keeps the basis."""
-    return device_const(_serving_tiled_banks,
-                        (cfg.n_mels, cfg.n_fft, cfg.sr, float(cfg.fmin),
-                         float(cfg.effective_fmax)), str(device), torch.bfloat16)
+    return _serving_tiled_banks(cfg.n_mels, cfg.n_fft, cfg.sr, float(cfg.fmin),
+                                float(cfg.effective_fmax), str(device))
 
 
 def _block_rows(wave: torch.Tensor, cfg: MelConfig, n_frames: int,
                 folded: bool = True) -> torch.Tensor:
-    """The wgmma kernel's rows, frame i at ``hop * i``: the raw wave behind
+    """The kernel's rows, frame i at ``hop * i``: the raw wave behind
     an ``n_fft // 2`` zero pad (folded), or the pre-emphasised wave with the
     reflect pad (the probe's unfolded variant). Zero-padded to hold every
     frame of the last ``BLOCK``-frame block, to a multiple of 64 samples
@@ -270,16 +290,6 @@ def _block_rows(wave: torch.Tensor, cfg: MelConfig, n_frames: int,
     need = max(cfg.hopsize * (sub_frames - 1) + cfg.n_fft, lead + src.shape[1])
     row_len = -(-need // 64) * 64
     return F.pad(src, (lead, row_len - lead - src.shape[1])).contiguous()
-
-
-def _frame_rows(wave: torch.Tensor, cfg: MelConfig, n_frames: int) -> torch.Tensor:
-    """mel_kernel_tc's rows, frame i at ``hop * i``: the raw wave behind an
-    ``n_fft // 2`` zero pad, zero-padded to hold the last frame whole and to
-    a multiple of 4 samples (16-byte aligned rows). One copy of the wave."""
-    pad = cfg.n_fft // 2
-    need = max(cfg.hopsize * (n_frames - 1) + cfg.n_fft, pad + wave.shape[1])
-    row_len = -(-need // 4) * 4
-    return F.pad(wave, (pad, row_len - pad - wave.shape[1]))
 
 
 def _edge_frames_logmel(wave: torch.Tensor, banks: torch.Tensor,
@@ -365,17 +375,15 @@ def stft_log_mel(wave: torch.Tensor, banks: torch.Tensor, cfg: MelConfig,
                  tiled_banks: torch.Tensor | None = None) -> torch.Tensor:
     """Raw waveform (B, S) f32 -> normalized log-mel (B, n_mels, n_frames).
 
-    On a CUDA tensor this launches K1's kernel for ``k1_route(cfg,
-    dft_precision)`` or raises, once for each slice of at most ``MAX_ROWS``
-    clips; nothing falls back to another kernel. On a CPU tensor it runs
-    ``stft_log_mel_plain``. ``banks`` is the (n_mels, n_fft//2+1) Kaldi
-    bank; its zero Nyquist column is dropped inside. ``dft_precision``
-    defaults to exact fp32, as ``stft_log_mel_pallas``'s does. On the
-    ``"tc_*"`` routes a bank of more than ``MELS_A_LAUNCH`` mels takes one
-    launch for each group of as many. ``tiled_banks``, read by the
-    ``"wgmma*"`` routes only, is ``_tiled_banks(banks)`` made beforehand
-    (the serving banks', ``tiled_serving_banks``); by default it is made
-    here."""
+    On a CUDA tensor this launches K1's kernel for each of ``mel_groups``'
+    launches (a bank of more than ``MELS_A_LAUNCH`` mels takes one for each
+    group of as many) or raises, once for each slice of at most
+    ``MAX_ROWS`` clips; nothing falls back to another kernel. On a CPU
+    tensor it runs ``stft_log_mel_plain``. ``banks`` is the (n_mels,
+    n_fft//2+1) Kaldi bank; its zero Nyquist column is dropped inside.
+    ``dft_precision`` defaults to exact fp32, as ``stft_log_mel_pallas``'s
+    does. ``tiled_banks`` is ``_tiled_groups(banks)`` made beforehand (the
+    serving banks', ``tiled_serving_banks``); by default it is made here."""
     if wave.device.type == "cpu":
         return stft_log_mel_plain(wave, banks, cfg, dft_precision)
     _check_args(wave, banks, cfg, dft_precision)
@@ -388,58 +396,49 @@ def stft_log_mel(wave: torch.Tensor, banks: torch.Tensor, cfg: MelConfig,
         raise ValueError("banks must be float32 on the wave's device")
     from efficientat_tpu_torch.ops._build import load_library
 
-    route = k1_route(cfg, dft_precision)
+    groups = mel_groups(cfg.n_mels, dft_precision)
+    if tiled_banks is None:
+        tiled_banks = _tiled_groups(banks, cfg.n_fft)
+    _check_tiled(tiled_banks, groups, cfg.n_fft, wave.device)
     lib = _bind(load_library("mel_kernel"))
     n_fft, hop = cfg.n_fft, cfg.hopsize
-    n_bins = n_fft // 2
     batch, n_samples = wave.shape
     n_frames = cfg.num_frames(n_samples)
-    device = str(wave.device)
     out = torch.empty((batch, cfg.n_mels, n_frames), device=wave.device,
                       dtype=torch.float32)
     stream = torch.cuda.current_stream(wave.device).cuda_stream
     parts = PARTS[dft_precision]
-    if route in WGMMA_ROUTES.values():
-        if tiled_banks is None:
-            tiled_banks = _tiled_banks(banks, n_fft)
-        want = (n_bins // 32, MEL_SPLIT, 2, WGMMA_MAX_MELS // 8, 2, 8, 8)
-        if (tiled_banks.shape != want or tiled_banks.dtype != torch.bfloat16
-                or tiled_banks.device != wave.device
-                or not tiled_banks.is_contiguous()):
-            raise ValueError(f"tiled_banks must be a contiguous bfloat16 {tuple(want)} "
-                             "tensor on the wave's device (_tiled_banks)")
-        basis = [device_const(_tiled_basis, (n_fft, cfg.win_length, True, p),
-                              device, torch.bfloat16).data_ptr() for p in range(parts)]
-        basis += [None] * (3 - parts)  # bf16x3 reads no third part
-        x = _block_rows(wave, cfg, n_frames)
-
-        def launches(start, rows):
-            yield lib.eat_mel_log_wgmma(x[start].data_ptr(), rows, x.shape[1], hop,
-                                        n_frames, *basis, parts, tiled_banks.data_ptr(),
-                                        cfg.n_mels, out[start].data_ptr(), stream)
-    else:
-        banks_t = banks[:, :n_bins].t()
-        groups = [(m0, banks_t[:, m0:m0 + MELS_A_LAUNCH].contiguous())
-                  for m0 in range(0, cfg.n_mels, MELS_A_LAUNCH)]
-        basis = [device_const(_folded_basis_t, (n_fft, cfg.win_length, p), device,
-                              torch.bfloat16).data_ptr() for p in range(parts)]
-        basis += [None] * (3 - parts)  # bf16x3 reads no third part
-        x = _frame_rows(wave, cfg, n_frames)
-
-        def launches(start, rows):
-            for m0, bt in groups:
-                yield lib.eat_mel_log(x[start].data_ptr(), rows, x.shape[1], hop,
-                                      n_frames, *basis, parts, bt.data_ptr(),
-                                      bt.shape[1], out[start, m0].data_ptr(),
-                                      cfg.n_mels, stream)
+    basis = [device_const(_tiled_basis, (n_fft, cfg.win_length, True, p),
+                          str(wave.device), torch.bfloat16).data_ptr()
+             for p in range(parts)]
+    basis += [None] * (3 - parts)  # bf16x3 reads no third part
+    x = _block_rows(wave, cfg, n_frames)
     for start in range(0, batch, MAX_ROWS):
-        for err in launches(start, min(MAX_ROWS, batch - start)):
+        rows = min(MAX_ROWS, batch - start)
+        for (m0, n, route), tiled in zip(groups, tiled_banks):
+            err = lib.eat_mel_log_wgmma(x[start].data_ptr(), rows, x.shape[1], hop,
+                                        n_frames, *basis, parts, tiled.data_ptr(), n,
+                                        out[start, m0].data_ptr(), cfg.n_mels, stream)
             if err != 0:
                 raise RuntimeError(f"K1 launch failed ({ROUTE_KERNELS[route]}): "
                                    + lib.eat_error_string(err).decode())
             LAUNCHES[dft_precision] += 1
             ROUTE_LAUNCHES[route] += 1
     return _patch_edges(out, wave, banks, cfg)
+
+
+def _check_tiled(tiled_banks, groups, n_fft: int, device) -> None:
+    """Raise unless ``tiled_banks`` holds, for each launch of ``groups``, a
+    contiguous bfloat16 tensor on ``device`` of ``_tiled_banks``' shape at
+    its instantiation's width."""
+    want = [(n_fft // 64, launch_mels(n) // WGMMA_MAX_MELS * MEL_SPLIT, 2,
+             WGMMA_MAX_MELS // 8, 2, 8, 8) for _, n, _ in groups]
+    if (not isinstance(tiled_banks, tuple) or len(tiled_banks) != len(want)
+            or any(t.shape != w or t.dtype != torch.bfloat16 or t.device != device
+                   or not t.is_contiguous() for t, w in zip(tiled_banks, want))):
+        raise ValueError(f"tiled_banks must be a tuple of contiguous bfloat16 "
+                         f"tensors of shapes {want} on the wave's device "
+                         "(_tiled_groups)")
 
 
 def stft_log_mel_sharded(wave_local: torch.Tensor, banks: torch.Tensor,
@@ -466,9 +465,7 @@ def stft_log_mel_sharded(wave_local: torch.Tensor, banks: torch.Tensor,
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.eat_mel_log.argtypes = [p, i, i, i, i, p, p, p, i, p, i, p, i, p]
-    lib.eat_mel_log.restype = i
-    lib.eat_mel_log_wgmma.argtypes = [p, i, i, i, i, p, p, p, i, p, i, p, p]
+    lib.eat_mel_log_wgmma.argtypes = [p, i, i, i, i, p, p, p, i, p, i, p, i, p]
     lib.eat_mel_log_wgmma.restype = i
     lib.eat_error_string.argtypes = [i]
     lib.eat_error_string.restype = ctypes.c_char_p
@@ -492,8 +489,8 @@ def log_mel_spectrogram_fused(waveform: torch.Tensor,
 
     ``training=True`` needs ``draws`` (this call's rows of them): K1 gets the
     jittered fp32 banks as its runtime input and its output is masked with
-    0.9. Otherwise the banks are fixed, and the wgmma routes take them tiled
-    once (``tiled_serving_banks``). ``sharded=True`` runs K1 as K1-dp (``stft_log_mel_sharded``), as
+    0.9. Otherwise the banks are fixed, and K1 takes them tiled once
+    (``tiled_serving_banks``). ``sharded=True`` runs K1 as K1-dp (``stft_log_mel_sharded``), as
     the JAX step does under a mesh of more than one device.
 
     dft_precision defaults to ``"bf16x3"``, the serving and training default
@@ -515,8 +512,7 @@ def log_mel_spectrogram_fused(waveform: torch.Tensor,
                             device=waveform.device)
     dft_precision = dft_precision or "bf16x3"
     tiled = None
-    if (not training and waveform.device.type == "cuda" and kernel_supported(cfg)
-            and k1_route(cfg, dft_precision) in WGMMA_ROUTES.values()):
+    if not training and waveform.device.type == "cuda" and kernel_supported(cfg):
         tiled = tiled_serving_banks(cfg, waveform.device)
     run = stft_log_mel_sharded if sharded else stft_log_mel
     mel = run(waveform.to(torch.float32).contiguous(), banks, cfg,

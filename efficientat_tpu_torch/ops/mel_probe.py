@@ -73,8 +73,9 @@ P3_HOP = 320
 # (``mel_wgmma::plan``): warpgroups of 64 frames a block, a ring of RINGS
 # slots of KC samples (a chunk's CHUNK_COLS columns of each bf16 basis part,
 # 128 KC bytes a part: the probe's 2, K1 fp32's 3), through which the
-# chunk's banks^T tiles pass too, and P2's segment of the block's frames,
-# next to a few mbarriers.
+# chunk's banks^T tiles pass too, the sums of mels past MAX_MELS (K1 at 256
+# mels: 64 frames x 128 mels of fp32 a warpgroup), and P2's segment of the
+# block's frames, next to a few mbarriers.
 N_FFT = 1024
 RINGS = {2: 4, 3: 3}  # ring slots by basis parts a slot (``ring_stages``)
 P1_PLAN = (2, 128)  # warpgroups, KC
@@ -96,14 +97,16 @@ LAUNCHES_P2 = 0
 LAUNCHES_P3 = 0
 
 
-def smem_plan(staged: bool, hop: int, parts: int = 2) -> tuple:
+def smem_plan(staged: bool, hop: int, parts: int = 2, mels: int = MAX_MELS) -> tuple:
     """(bytes, warpgroups, KC) of the kernel's shared memory with ring
-    slots of ``parts`` basis parts, as ``plan`` in csrc/mel_wgmma.cuh picks
-    it (``card_plan`` reads that one): P1/P3 and K1 ``P1_PLAN``; P2 the
-    first of ``P2_PLANS`` that fits. Raises where nothing fits."""
+    slots of ``parts`` basis parts and sums of ``mels`` mels (128, or K1's
+    256), as ``plan`` in csrc/mel_wgmma.cuh picks it (``card_plan`` reads
+    that one): P1/P3 and K1 ``P1_PLAN``; P2 the first of ``P2_PLANS`` that
+    fits. Raises where nothing fits."""
     def size(wg, kc):
         seg = 4 * ((SUB_TILE * wg - 1) * hop + N_FFT) if staged else 0
-        return BARRIER_BYTES + RINGS[parts] * parts * (2 * kc * CHUNK_COLS) + seg
+        sums = 4 * (mels - MAX_MELS) * SUB_TILE * wg
+        return BARRIER_BYTES + RINGS[parts] * parts * (2 * kc * CHUNK_COLS) + sums + seg
 
     for plan in ((P1_PLAN,) if not staged else P2_PLANS):
         if size(*plan) <= MAX_SMEM:
@@ -112,15 +115,15 @@ def smem_plan(staged: bool, hop: int, parts: int = 2) -> tuple:
                      f"{hop} (staged={staged})")
 
 
-def card_plan(staged: bool, hop: int, parts: int = 2) -> tuple:
+def card_plan(staged: bool, hop: int, parts: int = 2, mels: int = MAX_MELS) -> tuple:
     """(bytes, warpgroups, KC) that the built library plans at ``hop`` with
-    slots of ``parts`` basis parts; bytes 0 where nothing fits. Needs the
-    library, so the card."""
+    slots of ``parts`` basis parts and sums of ``mels`` mels; bytes 0 where
+    nothing fits. Needs the library, so the card."""
     from efficientat_tpu_torch.ops._build import load_library
 
     lib = _bind(load_library("mel_probe_kernel"))
     wg, kc = ctypes.c_int(), ctypes.c_int()
-    size = lib.eat_probe_plan(int(staged), hop, parts, ctypes.byref(wg),
+    size = lib.eat_probe_plan(int(staged), hop, parts, mels, ctypes.byref(wg),
                               ctypes.byref(kc))
     return size, wg.value, kc.value
 
@@ -218,7 +221,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn = getattr(lib, entry)
         fn.argtypes = [p, i, i, i, i, i, p, p, p, i, p, p]
         fn.restype = i
-    lib.eat_probe_plan.argtypes = [i, i, i, p, p]
+    lib.eat_probe_plan.argtypes = [i, i, i, i, p, p]
     lib.eat_probe_plan.restype = ctypes.c_longlong
     lib.eat_probe_error_string.argtypes = [i]
     lib.eat_probe_error_string.restype = ctypes.c_char_p

@@ -5,21 +5,23 @@
 
 The inputs are the probe's (``tools.probe_mel_kernel.inputs``): at each
 ``--batch`` B, B random 10 s waves from seed 0 at hop 320, with the Kaldi
-bank over 0-15 kHz at each ``--n_mels``. For each precision and bank: K1's largest gap to its plain
-version, then ``stft_log_mel`` and ``stft_log_mel_plain`` timed in turns
-(plain, kernel, kernel, plain, ``--turns`` times), each a median of CUDA
-events; one JSON line each, naming the kernel that K1's route launched
-(``mel_kernel.k1_route``: the wgmma kernel at up to 128 mels, else
-``mel_kernel_tc``), and the kernel alone (``kernel_alone_ms``: its device
-time a call in ``torch.profiler``, over 5 calls). On a wgmma route
-``kernel_ms`` tiles the banks in each call, as a training call does, and
+bank over 0-15 kHz at each ``--n_mels``. For each precision and bank: K1's
+largest gap to its plain version, then ``stft_log_mel`` and
+``stft_log_mel_plain`` timed in turns, each a median of CUDA events:
+plain, kernel, serving, serving, kernel, plain, ``--turns`` times.
+``kernel_ms`` tiles the banks in each call, as a training call does;
 ``serving_ms`` times the call with the banks tiled beforehand, as the
-Tagger's (``tiled_serving_banks``; between the kernel turns: plain,
-kernel, serving, serving, kernel, plain); null on ``mel_kernel_tc``, which
-takes the banks as they are. First a line with K1's ptxas registers and
-spills, when this process built it, and last the card's name and power
-limit as ``nvidia-smi`` gives them. It uses only K1's public entry points, so
-one copy of it times two checkouts of the package in one run.
+Tagger's (``tiled_serving_banks``). One JSON line each, naming the kernel
+of the call's first launch (``mel_kernel.k1_route``; a bank over 256 mels
+takes a launch for each group of 256, ``mel_groups``), and the kernels
+alone (``kernel_alone_ms``: their device time a serving call in
+``torch.profiler``, over 5 calls). First a line with K1's ptxas registers
+and spills, when this process built it, and last the card's name and power
+limit as ``nvidia-smi`` gives them. It uses only K1's public entry points,
+so one copy of it times two checkouts of the package in one run; in a
+checkout whose route for a bank takes no tiled banks (the ``tc_*`` routes
+of the package before the kernel held 256 mels), ``serving_ms`` times the
+call as it is.
 
 ``--replace OLD NEW`` (repeatable) times a variant of the kernels: K1 is
 built from a copy of ``csrc/`` under ``build/time_k1/`` in which each OLD,
@@ -52,23 +54,20 @@ def time_k1(batch: int, n_mels: int, precision: str, turns: int) -> dict:
                  - mel_kernel.stft_log_mel_plain(waves, banks, cfg, precision))
                 .abs().max())
     route = mel_kernel.k1_route(cfg, precision)
+    tiled = (None if route.startswith("tc_")
+             else mel_kernel.tiled_serving_banks(cfg, waves.device))
     calls = {"plain": lambda: mel_kernel.stft_log_mel_plain(waves, banks, cfg, precision),
-             "kernel": lambda: mel_kernel.stft_log_mel(waves, banks, cfg, precision)}
-    order = ("plain", "kernel", "kernel", "plain")
-    if route.startswith("wgmma"):
-        tiled = mel_kernel.tiled_serving_banks(cfg, waves.device)
-        calls["serving"] = lambda: mel_kernel.stft_log_mel(waves, banks, cfg, precision,
-                                                           tiled_banks=tiled)
-        order = ("plain", "kernel", "serving", "serving", "kernel", "plain")
+             "kernel": lambda: mel_kernel.stft_log_mel(waves, banks, cfg, precision),
+             "serving": lambda: mel_kernel.stft_log_mel(waves, banks, cfg, precision,
+                                                        tiled_banks=tiled)}
     runs = {which: [] for which in calls}
     for _ in range(turns):
-        for which in order:
+        for which in ("plain", "kernel", "serving", "serving", "kernel", "plain"):
             runs[which].append(median_ms(calls[which]))
     return {"precision": precision, "batch": batch, "n_mels": n_mels,
             "kernel": mel_kernel.ROUTE_KERNELS[route], "max_abs": err,
-            "kernel_ms": runs["kernel"], "serving_ms": runs.get("serving"),
-            "plain_ms": runs["plain"],
-            "kernel_alone_ms": kernel_alone_ms(calls.get("serving", calls["kernel"]))}
+            "kernel_ms": runs["kernel"], "serving_ms": runs["serving"],
+            "plain_ms": runs["plain"], "kernel_alone_ms": kernel_alone_ms(calls["serving"])}
 
 
 def kernel_alone_ms(fn, calls: int = 5):

@@ -44,15 +44,17 @@ def test_lib_path_ignores_what_is_not_a_header(tmp_path, monkeypatch):
 
 def test_the_port_sources_share_one_wgmma_body():
     # K1's library and the probe's include the one header that holds the
-    # wgmma kernel: the header has its only body, the probe's source none,
-    # K1's only mel_kernel_tc's, whose 128-frame instantiations are gone (K1
-    # at up to 128 mels launches the wgmma kernel at 3 and 6 passes)
+    # wgmma kernel: the header has its only body, neither source has one
+    # (mel_kernel_tc is gone); K1 launches it at 3 and 6 passes, each at 128
+    # and 256 mels
     k1 = (_build.CSRC / "mel_kernel.cu").read_text()
     probe = (_build.CSRC / "mel_probe_kernel.cu").read_text()
     header = (_build.CSRC / "mel_wgmma.cuh").read_text()
     assert '#include "mel_wgmma.cuh"' in k1 and '#include "mel_wgmma.cuh"' in probe
     assert header.count("__global__") == 1 and "mel_kernel_wgmma(" in header
     assert probe.count("__global__") == 0
-    assert k1.count("__global__") == 1 and "mel_kernel_tc(" in k1
-    assert "launch<128" not in k1 and "launch<64, 2>" in k1 and "launch<64, 3>" in k1
-    assert "launch<false, 3>" in k1 and "launch<false, 6>" in k1
+    assert k1.count("__global__") == 0 and "mel_kernel_tc" not in k1
+    assert "eat_mel_log(" not in k1 and "eat_mel_log_wgmma(" in k1
+    assert "launch<false, PASSES>" in k1
+    assert "launch<false, PASSES, 2 * mel_wgmma::MAX_MELS>" in k1
+    assert "launch_mels<3>" in k1 and "launch_mels<6>" in k1

@@ -9,6 +9,7 @@ its plain version on the card, run where JAX is not installed:
 """
 
 import inspect
+from collections import Counter
 
 import numpy as np
 import pytest
@@ -57,15 +58,15 @@ def _wave(batch, n_samples, seed=0):
 
 def _six_product_log_mel(wave, banks, cfg):
     """K1 fp32's function in plain torch: the frames and the folded basis
-    each split into three bf16 parts (the basis as the wrapper hands it to
-    K1), the six products of parts i and j with i + j < 3 summed in fp32,
-    then power, fp32 mel product, log and edge patch as in
+    each split into three bf16 parts (``_folded_basis_split``, the parts
+    K1's tiled basis holds), the six products of parts i and j with i + j <
+    3 summed in fp32, then power, fp32 mel product, log and edge patch as in
     ``stft_log_mel_plain``."""
     n_frames = cfg.num_frames(wave.shape[1])
     frames = [f.float() for f in mel_kernel.bf16_split(
         frame_signal(wave, cfg.n_fft, cfg.hopsize, n_frames, pad_mode="constant"), 3)]
-    basis = [device_const(mel_kernel._folded_basis_t, (cfg.n_fft, cfg.win_length, p),
-                          "cpu", torch.bfloat16).float().t() for p in range(3)]
+    basis = [torch.from_numpy(mel_kernel._folded_basis_split(cfg.n_fft, cfg.win_length, p))
+             for p in range(3)]
     proj = sum(frames[i] @ basis[j] for i in range(3) for j in range(3 - i))
     n_bins = cfg.n_fft // 2
     power = proj[..., :n_bins] ** 2 + proj[..., n_bins:] ** 2
@@ -268,36 +269,6 @@ def _jax_split(basis):
     return hi, mid, lo
 
 
-@pytest.mark.parametrize("part", [0, 1, 2])
-def test_kernel_basis_is_the_split_transposed(part):
-    from efficientat_tpu.ops import mel_pallas
-
-    split = mel_kernel._folded_basis_split(1024, 800, part)
-    # the bf16 tensor the wrapper hands K1, made as on the card
-    handed = device_const(mel_kernel._folded_basis_t, (1024, 800, part), "cpu",
-                          torch.bfloat16)
-    assert handed.shape == (1024, 1024) and handed.is_contiguous()
-    np.testing.assert_array_equal(handed.float().numpy(), split.T)
-    want = _jax_split(mel_pallas._folded_basis_no_nyquist(1024, 800))[part]
-    np.testing.assert_array_equal(handed.float().numpy(), want.T)
-
-
-@pytest.mark.parametrize("hop", [320, 640])
-@pytest.mark.parametrize("n_samples", [4096, 32001, 320123])
-def test_frame_rows_hold_every_frame(n_samples, hop):
-    # K1 bf16x3 reads frame i at rows[:, hop * i]: the zero-padded frames of
-    # the plain version, in 16-byte aligned rows that hold the last frame
-    cfg = MelConfig(hopsize=hop)
-    wave = torch.from_numpy(_wave(2, n_samples, seed=n_samples))
-    n_frames = cfg.num_frames(n_samples)
-    rows = mel_kernel._frame_rows(wave, cfg, n_frames)
-    assert rows.is_contiguous() and rows.shape[1] % 4 == 0
-    assert rows.shape[1] >= hop * (n_frames - 1) + cfg.n_fft
-    want = frame_signal(wave, cfg.n_fft, hop, n_frames, pad_mode="constant")
-    torch.testing.assert_close(rows.unfold(1, cfg.n_fft, hop)[:, :n_frames], want,
-                               rtol=0, atol=0)
-
-
 @pytest.mark.parametrize("hop", [320, 640])
 def test_kernel_bound_catches_bf16_banks(hop):
     # a K1 whose mel product rounded the banks to bf16 must fail the bound
@@ -377,19 +348,42 @@ def test_edge_frames_match_jax(hop):
 
 
 @pytest.mark.parametrize("precision,n_mels,route", [
-    ("fp32", 40, "wgmma_fp32"), ("fp32", 128, "wgmma_fp32"), ("fp32", 129, "tc_fp32"),
-    ("fp32", 300, "tc_fp32"),
-    ("bf16x3", 40, "wgmma"), ("bf16x3", 128, "wgmma"), ("bf16x3", 129, "tc_bf16x3"),
-    ("bf16x3", 256, "tc_bf16x3"), ("bf16x3", 300, "tc_bf16x3")])
+    ("fp32", 40, "wgmma_fp32"), ("fp32", 128, "wgmma_fp32"), ("fp32", 129, "wgmma256_fp32"),
+    ("fp32", 256, "wgmma256_fp32"), ("fp32", 300, "wgmma256_fp32"),
+    ("bf16x3", 40, "wgmma"), ("bf16x3", 128, "wgmma"), ("bf16x3", 129, "wgmma256"),
+    ("bf16x3", 256, "wgmma256"), ("bf16x3", 300, "wgmma256")])
 def test_k1_route_by_arguments(precision, n_mels, route):
-    # up to the wgmma kernel's 128 mels each precision takes its wgmma
-    # route, wider banks mel_kernel_tc; the hop does not enter
+    # up to 128 mels each precision takes the kernel's 128-mel
+    # instantiation, wider banks its 256-mel one (a 300-mel bank's first
+    # launch); the hop does not enter
     for hop in (320, 640):
         assert mel_kernel.k1_route(MelConfig(n_mels=n_mels, hopsize=hop),
                                    precision) == route
     assert route in mel_kernel.ROUTE_KERNELS and route in mel_kernel.ROUTE_LAUNCHES
     with pytest.raises(ValueError, match="dft_precision"):
         mel_kernel.k1_route(MelConfig(n_mels=n_mels), "fp16")
+
+
+# the mels of each route's instantiation (its MELS)
+ROUTE_WIDTH = {"wgmma": 128, "wgmma_fp32": 128, "wgmma256": 256, "wgmma256_fp32": 256}
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16x3"])
+def test_mel_groups_take_the_narrowest_instantiation(precision):
+    # a launch a group of at most 256 mels, each on the narrowest
+    # instantiation that holds it, covering the bank once in order
+    narrow, wide = mel_kernel.WGMMA_ROUTES[precision], mel_kernel.WIDE_ROUTES[precision]
+    want = {1: [(0, 1, narrow)], 128: [(0, 128, narrow)], 129: [(0, 129, wide)],
+            256: [(0, 256, wide)], 300: [(0, 256, wide), (256, 44, narrow)],
+            384: [(0, 256, wide), (256, 128, narrow)],
+            512: [(0, 256, wide), (256, 256, wide)],
+            600: [(0, 256, wide), (256, 256, wide), (512, 88, narrow)]}
+    for n_mels, groups in want.items():
+        assert mel_kernel.mel_groups(n_mels, precision) == groups
+        assert mel_kernel.k1_route(MelConfig(n_mels=n_mels), precision) == groups[0][2]
+        widths = [mel_kernel.launch_mels(n) for _, n, _ in groups]
+        assert all(n <= w for (_, n, _), w in zip(groups, widths))
+        assert [ROUTE_WIDTH[r] for _, _, r in groups] == widths
 
 
 def _untile_basis(tiled):
@@ -416,25 +410,31 @@ def test_wgmma_basis_untiles_to_the_folded_split(part):
 
 
 def _untile_banks(tiled):
-    """The wgmma route's tiled banks (16, 3, 2, 16, 2, 8, 8) back to its
-    three bf16 parts of banks^T, (3, 512 bins, 128 mels)."""
-    return tiled.float().permute(1, 0, 2, 4, 6, 3, 5).reshape(3, 512, 128)
+    """The kernel's tiled banks (16, 3 halves, 2, 16, 2, 8, 8) back to its
+    three bf16 parts of banks^T, (3, 512 bins, 128 halves mels): half a
+    holds mels 128a .. 128a + 127."""
+    halves = tiled.shape[1] // 3
+    return (tiled.float().reshape(16, halves, 3, 2, 16, 2, 8, 8)
+            .permute(2, 0, 3, 5, 7, 1, 4, 6).reshape(3, 512, 128 * halves))
 
 
-@pytest.mark.parametrize("n_mels", [40, 64, 128])
+@pytest.mark.parametrize("n_mels", [40, 64, 128, 129, 200, 256])
 @pytest.mark.parametrize("jittered", [False, True])
 def test_wgmma_banks_untile_to_banks_t(n_mels, jittered):
     # the host-float64 serving banks and the fp32 training ones (a tensor
-    # fmin/fmax) alike: part 0 is bf16(banks^T), each part the bf16 of what
-    # the ones before leave, zero past n_mels, and the three parts hold
+    # fmin/fmax) alike, at the narrowest width that holds them (128, or 256
+    # as two halves of 128): part 0 is bf16(banks^T), each part the bf16 of
+    # what the ones before leave, zero past n_mels, and the three parts hold
     # banks^T to fp32's last bit
     cfg = MelConfig(n_mels=n_mels)
     banks = (kaldi_mel_banks(n_mels, 1024, 32000, torch.tensor(7.0),
                              torch.tensor(14321.0)) if jittered else _banks(cfg))
-    tiled = mel_kernel._tiled_banks(banks, 1024)
-    assert tiled.shape == (16, 3, 2, 16, 2, 8, 8) and tiled.dtype == torch.bfloat16
+    width = mel_kernel.launch_mels(n_mels)
+    tiled = mel_kernel._tiled_banks(banks, 1024, width)
+    assert tiled.shape == (16, 3 * width // 128, 2, 16, 2, 8, 8)
+    assert tiled.dtype == torch.bfloat16
     parts = _untile_banks(tiled)
-    bt = torch.zeros(512, 128)
+    bt = torch.zeros(512, width)
     bt[:, :n_mels] = banks[:, :512].t()
     rest = bt.clone()
     for part in range(3):
@@ -444,19 +444,25 @@ def test_wgmma_banks_untile_to_banks_t(n_mels, jittered):
     assert (parts.sum(0) - bt).abs().max() <= 2.0 ** -24 * bt.abs().max()
 
 
-def test_serving_banks_tiled_once(monkeypatch):
-    # the Tagger's banks are fixed by its config: the wgmma route's operand
-    # is made once per (n_mels, n_fft, sr, fmin, fmax, device) and kept
+@pytest.mark.parametrize("n_mels", [96, 300])
+def test_serving_banks_tiled_once(monkeypatch, n_mels):
+    # the Tagger's banks are fixed by its config: K1's operand, a tensor for
+    # each launch, is made once per (n_mels, n_fft, sr, fmin, fmax, device)
+    # and kept
     calls = []
     tile = mel_kernel._tiled_banks
     monkeypatch.setattr(mel_kernel, "_tiled_banks",
                         lambda *a: calls.append(a) or tile(*a))
-    cfg = MelConfig(n_mels=96, fmin=3.0, fmax=14567.0)  # a key no other test makes
+    cfg = MelConfig(n_mels=n_mels, fmin=3.0, fmax=14567.0)  # a key no other test makes
     first = mel_kernel.tiled_serving_banks(cfg, "cpu")
     second = mel_kernel.tiled_serving_banks(cfg, torch.device("cpu"))
-    assert second is first and len(calls) == 1
-    assert first.dtype == torch.bfloat16 and first.is_contiguous()
-    torch.testing.assert_close(first, tile(_banks(cfg), 1024), rtol=0, atol=0)
+    groups = mel_kernel.mel_groups(n_mels, "bf16x3")
+    assert second is first and len(calls) == len(first) == len(groups)
+    banks = _banks(cfg)
+    for (m0, n, _), got in zip(groups, first):
+        assert got.dtype == torch.bfloat16 and got.is_contiguous()
+        torch.testing.assert_close(got, tile(banks[m0:m0 + n], 1024,
+                                             mel_kernel.launch_mels(n)), rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("hop", [320, 640])
@@ -480,16 +486,18 @@ def test_block_rows_hold_every_frame_of_the_last_block(n_samples, hop):
 
 
 def _wgmma_route_plain(wave, banks, cfg, mel_parts, dft_parts=2):
-    """A wgmma route's function in plain torch, from the operands the
-    wrapper hands the kernel (``_tiled_basis`` and ``_tiled_banks``,
-    untiled): the frames and the basis in ``dft_parts`` bf16 parts (2: the
-    "wgmma" route's bf16x3, hi*hi + (hi*lo + lo*hi); 3: "wgmma_fp32"'s six
-    products, hi*hi apart from the five corrections, which are summed
-    smallest first as the kernel issues them), then the power and the tiled
-    banks^T parts in ``mel_parts`` bf16 parts (3: the kernel's; 2: a bf16x3
-    mel product, the third part of banks^T folded into the second) and the
-    products of parts i + j < mel_parts summed in fp32, smallest first, as
-    the kernel sums them."""
+    """K1's function in plain torch, from the operands the wrapper hands the
+    kernel (``_tiled_basis`` and each launch's ``_tiled_banks``, untiled):
+    the frames and the basis in ``dft_parts`` bf16 parts (2: bf16x3's
+    routes, hi*hi + (hi*lo + lo*hi); 3: fp32's six products, hi*hi apart
+    from the five corrections, which are summed smallest first as the
+    kernel issues them), then the power and the tiled banks^T parts in
+    ``mel_parts`` bf16 parts (3: the kernel's; 2: a bf16x3 mel product, the
+    third part of banks^T folded into the second). As the kernel sums them:
+    each launch of ``mel_groups`` writes its rows of the output; each half
+    of 128 mels of its banks^T takes, chunk by chunk (32 bins), the
+    products of parts i + j < mel_parts, smallest first, and adds the
+    chunk's sums to its mel sums in fp32."""
     n_bins = cfg.n_fft // 2
     frames = frame_signal(wave, cfg.n_fft, cfg.hopsize,
                           cfg.num_frames(wave.shape[1]), pad_mode="constant")
@@ -503,26 +511,37 @@ def _wgmma_route_plain(wave, banks, cfg, mel_parts, dft_parts=2):
         proj = f[0] @ b[0] + (f[2] @ b[0] + f[1] @ b[1] + f[0] @ b[2]
                               + f[1] @ b[0] + f[0] @ b[1])
     power = proj[..., :n_bins] ** 2 + proj[..., n_bins:] ** 2
-    bt = _untile_banks(mel_kernel._tiled_banks(banks, cfg.n_fft))[:, :, :cfg.n_mels]
-    if mel_parts == 2:
-        bt = torch.stack([bt[0], bt[1] + bt[2]])
     pw = [p.float() for p in mel_kernel.bf16_split(power, mel_parts)]
-    mel = sum(pw[i] @ bt[level - i]
-              for level in reversed(range(mel_parts)) for i in range(level + 1))
-    out = ((torch.log(mel + 1e-5) + 4.5) / 5.0).transpose(1, 2).contiguous()
+    out = torch.empty(wave.shape[0], cfg.n_mels, frames.shape[1])
+    for m0, n, _ in mel_kernel.mel_groups(cfg.n_mels, "fp32"):
+        bt = _untile_banks(mel_kernel._tiled_banks(banks[m0:m0 + n], cfg.n_fft,
+                                                   mel_kernel.launch_mels(n)))
+        if mel_parts == 2:
+            bt = torch.stack([bt[0], bt[1] + bt[2]])
+        for a0 in range(0, n, 128):
+            mel = torch.zeros(wave.shape[0], frames.shape[1], 128)
+            for k in range(0, n_bins, 32):
+                mel += sum(pw[i][..., k:k + 32] @ bt[level - i, k:k + 32, a0:a0 + 128]
+                           for level in reversed(range(mel_parts))
+                           for i in range(level + 1))
+            rows = min(128, n - a0)
+            out[:, m0 + a0:m0 + a0 + rows] = (
+                (torch.log(mel[..., :rows] + 1e-5) + 4.5) / 5.0).transpose(1, 2)
     return mel_kernel._patch_edges(out, wave, banks, cfg)
 
 
+@pytest.mark.parametrize("n_mels", [128, 256])
 @pytest.mark.parametrize("hop", [320, 640])
-def test_wgmma_mel_product_emulation_holds_fp32(hop):
+def test_wgmma_mel_product_emulation_holds_fp32(hop, n_mels):
     # on impulse waves (one nonzero sample a frame) the DFT is exact in any
     # order, so the pre-log mel sums show the mel product alone: the route's
-    # six products from its tiled operand meet chip_smoke.py's 4e-7 bound
-    # against the plain version's fp32 GEMM, a bf16x3 mel product misses it,
-    # and the 1e-4 bound on the log cannot tell the two apart
+    # six products from its tiled operand (at 256 mels, both halves) meet
+    # chip_smoke.py's 4e-7 bound against the plain version's fp32 GEMM, a
+    # bf16x3 mel product misses it, and the 1e-4 bound on the log cannot
+    # tell the two apart
     import chip_smoke
 
-    cfg = MelConfig(hopsize=hop)
+    cfg = MelConfig(hopsize=hop, n_mels=n_mels)
     banks = _banks(cfg)
     wave = torch.from_numpy(chip_smoke.impulse_waves(samples=64000))
     frames = frame_signal(wave, 1024, hop, cfg.num_frames(64000), pad_mode="constant")
@@ -593,6 +612,50 @@ def test_wgmma_fp32_route_emulation_matches_pallas_interpret(hop):
     np.testing.assert_allclose(got, want, rtol=0, atol=ATOL_VS_PALLAS["fp32"])
 
 
+@pytest.mark.parametrize("precision", ["fp32", "bf16x3"])
+def test_wide_route_emulation_matches_pallas_interpret(precision):
+    # the 256-mel instantiation's function from its operands (both halves of
+    # banks^T) against the JAX kernel at 256 mels in TPU interpret mode, at
+    # HIGHEST for fp32 and at bf16x3
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+
+    from efficientat_tpu.ops import filterbank as jfb
+    from efficientat_tpu.ops import mel_pallas
+    from efficientat_tpu.ops import melspec as jmel
+
+    wave = _wave(1, 16000, seed=23)
+    jcfg = jmel.MelConfig(n_mels=256)
+    jbanks = jfb.kaldi_mel_banks(jcfg.n_mels, jcfg.n_fft, jcfg.sr, jcfg.fmin,
+                                 jcfg.effective_fmax)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(mel_pallas.stft_log_mel_pallas(
+            jnp.asarray(wave), jbanks, jcfg, "bf16x3" if precision == "bf16x3" else None))
+    cfg = MelConfig(n_mels=256)
+    assert mel_kernel.k1_route(cfg, precision) == mel_kernel.WIDE_ROUTES[precision]
+    got = _wgmma_route_plain(torch.from_numpy(wave), _banks(cfg), cfg, 3,
+                             mel_kernel.PARTS[precision]).numpy()
+    assert got.shape == want.shape == (1, 256, cfg.num_frames(16000))
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL_VS_PALLAS[precision])
+
+
+def test_wide_bank_groups_emulation_matches_plain(selftest_waves):
+    # a 300-mel bank as the kernel computes it: a 256-mel launch and a
+    # 44-mel one, each writing its rows at its first mel of the 300-row
+    # output, within the bound the card's kernel is held to of the plain
+    # version, and of the float64 oracle
+    cfg = MelConfig(n_mels=300)
+    assert [n for _, n, _ in mel_kernel.mel_groups(300, "fp32")] == [256, 44]
+    wave = torch.from_numpy(selftest_waves)
+    banks = _banks(cfg)
+    want = mel_kernel.stft_log_mel_plain(wave, banks, cfg, "fp32")
+    got = _wgmma_route_plain(wave, banks, cfg, 3, 3)
+    assert got.shape == want.shape == (4, 300, cfg.num_frames(wave.shape[1]))
+    assert (got - want).abs().max() <= ATOL_KERNEL_VS_PLAIN["fp32"]
+    oracle = mel_oracle_f64(selftest_waves, cfg, banks.numpy())
+    assert np.abs(got.numpy() - oracle).max() < ATOL_VS_ORACLE["fp32"]
+
+
 # (batch, samples, hop, n_mels): 320123 samples make rows that are not a
 # multiple of 4 and 1001 / 501 frames, a ragged last tile of 128 or 64
 # frames; then one clip of the least length, and single, partly filled tiles
@@ -611,13 +674,15 @@ def test_kernel_matches_plain_on_card(batch, n_samples, hop, n_mels, precision):
     cfg = MelConfig(hopsize=hop, n_mels=n_mels)
     wave = torch.from_numpy(_wave(batch, n_samples, seed=5)).cuda()
     banks = _banks(cfg, device="cuda")
-    route = mel_kernel.k1_route(cfg, precision)
-    before = mel_kernel.LAUNCHES[precision], mel_kernel.ROUTE_LAUNCHES[route]
+    # a launch a group of at most 256 mels, each counted on the route of
+    # the instantiation it launched
+    groups = Counter(route for _, _, route in mel_kernel.mel_groups(n_mels, precision))
+    before = mel_kernel.LAUNCHES[precision], dict(mel_kernel.ROUTE_LAUNCHES)
     got = mel_kernel.stft_log_mel(wave, banks, cfg, precision)
     torch.cuda.synchronize()
-    groups = -(-n_mels // mel_kernel.MELS_A_LAUNCH)
-    assert (mel_kernel.LAUNCHES[precision],
-            mel_kernel.ROUTE_LAUNCHES[route]) == (before[0] + groups, before[1] + groups)
+    assert mel_kernel.LAUNCHES[precision] == before[0] + sum(groups.values())
+    assert {r: n - before[1][r] for r, n in mel_kernel.ROUTE_LAUNCHES.items()} == {
+        r: groups[r] for r in mel_kernel.ROUTE_LAUNCHES}
     want = mel_kernel.stft_log_mel_plain(wave, banks, cfg, precision)
     assert got.shape == want.shape == (batch, n_mels, cfg.num_frames(n_samples))
     torch.testing.assert_close(got, want, rtol=0,
@@ -660,36 +725,40 @@ def test_kernel_slices_a_batch_over_the_grid_limit():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n_mels", [128, 256])
 @pytest.mark.parametrize("hop", [320, 640])
-def test_wgmma_route_mel_product_at_fp32_on_card(hop):
+def test_wgmma_route_mel_product_at_fp32_on_card(hop, n_mels):
     # the route's pre-log mel sums against its plain version's fp32 GEMM on
     # impulse waves (chip_smoke.py's k1_mel_sums; a bf16x3 product misses it)
     import chip_smoke
 
-    cfg = MelConfig(hopsize=hop)
+    cfg = MelConfig(hopsize=hop, n_mels=n_mels)
     banks = _banks(cfg, device="cuda")
     wave = torch.from_numpy(chip_smoke.impulse_waves(samples=96000)).cuda()
-    before = mel_kernel.ROUTE_LAUNCHES["wgmma"]
+    route = mel_kernel.k1_route(cfg, "bf16x3")
+    before = mel_kernel.ROUTE_LAUNCHES[route]
     got = mel_kernel.stft_log_mel(wave, banks, cfg, "bf16x3")
-    assert mel_kernel.ROUTE_LAUNCHES["wgmma"] == before + 1
+    assert mel_kernel.ROUTE_LAUNCHES[route] == before + 1
     want = mel_kernel.stft_log_mel_plain(wave, banks, cfg, "bf16x3")
     assert chip_smoke.mel_sum_gap(got, want) <= chip_smoke.TOL_PROBE_MEL_SUMS
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n_mels", [128, 256])
 @pytest.mark.parametrize("hop", [320, 640])
-def test_wgmma_fp32_route_mel_sums_at_fp32_on_card(hop):
+def test_wgmma_fp32_route_mel_sums_at_fp32_on_card(hop, n_mels):
     # the fp32 route's pre-log mel sums against the plain fp32 version on
     # impulse waves (chip_smoke.py's k1_mel_sums): its DFT and its mel
     # product at fp32's precision; K1 bf16x3's DFT misses the bound
     import chip_smoke
 
-    cfg = MelConfig(hopsize=hop)
+    cfg = MelConfig(hopsize=hop, n_mels=n_mels)
     banks = _banks(cfg, device="cuda")
     wave = torch.from_numpy(chip_smoke.impulse_waves(samples=96000)).cuda()
-    before = mel_kernel.ROUTE_LAUNCHES["wgmma_fp32"]
+    route = mel_kernel.k1_route(cfg, "fp32")
+    before = mel_kernel.ROUTE_LAUNCHES[route]
     got = mel_kernel.stft_log_mel(wave, banks, cfg, "fp32")
-    assert mel_kernel.ROUTE_LAUNCHES["wgmma_fp32"] == before + 1
+    assert mel_kernel.ROUTE_LAUNCHES[route] == before + 1
     want = mel_kernel.stft_log_mel_plain(wave, banks, cfg, "fp32")
     assert chip_smoke.mel_sum_gap(got, want) <= chip_smoke.TOL_PROBE_MEL_SUMS
     control = mel_kernel.stft_log_mel(wave, banks, cfg, "bf16x3")
@@ -723,36 +792,46 @@ def test_wgmma_route_raises_on_wrong_input_on_card():
     cfg = MelConfig()
     banks = _banks(cfg, device="cuda")
     wave = torch.from_numpy(_wave(2, 32000)).cuda()
-    tiled = mel_kernel._tiled_banks(banks, cfg.n_fft)
+    tiled = mel_kernel._tiled_groups(banks, cfg.n_fft)
+    (t,) = tiled
     for bad in (dict(wave=wave.double()), dict(wave=wave[:, ::2]),
-                dict(banks=banks.cpu()), dict(tiled_banks=tiled.float()),
-                dict(tiled_banks=tiled.cpu()), dict(tiled_banks=tiled[:8])):
+                dict(banks=banks.cpu()), dict(tiled_banks=(t.float(),)),
+                dict(tiled_banks=(t.cpu(),)), dict(tiled_banks=(t[:8],)),
+                dict(tiled_banks=t), dict(tiled_banks=tiled + tiled),
+                dict(tiled_banks=(mel_kernel._tiled_banks(banks, cfg.n_fft, 256),))):
         args = {"wave": wave, "banks": banks, "tiled_banks": tiled, **bad}
         with pytest.raises(ValueError):
             mel_kernel.stft_log_mel(args["wave"], args["banks"], cfg, "bf16x3",
                                     tiled_banks=args["tiled_banks"])
     # the entry refuses what it does not take, and the wrapper would raise
     # on its code: no batch, a hop that is not a multiple of 64, parts
-    # other than 2 (bf16x3) and 3 (fp32)
+    # other than 2 (bf16x3) and 3 (fp32), more than 256 mels, an output of
+    # fewer mel rows than the launch writes
     lib = mel_kernel._bind(load_library("mel_kernel"))
     rows = mel_kernel._block_rows(wave, cfg, 101)
-    out = torch.empty((2, 128, 101), device="cuda")
+    out = torch.empty((2, 300, 101), device="cuda")
+    wide = mel_kernel._tiled_banks(banks, cfg.n_fft, 256)
     basis = [device_const(mel_kernel._tiled_basis, (1024, 800, True, p), "cuda",
                           torch.bfloat16).data_ptr() for p in (0, 1, 2)]
-    for batch, hop, parts in ((0, 320, 2), (2, 330, 2), (0, 320, 3), (2, 330, 3),
-                              (2, 320, 4)):
+    for batch, hop, parts, n_mels, out_mels in (
+            (0, 320, 2, 128, 128), (2, 330, 2, 128, 128), (0, 320, 3, 128, 128),
+            (2, 330, 3, 128, 128), (2, 320, 4, 128, 128), (2, 320, 2, 257, 300),
+            (2, 320, 3, 257, 300), (2, 320, 2, 200, 199), (2, 320, 3, 128, 127),
+            (2, 320, 2, 0, 128)):
         assert lib.eat_mel_log_wgmma(rows.data_ptr(), batch, rows.shape[1], hop, 101,
-                                     *basis, parts, tiled.data_ptr(), 128, out.data_ptr(),
+                                     *basis, parts, wide.data_ptr(), n_mels,
+                                     out.data_ptr(), out_mels,
                                      torch.cuda.current_stream().cuda_stream) != 0
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n_mels", [128, 256])
 @pytest.mark.parametrize("precision", ["bf16x3", "fp32"])
-def test_serving_mel_takes_the_tiled_banks_once_on_card(precision):
+def test_serving_mel_takes_the_tiled_banks_once_on_card(precision, n_mels):
     # two serving calls through log_mel_spectrogram_fused tile the banks
     # once, and equal the route with the banks tiled in the call
-    cfg = MelConfig()
-    route = mel_kernel.WGMMA_ROUTES[precision]
+    cfg = MelConfig(n_mels=n_mels)
+    route = mel_kernel.k1_route(cfg, precision)
     wave = torch.from_numpy(_wave(2, 32000, seed=13)).cuda()
     first = mel_kernel.log_mel_spectrogram_fused(wave, cfg, backend="kernel",
                                                  dft_precision=precision)

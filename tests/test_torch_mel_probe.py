@@ -251,6 +251,19 @@ def test_smem_plan_takes_every_input(hop):
     assert mel_probe.smem_plan(False, hop, 3)[0] <= mel_probe.MAX_SMEM
 
 
+@pytest.mark.parametrize("parts", [2, 3])
+def test_smem_plan_at_256_mels(parts):
+    # K1's 256-mel instantiation, unstaged: the 128-mel plan and the sums
+    # of mels 128-255 in shared memory, 64 frames x 128 mels of fp32 a
+    # warpgroup; both precisions fit a block
+    for hop in (320, 640):
+        narrow = mel_probe.smem_plan(False, hop, parts)
+        wide = mel_probe.smem_plan(False, hop, parts, 256)
+        assert wide == (narrow[0] + 2 * 64 * 128 * 4, 2, 128)
+        assert wide[0] == {2: 196736, 3: 213120}[parts] <= mel_probe.MAX_SMEM
+        assert mel_probe.smem_plan(False, hop, parts, 128) == narrow
+
+
 @pytest.mark.parametrize("name,fn,kwargs", VARIANTS, ids=[v[0] for v in VARIANTS])
 def test_cpu_tensor_runs_plain_version(name, fn, kwargs):
     cfg = MelConfig()

@@ -222,8 +222,8 @@ def test_training_kernel_matches_plain_on_card(n_mels, precision):
     cpu_banks = tfb.kaldi_mel_banks(n_mels, cfg.n_fft, cfg.sr,
                                     *tmel.jittered_fmin_fmax(cfg, draws, "cpu"))
     torch.testing.assert_close(banks.cpu(), cpu_banks, rtol=0, atol=ATOL_BANKS)
-    # the jittered banks: the wgmma routes (at 128 mels) tile them in the
-    # call; mel_kernel_tc (at 256) takes them as they are
+    # the jittered banks, tiled in the call: the kernel's 128-mel
+    # instantiation at 128 mels, its 256-mel one at 256
     route = mel_kernel.k1_route(cfg, precision)
     before = mel_kernel.LAUNCHES[precision], mel_kernel.ROUTE_LAUNCHES[route]
     got = mel_kernel.log_mel_spectrogram_fused(wave, cfg, training=True,
