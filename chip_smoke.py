@@ -8,12 +8,16 @@ seeded random weights, in phases that each print a line:
 
 1. device: the card, its power limit, the TF32 flags (off for parity);
 2. build: K1 (``efficientat_tpu_torch/csrc/mel_kernel.cu``, which
-   includes ``csrc/mel_wgmma.cuh``) with nvcc, and the ptxas registers and
-   spills of each of its kernels: ``mel_kernel_wgmma<2, false, 3, 128>``
-   and ``<2, false, 6, 128>`` (bf16x3 and fp32 at up to 128 mels, the
-   "wgmma" and "wgmma_fp32" routes) and ``<2, false, 3, 128, 256>`` and
-   ``<2, false, 6, 128, 256>`` (129-256 mels, and each group of 256 of a
-   wider bank: "wgmma256" and "wgmma256_fp32");
+   includes ``csrc/mel_wgmma.cuh``, ``csrc/mel_edges.cuh`` and
+   ``csrc/tile_banks.cuh``) with nvcc, and the ptxas registers and spills
+   of each of its kernels (none may spill): ``mel_kernel_wgmma<2, false,
+   3, 128>`` and ``<2, false, 6, 128>`` (bf16x3 and fp32 at up to 128
+   mels, the "wgmma" and "wgmma_fp32" routes) and ``<2, false, 3, 128,
+   256>`` and ``<2, false, 6, 128, 256>`` (129-256 mels, and each group of
+   256 of a wider bank: "wgmma256" and "wgmma256_fp32"), which read the
+   caller's wave in place; ``mel_edges_kernel<1..4>`` (the reflect-pad edge
+   frames, 1 to 4 a clip) and ``tile_banks_kernel`` (a training call's
+   banks, tiled on the card);
 3. K1 against its plain PyTorch version and a float64 oracle on the
    selftest waves, hop 320 and 640, fp32 and bf16x3, at 128, 256 and 300
    mels (and both at 40 and 64 mels against the plain version); two
@@ -22,16 +26,27 @@ seeded random weights, in phases that each print a line:
    fp32's; each route's pre-log mel sums on impulse waves against its
    plain version's fp32 GEMM at 128, 256 and 300 mels (a bf16x3 mel
    product must miss that bound, and K1 bf16x3 fp32's); every launch on
-   the route ``mel_kernel.mel_groups`` gives it;
+   the route ``mel_kernel.mel_groups`` gives it; ``mel_edges`` within 1e-5
+   of the float64 value of its function (``time_k1.edge_oracle``) and 1e-4 of its
+   plain version (``_patch_edges``), and ``tile_banks`` bit for bit
+   its plain version's (``_tiled_groups``, fixed and jittered banks) at
+   128, 256 and 300 mels; K1 on raw waves whose length is not a multiple
+   of 4 against its plain version and the oracle;
 4. the slice: a B=64 batch of 10 s clips (the demo clip and seeded
-   variants) as f32, int16 and mu-law uint8; K1 must have been launched,
+   variants) as f32, int16 and mu-law uint8; K1 and ``mel_edges`` must
+   have been launched,
    and the card's probs must agree with the CPU's (Taggers with the DFT in
    fp32, which must launch K1 fp32);
 5. times at B=64: K1 against its plain version in both precisions at 128
    and 256 mels (each bound beside the one that priced the 256-mel mel
-   product on the CUDA cores), the wrapper's row copy, banks tiling and
-   edge patch, the model alone, and the whole pipeline in clips/s; the
-   pipeline's device time by kernel group (``torch.profiler``).
+   product on the CUDA cores); what one K1 call launches on the card,
+   counted from ``torch.profiler``'s kernel events (a serving call at
+   B=64, a training call at B=120, an fp32 serving call at B=8: only
+   ``mel_kernel_wgmma``, ``mel_edges`` and, in training, ``tile_banks``);
+   ``mel_edges`` and ``tile_banks`` (at 128 and 256 mels) against their
+   plain versions in ms beside their bounds; the model alone, and the
+   whole pipeline in clips/s; the pipeline's device time by kernel group
+   (``torch.profiler``).
 
 and the training path, ``train audioset`` (KD, mixup, fmin/fmax jitter):
 
@@ -39,7 +54,8 @@ and the training path, ``train audioset`` (KD, mixup, fmin/fmax jitter):
    against its plain version on the same draws, and its time, both
    precisions; K1 at 256 mels with the banks tiled in the call;
 7. ``run_train("audioset", ...)`` at full width, B=120, fp32 and --bf16:
-   finite losses, K1 at every step, the export loads into the Tagger; then
+   finite losses, K1 and ``mel_edges`` at every step and ``tile_banks`` at
+   every training step, the export loads into the Tagger; then
    one step on the card (K1 fp32) against the same step on the CPU;
 8. K1-dp and data parallelism: two ranks on this card over gloo, each
    running K1 on its rows and one DDP step, against one process; then
@@ -140,7 +156,8 @@ Then one JSON line on the kernels, per path (tag, train, train_dp,
 tag_fp32, train_fp32, tag_dymn, train_dymn, train_dp_dymn, tag_windowed,
 tag_ensemble2, tag_bf16, eval_variable, tag_mels_256, tag_mels_256_fp32,
 profile, tag_member_parallel, tag_mesh, train_dymn_dyconv_bf16, probe),
-each K1 row naming the kernel its route launched, the card's
+each K1 row naming the kernel its route launched, then the rows of
+``mel_edges`` (tag, train) and ``tile_banks`` (train), the card's
 ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 nothing falls back to the CPU.
@@ -187,9 +204,11 @@ from efficientat_tpu_torch.ops.mel_kernel import log_mel_spectrogram_fused  # no
 from efficientat_tpu_torch.ops.filterbank import kaldi_mel_banks  # noqa: E402
 from efficientat_tpu_torch.ops.melspec import (  # noqa: E402
     MelConfig,
+    _dft_basis,
     apply_masks,
     device_const,
     draw_mel_augment,
+    edge_frames,
     frame_signal,
     jittered_fmin_fmax,
     log_mel_spectrogram,
@@ -321,14 +340,36 @@ WGMMA_SOURCE = "efficientat_tpu_torch/csrc/mel_wgmma.cuh"
 # K1's bank widths in phase 3: the narrow and the wide instantiation, and
 # a bank of two launches (256 + 44 mels)
 K1_CHECK_MELS = (128, 256, 300)
+# mel_edges against the float64 value of the edge frames' function of
+# their fp32 operands (time_k1.edge_oracle), and against its plain version,
+# _patch_edges, at the whole call's bound (TOL_KERNEL_VS_PLAIN): the kernel
+# sums in fp64 (2.4e-7 from the float64 value), since its fp32 sums strayed
+# 3.6e-4 from it on B=120 noise, over that bound (csrc/mel_edges.cuh); the
+# plain version sums in cuBLAS's fp32 GEMM, 5.9e-6 from it on the selftest
+# waves at 128 mels, 1.04e-5 at 300 and 3.9e-5-4.4e-5 on B=120 seeded
+# noise (a near-empty bin under a narrow low mel; the CPU's fp32 GEMM
+# 6.6e-6 there; one NVIDIA H100 80GB HBM3 at 700 W, PERF.md section 6), so
+# no kernel meets it within 1e-5 there
+TOL_EDGES_VS_F64 = 1e-5
+# raw wave lengths of phase 3 that are not a multiple of 4 samples: K1's
+# rows are then one copy of the wave (mel_kernel._k1_rows)
+K1_RAW_LENGTHS = (4097, 32101, 319999)
+# the kernels of a K1 call besides K1's own, their sources and the parts of
+# the JAX wrapper they replace
+CALL_SOURCES = {"mel_edges": "efficientat_tpu_torch/csrc/mel_edges.cuh",
+                "tile_banks": "efficientat_tpu_torch/csrc/tile_banks.cuh"}
+CALL_REPLACES = {"mel_edges": "efficientat_tpu/ops/mel_pallas.py:206",
+                 "tile_banks": "efficientat_tpu/ops/mel_pallas.py:304"}
 # K1's bf16 products by precision: parts i and j with i + j < parts
 DFT_PASSES = {prec: n * (n + 1) // 2 for prec, n in mel_kernel.PARTS.items()}
 # H100 SXM dense peaks (NVIDIA's data sheet): bf16 tensor cores, fp32 CUDA
 # cores, HBM3
 PEAK_BF16, PEAK_FP32, PEAK_BYTES = 989e12, 67e12, 3.35e12
-# the groups of device_profile: kernel-name fragments, the first match wins
+# the groups of device_profile: kernel-name fragments, the first match
+# wins; "k1" is K1's kernel alone, "k1_call" the other kernels of a K1 call
 KERNEL_GROUPS = (
     ("k1", ("mel_kernel",)),
+    ("k1_call", ("mel_edges", "tile_banks")),
     ("batchnorm", ("bn_", "batch_norm", "batchnorm")),
     ("depthwise_conv", ("conv_depthwise",)),
     ("dense_conv", ("conv", "xmma", "implicit", "cudnn", "wgrad")),
@@ -343,6 +384,7 @@ KERNEL_GROUPS = (
 # the static convs (stem, tail, ContextGen's 1x1s)
 DYMN_KERNEL_GROUPS = (
     ("k1", ("mel_kernel",)),
+    ("k1_call", ("mel_edges", "tile_banks")),
     ("batchnorm", ("bn_", "batch_norm", "batchnorm")),
     ("depthwise_fold", ("conv_depthwise",)),
     ("dense_conv", ("conv", "fprop", "dgrad", "wgrad", "implicit", "cudnn")),
@@ -382,10 +424,23 @@ def wgmma_instance(line):
     return "mel_kernel_wgmma<%s,%s,%s,%s,%s>" % m.groups() if m else None
 
 
+def k1_instance(line):
+    """The K1 library's kernel whose mangled name a ptxas line holds:
+    ``wgmma_instance``'s, ``mel_edges_kernel<NE>`` or ``tile_banks_kernel``;
+    None for another line."""
+    m = re.search(r"mel_edges_kernelILi(\d+)E", line)
+    if m:
+        return "mel_edges_kernel<%s>" % m.group(1)
+    return ("tile_banks_kernel" if "tile_banks_kernel" in line
+            else wgmma_instance(line))
+
+
 def reset_k1_launches():
-    """Set K1's launch counts, by precision and by route, to 0."""
+    """Set K1's launch counts, by precision and by route, and those of the
+    call's other kernels (``mel_edges``, ``tile_banks``) to 0."""
     mel_kernel.LAUNCHES.update(dict.fromkeys(mel_kernel.LAUNCHES, 0))
     mel_kernel.ROUTE_LAUNCHES.update(dict.fromkeys(mel_kernel.ROUTE_LAUNCHES, 0))
+    mel_kernel.CALL_LAUNCHES.update(dict.fromkeys(mel_kernel.CALL_LAUNCHES, 0))
 
 
 def k1_wgmma_launches(prec="bf16x3"):
@@ -694,11 +749,13 @@ def phase_train(device, name="mn10_as", flags=((), ("--bf16",)), tag="train",
     card at full width, once with each set of ``flags``; the export loads
     into the ``Tagger``; then one step on the card against the same step
     on the CPU (a DyMN at ``temperature``). Returns K1's launches, bf16x3
-    in ``run_train`` and fp32 in the card's step."""
+    in ``run_train`` and fp32 in the card's step, and the launches of the
+    call's other kernels in ``run_train`` (``mel_edges``, ``tile_banks``)."""
     work = os.path.join(HERE, "build", "chip_smoke", tag)
     clips = 3 * TRAIN_BATCH
     eval_batches = -(-(clips // 2) // TRAIN_BATCH)  # synthetic eval: clips / 2
     total = 0
+    call_total = dict.fromkeys(mel_kernel.CALL_KERNELS, 0)
     for extra in flags:
         run = "_".join(f.lstrip("-") for f in extra) or "fp32"
         export_dir = os.path.join(work, f"export_{run}")
@@ -715,15 +772,22 @@ def phase_train(device, name="mn10_as", flags=((), ("--bf16",)), tag="train",
         seconds = time.perf_counter() - t0
         launches = k1_wgmma_launches()
         total += launches
+        call = dict(mel_kernel.CALL_LAUNCHES)
+        for kernel, n in call.items():
+            call_total[kernel] += n
         rec = result.history[-1]
         losses = {k: rec[k] for k in ("train_loss", "label_loss",
                                       "distillation_loss", "val_loss")}
         phase(tag, task="audioset", model=name, batch=TRAIN_BATCH, run=run,
               steps=result.step, k1_launches=launches, eval_batches=eval_batches,
-              seconds=seconds, mAP=rec["mAP"], **losses)
+              call_launches=json.dumps(call), seconds=seconds, mAP=rec["mAP"], **losses)
         check(result.step == 3, f"train audioset took {result.step} steps, not 3")
         check(launches >= result.step + eval_batches,
               "train audioset did not launch K1 at every step")
+        # a mel_edges launch a K1 call; the jittered banks tiled on the
+        # card at every training step (eval takes the serving banks)
+        check(call == {"mel_edges": launches, "tile_banks": result.step},
+              f"train audioset's K1 calls launched {call}")
         check(all(np.isfinite(v) for v in losses.values()), "non-finite loss")
         check(all(p.device == device for p in result.model.parameters()),
               "the model left the card")
@@ -750,7 +814,7 @@ def phase_train(device, name="mn10_as", flags=((), ("--bf16",)), tag="train",
                 bound_x=TOL_STEP_X, k1_launches=on_card["launches"])
     check(on_card["launches"] == 1, "the card's step did not launch K1 fp32")
     check(x_gap <= TOL_STEP_X, "model inputs of the card's and the CPU's steps")
-    return total, on_card["launches"]
+    return total, on_card["launches"], call_total
 
 
 def dp_mel_inputs(device):
@@ -1002,6 +1066,115 @@ def k1_row(prec, path, batch, n_mels=128, dp=False, **fields):
             "kernel": mel_kernel.ROUTE_KERNELS[route],
             "replaces": "efficientat_tpu/ops/mel_pallas.py:" + ("347" if dp else "109"),
             "precision": prec, "n_mels": n_mels, "batch": batch, **fields}
+
+
+def edges_bound_ms(batch, samples, hop, n_mels):
+    """The least time of ``mel_edges`` on ``batch`` clips of ``samples``:
+    its fp32 FLOPs (each edge frame's DFT, 1024 x 1026 x 2, and mel
+    product, 513 x n_mels x 2) at the CUDA cores' rate, against its bytes
+    (the raw samples the edge frames read, each once; the basis, the banks
+    and the edge columns of the output once), and which of the two sets it."""
+    left, right = edge_frames((samples - 1) // hop + 1, hop, 1024, samples - 1)
+    frames = np.array(left + right)
+    t = np.abs(hop * frames[:, None] - 512 + np.arange(1024))
+    t = np.where(t > samples - 2, 2 * (samples - 2) - t, t)
+    read = np.unique(np.concatenate([t.ravel(), t.ravel() + 1])).size
+    flop = batch * frames.size * (1024 * 1026 * 2 + 513 * n_mels * 2)
+    ops_s = flop / PEAK_FP32
+    bytes_s = 4 * (batch * read + 1024 * 1026 + n_mels * 513
+                   + batch * frames.size * n_mels) / PEAK_BYTES
+    return 1e3 * max(ops_s, bytes_s), "operations" if ops_s >= bytes_s else "bytes"
+
+
+def tile_bound_ms(n_mels):
+    """The least time of ``tile_banks`` on an ``n_mels`` bank: its bytes,
+    the (n_mels, 513) fp32 banks read once and the bf16 tiles written once
+    (its arithmetic, a few subtractions an element, is far below)."""
+    elements = sum(int(np.prod(mel_kernel._tiled_shape(n, 1024)))
+                   for _, n, _ in mel_kernel.mel_groups(n_mels, "bf16x3"))
+    return 1e3 * 4 * (n_mels * 513 + elements // 2) / PEAK_BYTES, "bytes"
+
+
+def call_row(name, path, launches, **fields):
+    """A row of the kernels line for ``name``, a kernel of a K1 call besides
+    K1's own (``mel_edges``, ``tile_banks``), on ``path``."""
+    return {"name": name, "path": path, "route": "cuda", "source": CALL_SOURCES[name],
+            "entry": f"{K1_SOURCE}::eat_{name}", "replaces": CALL_REPLACES[name],
+            "launches": launches, "library_ms": None, **fields}
+
+
+def phase_k1_call(device, card, cfg, xb, banks):
+    """5. What one K1 call launches on the card, from ``torch.profiler``'s
+    kernel events: a serving call at B=64 (the banks tiled once), a
+    training call at B=120 (its banks tiled in the call), an fp32 serving
+    call at B=8 (eval_variable's); only ``mel_kernel_wgmma``, one a mel
+    group, ``mel_edges`` and in training ``tile_banks`` may run. Then
+    ``mel_edges`` (at B=64 and 120) and ``tile_banks`` (at 128 and 256 mels)
+    against their plain versions, beside their bounds: ``ms`` the kernel's
+    device time (``time_k1.call_device_ms``), ``event_ms`` and ``plain_ms``
+    a call's CUDA events (``median_ms``), ``plain_device_ms`` the plain
+    call's device time. Returns their numbers for the kernels line, by
+    (kernel, batch or mels)."""
+    waves = {BATCH: xb, TRAIN_BATCH: torch.from_numpy(train_waves(TRAIN_BATCH, seed=11))
+             .to(device), 8: xb[:8].contiguous()}
+    serving = mel_kernel.tiled_serving_banks(cfg, device)
+    launches_a_call = {}
+    for name, rows, prec, tiled in (("serving_b64", BATCH, "bf16x3", serving),
+                                    ("train_b120", TRAIN_BATCH, "bf16x3", None),
+                                    ("serving_b8_fp32", 8, "fp32", serving)):
+        got = time_k1.call_kernels(lambda: mel_kernel.stft_log_mel(
+            waves[rows], banks, cfg, prec, tiled_banks=tiled))
+        want = {"mel_kernel_wgmma": 1, "mel_edges": 1, **({} if tiled else {"tile_banks": 1})}
+        launches_a_call[name] = got
+        check(got == want, f"a K1 call ({name}) launched {got}, not {want}")
+    times = {}
+    fields = {}
+    for rows in (BATCH, TRAIN_BATCH):
+        w = waves[rows]
+        out = mel_kernel.stft_log_mel(w, banks, cfg, "bf16x3", tiled_banks=serving)
+        left, right = edge_frames(out.shape[2], cfg.hopsize, cfg.n_fft, CLIP - 1)
+        edge = left + right
+        got = mel_kernel.mel_edges(out.clone(), w, banks, cfg)[:, :, edge]
+        plain = mel_kernel._patch_edges(out.clone(), w, banks, cfg)[:, :, edge]
+        oracle = time_k1.edge_oracle(w, banks, cfg)
+        err = float((got - plain).abs().max())
+        gaps = {"vs_f64": float((got.double() - oracle).abs().max()),
+                "plain_vs_f64": float((plain.double() - oracle).abs().max())}
+        check(gaps["vs_f64"] <= TOL_EDGES_VS_F64 and err <= TOL_KERNEL_VS_PLAIN["fp32"],
+              f"mel_edges at B={rows}: {err} from plain, {gaps}")
+        bound, bound_by = edges_bound_ms(rows, CLIP, cfg.hopsize, cfg.n_mels)
+        run_kernel, run_plain = (lambda: mel_kernel.mel_edges(out, w, banks, cfg),
+                                 lambda: mel_kernel._patch_edges(out, w, banks, cfg))
+        times["mel_edges", rows] = {
+            "ms": time_k1.call_device_ms(run_kernel)["mel_edges"],
+            "event_ms": median_ms(run_kernel), "plain_ms": median_ms(run_plain),
+            "plain_device_ms": time_k1.call_device_ms(run_plain)["total"],
+            "bound_ms": bound, "bound_by": bound_by, "max_abs_err": err,
+            "max_abs_err_vs_f64": gaps["vs_f64"], "plain_vs_f64": gaps["plain_vs_f64"],
+            "batch": rows, "edge_frames": len(edge), "n_mels": cfg.n_mels}
+        fields[f"mel_edges_b{rows}"] = json.dumps(times["mel_edges", rows])
+        del out, got, plain, oracle
+    for n_mels in (cfg.n_mels, 2 * cfg.n_mels):
+        bk = (banks if n_mels == cfg.n_mels else
+              kaldi_mel_banks(n_mels, cfg.n_fft, cfg.sr, cfg.fmin, cfg.effective_fmax,
+                              device=device))
+        equal = all(torch.equal(a.view(torch.int16), b.view(torch.int16))
+                    for a, b in zip(mel_kernel.tile_banks(bk, cfg.n_fft),
+                                    mel_kernel._tiled_groups(bk, cfg.n_fft), strict=True))
+        check(equal, f"tile_banks vs _tiled_groups at {n_mels} mels")
+        bound, bound_by = tile_bound_ms(n_mels)
+        run_kernel, run_plain = (lambda: mel_kernel.tile_banks(bk, cfg.n_fft),
+                                 lambda: mel_kernel._tiled_groups(bk, cfg.n_fft))
+        times["tile_banks", n_mels] = {
+            "ms": time_k1.call_device_ms(run_kernel)["tile_banks"],
+            "event_ms": median_ms(run_kernel), "plain_ms": median_ms(run_plain),
+            "plain_device_ms": time_k1.call_device_ms(run_plain)["total"],
+            "bound_ms": bound, "bound_by": bound_by, "max_abs_err": 0.0, "n_mels": n_mels}
+        fields[f"tile_banks_{n_mels}"] = json.dumps(times["tile_banks", n_mels])
+    phase("k1_wrapper", launches_a_call=json.dumps(launches_a_call), **fields,
+          card=repr(card))
+    del waves
+    return times
 
 
 # how gemm_ms multiplies bf16 operands: set at its first call
@@ -2481,25 +2654,32 @@ def main():
     # 2. build: every kernel source at once, one nvcc each
     t0 = time.perf_counter()
     _build.load_libraries(["mel_kernel", "mel_probe_kernel"])
-    regs, built = [], []  # each kernel's name, then its spill and register lines
+    regs, built, spills = [], [], []  # each kernel's name, then its spill and register lines
     for ln in _build.BUILD_LOG.get("mel_kernel", "").splitlines():
         if "Compiling entry function" in ln:
-            built.append(wgmma_instance(ln) or ln.split("'")[1])
+            built.append(k1_instance(ln) or ln.split("'")[1])
             regs.append(built[-1])
         elif "registers" in ln or "spill" in ln:
             regs.append(ln.split(":", 1)[-1].strip())
+            if "spill" in ln and not re.search(r"\b0 bytes spill stores, 0 bytes spill loads", ln):
+                spills.append((built[-1] if built else "?", regs[-1]))
     phase("build", source="efficientat_tpu_torch/csrc/mel_kernel.cu",
           headers=WGMMA_SOURCE, arch="sm_90a",
           seconds=f"{time.perf_counter() - t0:.2f}",
           ptxas=repr(regs) if "mel_kernel" in _build.BUILD_LOG
           else "none: another process built the library")
     # what nvcc compiled, where this process built the library: the wgmma
-    # kernel at 3 and 6 passes, each at 128 and 256 mels, and nothing else
-    # (no mel_kernel_tc)
+    # kernel at 3 and 6 passes, each at 128 and 256 mels, the edge kernel at
+    # 1-4 frames a clip and the tiling kernel, and nothing else (no
+    # mel_kernel_tc); no kernel spills
     check("mel_kernel" not in _build.BUILD_LOG or sorted(built) == [
+        "mel_edges_kernel<1>", "mel_edges_kernel<2>", "mel_edges_kernel<3>",
+        "mel_edges_kernel<4>",
         "mel_kernel_wgmma<2,0,3,128,128>", "mel_kernel_wgmma<2,0,3,128,256>",
-        "mel_kernel_wgmma<2,0,6,128,128>", "mel_kernel_wgmma<2,0,6,128,256>"],
+        "mel_kernel_wgmma<2,0,6,128,128>", "mel_kernel_wgmma<2,0,6,128,256>",
+        "tile_banks_kernel"],
           f"K1's library built {built}")
+    check(not spills, f"a kernel of K1's library spills: {spills}")
 
     lap("2 build")
 
@@ -2567,6 +2747,35 @@ def main():
             check(max(gaps.values()) <= TOL_PROBE_MEL_SUMS,
                   f"K1's mel sums are below fp32's precision at {n_mels} mels: {gaps}")
             del sums, want
+            # mel_edges against its plain version on K1's output, every
+            # other frame left as it was; tile_banks bit for bit its plain
+            # version's on the fixed banks and on jittered ones
+            left, right = edge_frames(cfg.num_frames(CLIP), hop, cfg.n_fft, CLIP - 1)
+            edge = left + right
+            got = mel_kernel.mel_edges(k.clone(), wd, banks, cfg)
+            want = mel_kernel._patch_edges(k.clone(), wd, banks, cfg)
+            edge_gap = float((got[:, :, edge] - want[:, :, edge]).abs().max())
+            oracle_gap = float((got[:, :, edge].double()
+                                - time_k1.edge_oracle(wd, banks, cfg)).abs().max())
+            kept = torch.ones(k.shape[2], dtype=torch.bool, device=device)
+            kept[edge] = False
+            untouched = torch.equal(got[:, :, kept], k[:, :, kept])
+            jittered = kaldi_mel_banks(n_mels, cfg.n_fft, cfg.sr,
+                                       torch.tensor(7.0, device=device),
+                                       torch.tensor(14321.0, device=device))
+            tiles_equal = all(
+                torch.equal(a.view(torch.int16), b.view(torch.int16))
+                for bk in (banks, jittered)
+                for a, b in zip(mel_kernel.tile_banks(bk, cfg.n_fft),
+                                mel_kernel._tiled_groups(bk, cfg.n_fft), strict=True))
+            phase("k1_call_kernels", hop=hop, n_mels=n_mels, edge_frames=edge,
+                  mel_edges_vs_plain=edge_gap, bound_plain=TOL_KERNEL_VS_PLAIN["fp32"],
+                  mel_edges_vs_f64=oracle_gap, bound_f64=TOL_EDGES_VS_F64,
+                  others_untouched=untouched, tile_banks_bit_equal=tiles_equal)
+            check(oracle_gap <= TOL_EDGES_VS_F64 and edge_gap <= TOL_KERNEL_VS_PLAIN["fp32"]
+                  and untouched, f"mel_edges at {n_mels} mels, hop {hop}")
+            check(tiles_equal, f"tile_banks vs _tiled_groups at {n_mels} mels")
+            del got, want, k
         cfg = MelConfig(hopsize=hop)
         banks = kaldi_mel_banks(cfg.n_mels, cfg.n_fft, cfg.sr, cfg.fmin,
                                 cfg.effective_fmax, device=device)
@@ -2586,6 +2795,21 @@ def main():
         check(control > TOL_KERNEL_VS_PLAIN["fp32"],
               f"K1 bf16x3 passes K1 fp32's kernel bound: {control}")
         del k1
+        # K1 on raw waves whose rows are not 16-byte aligned
+        for n in K1_RAW_LENGTHS:
+            raw = wd[:, :n].contiguous()
+            oracle = mel_oracle_f64(waves[:, :n], cfg, banks.cpu().numpy())
+            for prec in ("fp32", "bf16x3"):
+                k = k1_call(raw, banks, cfg, prec)
+                dev_plain = float((k - mel_kernel.stft_log_mel_plain(raw, banks, cfg, prec))
+                                  .abs().max())
+                dev_oracle = float(np.abs(k.cpu().numpy() - oracle).max())
+                phase("k1_selftest", hop=hop, precision=prec, n_samples=n,
+                      vs_plain=dev_plain, bound_plain=TOL_KERNEL_VS_PLAIN[prec],
+                      vs_oracle=dev_oracle, bound_oracle=TOL_VS_ORACLE[prec])
+                check(dev_plain <= TOL_KERNEL_VS_PLAIN[prec]
+                      and dev_oracle < TOL_VS_ORACLE[prec],
+                      f"K1 {prec} on {n}-sample waves, hop {hop}")
         for n_mels in (40, 64):
             narrow = MelConfig(hopsize=hop, n_mels=n_mels)
             nb = kaldi_mel_banks(n_mels, narrow.n_fft, narrow.sr, narrow.fmin,
@@ -2616,9 +2840,14 @@ def main():
     reset_k1_launches()
     probs = {name: tagger.predict(w) for name, w in coded.items()}
     launches = k1_wgmma_launches()
+    tag_call = dict(mel_kernel.CALL_LAUNCHES)
     phase("slice", model="mn10_as", batch=BATCH, seconds=CLIP // SR,
-          k1_launches=launches)
+          k1_launches=launches, call_launches=json.dumps(tag_call))
     check(launches >= len(coded), "the main path did not launch K1")
+    # a mel_edges launch a K1 call (one mel group); the serving banks are
+    # tiled once on the host
+    check(tag_call == {"mel_edges": launches, "tile_banks": 0},
+          f"the main path's K1 calls launched {tag_call}")
     for name, pr in probs.items():
         check(pr.shape == (BATCH, 527), f"probs shape {pr.shape}")
         check(bool(np.isfinite(pr).all()), f"non-finite probs ({name})")
@@ -2673,21 +2902,7 @@ def main():
     banks = kaldi_mel_banks(cfg.n_mels, cfg.n_fft, cfg.sr, cfg.fmin,
                             cfg.effective_fmax, device=device)
     xb = torch.from_numpy(batch).to(device)
-    # the parts of a K1 call around the kernel: the copy of the wave into
-    # the kernel's rows, the tiling of the banks at 128 and 256 mels (a
-    # training call's; the Tagger's are tiled once), and the reflect-pad
-    # edge frames' patch
-    n_frames = cfg.num_frames(CLIP)
-    out = torch.empty((BATCH, cfg.n_mels, n_frames), device=device)
-    banks_256 = kaldi_mel_banks(2 * cfg.n_mels, cfg.n_fft, cfg.sr, cfg.fmin,
-                                cfg.effective_fmax, device=device)
-    phase("k1_wrapper", batch=BATCH,
-          block_rows_ms=median_ms(lambda: mel_kernel._block_rows(xb, cfg, n_frames)),
-          tile_banks_ms=median_ms(lambda: mel_kernel._tiled_groups(banks, cfg.n_fft)),
-          tile_banks_256_ms=median_ms(lambda: mel_kernel._tiled_groups(banks_256,
-                                                                       cfg.n_fft)),
-          patch_edges_ms=median_ms(lambda: mel_kernel._patch_edges(out, xb, banks, cfg)),
-          card=repr(card))
+    call_times = phase_k1_call(device, card, cfg, xb, banks)
     with torch.inference_mode():
         mel = mel_kernel.stft_log_mel(xb, banks, cfg, "bf16x3")[:, None]
         model_ms = median_ms(lambda: tagger.members[0](mel))
@@ -2701,18 +2916,24 @@ def main():
     k_ms, plain_ms, err = times["bf16x3", cfg.n_mels]
     kernels = [k1_row("bf16x3", "tag", BATCH, launches=launches, max_abs_err=err,
                       ms=k_ms, plain_ms=plain_ms)]
-    del tagger, pairs, xb, mel, out, banks_256
+    call_rows = [call_row("mel_edges", "tag", tag_call["mel_edges"],
+                          **call_times["mel_edges", BATCH])]
+    del tagger, pairs, xb, mel
     torch.cuda.empty_cache()
 
     lap("4-5 tag")
 
     # 6-9. the training path
     k1_train = phase_train_k1(device, card)
-    train_launches, step_fp32_launches = phase_train(device)
+    train_launches, step_fp32_launches, train_call = phase_train(device)
     dp = phase_train_dp(device)
     phase_train_times(device, card)
     kernels.append(k1_row("bf16x3", "train", TRAIN_BATCH,
                           **{**k1_train["bf16x3"], "launches": train_launches}))
+    call_rows.append(call_row("mel_edges", "train", train_call["mel_edges"],
+                              **call_times["mel_edges", TRAIN_BATCH]))
+    call_rows.append(call_row("tile_banks", "train", train_call["tile_banks"],
+                              **call_times["tile_banks", cfg.n_mels]))
     kernels.append(k1_row("bf16x3", "train_dp", DP_MEL_BATCH // DP_WORLD, dp=True, **dp))
     # K1 fp32 on the tag path: the card-vs-CPU Taggers' launches, phase 5's
     # times at B=64; on the train path: the card's train step's launch,
@@ -2734,7 +2955,7 @@ def main():
     # calls there have the shapes of the MN paths' (the wave in, 128 mels
     # out), so its rows take phases 5 and 6's times, and K1-dp's phase 8's
     dymn_tag_launches, dymn_model_ms = phase_dymn_slice(device, card, batch, coded)
-    dymn_train_launches, _ = phase_train(
+    dymn_train_launches, _, _ = phase_train(
         device, DYMN, flags=((), ("--bf16",), ("--bf16", "--remat")), tag="dymn_train",
         temperature=DYMN_TRAIN_TEMPERATURE)
     phase_train_times(device, card, DYMN, variants=((False, False), (True, False),
@@ -2866,6 +3087,9 @@ def main():
           "a K1 path did not launch the wgmma route of its precision and width")
 
     lap("bounds and yardsticks")
+    check(all(row["launches"] >= 1 for row in call_rows),
+          f"a K1 call's kernel did not run on its path: {call_rows}")
+    kernels.extend(call_rows)
     kernels.extend(probe_rows)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

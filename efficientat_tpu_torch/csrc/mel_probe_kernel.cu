@@ -22,36 +22,43 @@ constexpr int P3_TILE = 128;
 
 }  // namespace
 
-// The operands of mel_wgmma::launch (ops/mel_probe.py makes them). Each
-// returns the launch's cudaError_t (0 = success).
+// The operands of mel_wgmma::launch (ops/mel_probe.py makes them): rows
+// holding every frame of the last 128-frame sub-tile (ops/mel_kernel.py::
+// _block_rows), frame i at x[:, hop * i] (lead 0, max_start the rows' last
+// window start). Each returns the launch's cudaError_t (0 = success).
 extern "C" int eat_probe_p1(const float* x, int B, int row_len, int hop, int n_frames,
                             int frame_tile, const void* bhi, const void* blo,
                             const void* mel, int n_mels, float* out, void* stream) {
-  return (int)mel_wgmma::launch<false, 3>(x, B, row_len, hop, n_frames, frame_tile, bhi, blo,
-                                          nullptr, mel, n_mels, n_mels, out, stream);
+  return (int)mel_wgmma::launch<false, 3>(x, B, row_len, hop, n_frames, frame_tile, 0,
+                                          mel_wgmma::last_start(row_len), bhi, blo, nullptr,
+                                          mel, n_mels, n_mels, out, stream);
 }
 
 extern "C" int eat_probe_p2(const float* x, int B, int row_len, int hop, int n_frames,
                             int frame_tile, const void* bhi, const void* blo,
                             const void* mel, int n_mels, float* out, void* stream) {
-  return (int)mel_wgmma::launch<true, 3>(x, B, row_len, hop, n_frames, frame_tile, bhi, blo,
-                                         nullptr, mel, n_mels, n_mels, out, stream);
+  return (int)mel_wgmma::launch<true, 3>(x, B, row_len, hop, n_frames, frame_tile, 0, 0, bhi,
+                                         blo, nullptr, mel, n_mels, n_mels, out, stream);
 }
 
 extern "C" int eat_probe_p3(const float* x, int B, int row_len, int hop, int n_frames,
                             int passes, const void* bhi, const void* blo,
                             const void* mel, int n_mels, float* out, void* stream) {
   if (hop != 320) return (int)cudaErrorInvalidValue;
+  const int last = mel_wgmma::last_start(row_len);
   switch (passes) {
     case 3:
-      return (int)mel_wgmma::launch<false, 3>(x, B, row_len, hop, n_frames, P3_TILE, bhi,
-                                              blo, nullptr, mel, n_mels, n_mels, out, stream);
+      return (int)mel_wgmma::launch<false, 3>(x, B, row_len, hop, n_frames, P3_TILE, 0, last,
+                                              bhi, blo, nullptr, mel, n_mels, n_mels, out,
+                                              stream);
     case 21:
-      return (int)mel_wgmma::launch<false, 21>(x, B, row_len, hop, n_frames, P3_TILE, bhi,
-                                               blo, nullptr, mel, n_mels, n_mels, out, stream);
+      return (int)mel_wgmma::launch<false, 21>(x, B, row_len, hop, n_frames, P3_TILE, 0, last,
+                                               bhi, blo, nullptr, mel, n_mels, n_mels, out,
+                                               stream);
     case 22:
-      return (int)mel_wgmma::launch<false, 22>(x, B, row_len, hop, n_frames, P3_TILE, bhi,
-                                               blo, nullptr, mel, n_mels, n_mels, out, stream);
+      return (int)mel_wgmma::launch<false, 22>(x, B, row_len, hop, n_frames, P3_TILE, 0, last,
+                                               bhi, blo, nullptr, mel, n_mels, n_mels, out,
+                                               stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

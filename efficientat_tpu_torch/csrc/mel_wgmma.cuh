@@ -12,10 +12,13 @@
 //   the probe variants P1-P3, csrc/mel_probe_kernel.cu, in place of the
 //     Pallas kernels of scripts/probe_mel_kernel.py.
 // For one clip and one tile of frames, in one kernel:
-//   frame i is x[hop * i, hop * i + 1024) of the row the wrapper prepares
-//   (ops/mel_kernel.py::_block_rows: the raw wave behind a 512-sample zero
-//   pad for the folded basis, or the pre-emphasised, reflect-padded wave for
-//   the probe's plain one), split here into bf16 parts (part 0 = bf16(f),
+//   frame i is x[s, s + 1024) of its row, s = clamp(hop * i - lead, 0,
+//   max_start): K1 reads the caller's raw wave in place (lead 512, max_start
+//   the last multiple of 8 at or below S - 1024), the probe the rows of
+//   ops/mel_kernel.py::_block_rows (lead 0: the raw wave behind a 512-sample
+//   zero pad for the folded basis, or the pre-emphasised, reflect-padded
+//   wave for the plain one); P2 reads them as they are, through its staged
+//   segment. Split here into bf16 parts (part 0 = bf16(f),
 //   part p the bf16 of what parts 0 .. p-1 leave): hi + lo, or hi + mid + lo
 //   at 6 passes;
 //   times the basis, split into as many bf16 parts by the wrapper (1024 x
@@ -30,7 +33,10 @@
 //   -> (log(x + 1e-5) + 4.5) / 5, written into rows 0 .. n_mels - 1 of each
 //   clip's out_mels rows of the (B, out_mels, n_frames) output.
 // The wrappers patch the few frames whose window reaches the reflect pad, as
-// the JAX functions do.
+// the JAX functions do (K1 with the mel_edges kernel, csrc/mel_edges.cuh):
+// the clamp gives those frames a window of the wave that is not theirs, and
+// every other frame the window a zero pad would, so the hot loop carries no
+// predicate for the clip's ends.
 //
 // What bounds it, at B = 64 clips of 10 s and hop 320 (64,000 frames): the
 // DFT product, 64,000 x 1024 x 1024 x 2 = 134.2 GFLOP a pass, 402.7 GFLOP for
@@ -501,7 +507,7 @@ mel_kernel_wgmma(const float* __restrict__ x, int row_len, int hop, int n_frames
              const __nv_bfloat16* __restrict__ b2,   // part 2 (6 passes)
              const __nv_bfloat16* __restrict__ mel,  // _tiled_banks: per chunk, halves x parts
              int n_mels, float* __restrict__ out,    // (B, out_mels, n_frames)
-             int out_mels) {
+             int out_mels, int lead, int max_start) { // the unstaged frames' window
   constexpr int BF = TF * WG;             // frames a block computes at a time
   constexpr int A_PARTS = slot_parts(PASSES);  // bf16 parts of the frames
   constexpr int PARTS = PASSES == 21 ? 1 : A_PARTS;  // basis parts a stage brings in
@@ -619,9 +625,11 @@ mel_kernel_wgmma(const float* __restrict__ x, int row_len, int hop, int n_frames
       row0 = seg + (size_t)hop * r0 + 8 * t;
       row1 = row0 + (size_t)hop * 8;
     } else {
-      // a frame past the clip reads the last one, and is never written
-      row0 = xb + (size_t)hop * min(f0 + r0, n_frames - 1) + 8 * t;
-      row1 = xb + (size_t)hop * min(f0 + r0 + 8, n_frames - 1) + 8 * t;
+      // frame f at clamp(hop f - lead, 0, max_start): a frame whose window
+      // leaves the row (an edge frame, or one past the clip, never written)
+      // reads one inside it
+      row0 = xb + min(max(hop * (f0 + r0) - lead, 0), max_start) + 8 * t;
+      row1 = xb + min(max(hop * (f0 + r0 + 8) - lead, 0), max_start) + 8 * t;
     }
     // samples 8t .. 8t + 7 of the next k32 step, both rows, loaded a step
     // ahead
@@ -746,9 +754,9 @@ mel_kernel_wgmma(const float* __restrict__ x, int row_len, int hop, int n_frames
 
 template <int WG, bool STAGED, int PASSES, int KC, int MELS>
 cudaError_t launch_kc(const float* x, int B, int row_len, int hop, int n_frames, int tile,
-                      const void* b0, const void* b1, const void* b2, const void* mel,
-                      int n_mels, int out_mels, float* out, const Plan& p,
-                      cudaStream_t stream) {
+                      int lead, int max_start, const void* b0, const void* b1,
+                      const void* b2, const void* mel, int n_mels, int out_mels, float* out,
+                      const Plan& p, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(mel_kernel_wgmma<WG, STAGED, PASSES, KC, MELS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)p.bytes);
@@ -757,32 +765,42 @@ cudaError_t launch_kc(const float* x, int B, int row_len, int hop, int n_frames,
   mel_kernel_wgmma<WG, STAGED, PASSES, KC, MELS><<<grid, 128 * WG, p.bytes, stream>>>(
       x, row_len, hop, n_frames, tile, static_cast<const __nv_bfloat16*>(b0),
       static_cast<const __nv_bfloat16*>(b1), static_cast<const __nv_bfloat16*>(b2),
-      static_cast<const __nv_bfloat16*>(mel), n_mels, out, out_mels);
+      static_cast<const __nv_bfloat16*>(mel), n_mels, out, out_mels, lead, max_start);
   return cudaGetLastError();
 }
 
 // K1, P1 and P3 (P1_PLAN) or P2 (STAGED, by its plan): x (B, row_len) f32,
-// frame i at x[:, hop * i]; b0, b1 (and b2 at 6 passes, else unread) the
-// basis parts pre-tiled by ops/mel_kernel.py::_tiled_basis (16 x 64 x 1024
-// bf16 each); mel the banks^T
-// split into three bf16 parts and tiled by _tiled_banks at MELS mels (16
-// chunks x MELS / 128 halves x 3 parts x 32 x 128 bf16, zero past n_mels);
-// out the first n_mels rows of each clip's out_mels rows of a (B, out_mels,
-// n_frames) f32 output. All contiguous on the device; 16-byte aligned rows
-// (row_len a multiple of 4) holding every frame of the last 128-frame
-// sub-tile. MELS 256 is unstaged.
+// frame i at x[:, clamp(hop * i - lead, 0, max_start)] (unstaged) or at
+// x[:, hop * i] (P2); b0, b1 (and b2 at 6 passes, else unread) the basis
+// parts pre-tiled by ops/mel_kernel.py::_tiled_basis (16 x 64 x 1024 bf16
+// each); mel the banks^T split into three bf16 parts and tiled by
+// _tiled_banks at MELS mels (16 chunks x MELS / 128 halves x 3 parts x 32 x
+// 128 bf16, zero past n_mels); out the first n_mels rows of each clip's
+// out_mels rows of a (B, out_mels, n_frames) f32 output. All contiguous on
+// the device, 16-byte aligned rows (row_len a multiple of 4). Unstaged:
+// lead and max_start multiples of 8 (16-byte aligned frames), and every
+// window [s, s + 1024) inside the row. P2: rows holding every frame of the
+// last 128-frame sub-tile (lead and max_start unread). MELS 256 is
+// unstaged.
 template <bool STAGED, int PASSES, int MELS = MAX_MELS>
 cudaError_t launch(const float* x, int B, int row_len, int hop, int n_frames,
-                   int frame_tile, const void* b0, const void* b1, const void* b2,
-                   const void* mel, int n_mels, int out_mels, float* out, void* stream) {
+                   int frame_tile, int lead, int max_start, const void* b0, const void* b1,
+                   const void* b2, const void* mel, int n_mels, int out_mels, float* out,
+                   void* stream) {
   static_assert(MELS == MAX_MELS || (MELS == 2 * MAX_MELS && !STAGED), "128 or 256 mels");
   if (B < 1 || B > 65535 || n_frames < 1 || n_mels < 1 || n_mels > MELS ||
       out_mels < n_mels || hop < 64 || hop % 64 != 0 || frame_tile < TF ||
       frame_tile % TF != 0 || row_len % 4 != 0)
     return cudaErrorInvalidValue;
-  // every frame of every 128-frame sub-tile that runs lies inside the row
-  const long long sub_frames = (long long)(n_frames + 2 * TF - 1) / (2 * TF) * (2 * TF);
-  if ((long long)hop * (sub_frames - 1) + N_FFT > row_len) return cudaErrorInvalidValue;
+  if (STAGED) {
+    // every frame of every 128-frame sub-tile that runs lies inside the row
+    const long long sub_frames = (long long)(n_frames + 2 * TF - 1) / (2 * TF) * (2 * TF);
+    if ((long long)hop * (sub_frames - 1) + N_FFT > row_len) return cudaErrorInvalidValue;
+  } else if (lead < 0 || lead % 8 != 0 || max_start < 0 || max_start % 8 != 0 ||
+             (long long)max_start + N_FFT > row_len ||
+             (long long)hop * (n_frames + 2 * TF) > 0x7fffffff) {
+    return cudaErrorInvalidValue;
+  }
   const Plan p = plan(STAGED, hop, slot_parts(PASSES), MELS);
   if (p.bytes == 0) return cudaErrorInvalidValue;
   const int bf = TF * p.wg;
@@ -790,17 +808,22 @@ cudaError_t launch(const float* x, int B, int row_len, int hop, int n_frames,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if constexpr (!STAGED) {
     return launch_kc<P1_PLAN[0], false, PASSES, P1_PLAN[1], MELS>(
-        x, B, row_len, hop, n_frames, tile, b0, b1, b2, mel, n_mels, out_mels, out, p, s);
+        x, B, row_len, hop, n_frames, tile, lead, max_start, b0, b1, b2, mel, n_mels,
+        out_mels, out, p, s);
   } else {
     if (p.wg == 2)
-      return launch_kc<2, true, PASSES, 64, MELS>(x, B, row_len, hop, n_frames, tile, b0, b1,
-                                                  b2, mel, n_mels, out_mels, out, p, s);
+      return launch_kc<2, true, PASSES, 64, MELS>(x, B, row_len, hop, n_frames, tile, 0, 0, b0,
+                                                  b1, b2, mel, n_mels, out_mels, out, p, s);
     if (p.kc == 64)
-      return launch_kc<1, true, PASSES, 64, MELS>(x, B, row_len, hop, n_frames, tile, b0, b1,
-                                                  b2, mel, n_mels, out_mels, out, p, s);
-    return launch_kc<1, true, PASSES, 32, MELS>(x, B, row_len, hop, n_frames, tile, b0, b1, b2,
-                                                mel, n_mels, out_mels, out, p, s);
+      return launch_kc<1, true, PASSES, 64, MELS>(x, B, row_len, hop, n_frames, tile, 0, 0, b0,
+                                                  b1, b2, mel, n_mels, out_mels, out, p, s);
+    return launch_kc<1, true, PASSES, 32, MELS>(x, B, row_len, hop, n_frames, tile, 0, 0, b0,
+                                                b1, b2, mel, n_mels, out_mels, out, p, s);
   }
 }
+
+// the largest multiple of 8 at or below row_len - N_FFT: the last window
+// start of rows that hold every frame (the probe's lead-0 rows)
+inline int last_start(int row_len) { return (row_len - N_FFT) / 8 * 8; }
 
 }  // namespace mel_wgmma

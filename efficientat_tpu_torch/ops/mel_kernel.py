@@ -1,11 +1,12 @@
 """Fused log-mel front end: host side of K1 (port of efficientat_tpu/ops/mel_pallas.py).
 
 K1 (``csrc/mel_kernel.cu``) computes, for each clip and each tile of frames,
-frames of the raw wave x the pre-emphasis-folded windowed rDFT basis (no
-Nyquist bin) -> power -> x banks^T -> ``(log(x + 1e-5) + 4.5) / 5``, written
-as (B, n_mels, n_frames). The frames whose window reaches the reflect pad (at
-most 4 a clip) are recomputed here in plain PyTorch with the exact reference
-math and patched in, as the JAX wrapper does. K1 runs the DFT on the
+frames of the caller's raw wave, read in place, x the pre-emphasis-folded
+windowed rDFT basis (no Nyquist bin) -> power -> x banks^T -> ``(log(x +
+1e-5) + 4.5) / 5``, written as (B, n_mels, n_frames). The frames whose window
+reaches the reflect pad (at most 4 a clip) are recomputed from the fp32
+operands of the reference math and written over K1's by ``mel_edges`` (the
+``mel_edges`` kernel), as the JAX wrapper patches them. K1 runs the DFT on the
 tensor cores as products of bf16 parts: bf16x3 (the JAX package's 3-pass
 split, the serving and training default) or fp32 (the 6-pass split the TPU
 runs for ``Precision.HIGHEST``), on ``eat_mel_log_wgmma``, the Hopper design
@@ -21,14 +22,24 @@ call's widest. The operands are made here: the folded basis's bf16 parts
 (two, or three for fp32) pre-tiled for the ring (``_tiled_basis``), each
 group's banks^T in three bf16 parts, tiled (``_tiled_banks``, one tensor a
 group, ``_tiled_groups``; the fixed serving banks once a config and
-device, ``tiled_serving_banks``), and rows holding every frame of the last
-128-frame block (``_block_rows``).
+device on the host, ``tiled_serving_banks``; a training call's jittered
+banks on the card by the ``tile_banks`` kernel, ``tile_banks``). The
+probe's rows, which hold every frame of the last 128-frame block, are
+``_block_rows``.
+
+So a K1 call on a CUDA tensor launches only hand-written kernels:
+``tile_banks`` (when the call tiles its banks), one ``mel_kernel_wgmma`` a
+mel group, and ``mel_edges``; nothing else runs on the card but
+``torch.empty`` for the outputs and scratch (and one copy of the wave where
+its rows are not 16-byte aligned, ``_k1_rows``; once a stream, the zeroing
+of ``mel_edges``' counts, ``_edge_done``).
 
 ``stft_log_mel`` launches K1 for a CUDA tensor and runs its plain PyTorch
 version, ``stft_log_mel_plain``, for a CPU tensor; nothing else chooses
-between them. ``stft_log_mel_sharded`` is K1-dp, the port of
-``stft_log_mel_pallas_sharded``: K1 on one data-parallel rank's rows.
-``log_mel_spectrogram_fused`` picks K1 or the plain melspec path
+between them (``tile_banks`` and ``mel_edges`` the same: ``_tiled_groups``
+and ``_patch_edges`` are their plain versions). ``stft_log_mel_sharded`` is
+K1-dp, the port of ``stft_log_mel_pallas_sharded``: K1 on one data-parallel
+rank's rows. ``log_mel_spectrogram_fused`` picks K1 or the plain melspec path
 (``ops.melspec``) from the config, the device and the clip's length only
 (``auto_takes_kernel``). In training it feeds
 K1 the jittered banks and masks K1's normalised output with 0.9, the value
@@ -93,10 +104,13 @@ ROUTE_KERNELS = {
 WGMMA_ROUTES = {"bf16x3": "wgmma", "fp32": "wgmma_fp32"}
 WIDE_ROUTES = {"bf16x3": "wgmma256", "fp32": "wgmma256_fp32"}
 
-# K1 launches in this process, by dft_precision and by route; a run sets
-# them to 0 and reads them after
+# K1 launches in this process, by dft_precision and by route, and the
+# launches of the call's other kernels by name; a run sets them to 0 and
+# reads them after
 LAUNCHES = dict.fromkeys(DFT_PRECISIONS, 0)
 ROUTE_LAUNCHES = dict.fromkeys(ROUTE_KERNELS, 0)
+CALL_KERNELS = ("mel_edges", "tile_banks")
+CALL_LAUNCHES = dict.fromkeys(CALL_KERNELS, 0)
 
 
 def kernel_supported(cfg: MelConfig) -> bool:
@@ -256,6 +270,35 @@ def _tiled_groups(banks: torch.Tensor, n_fft: int) -> tuple[torch.Tensor, ...]:
                  for m0, n, _ in mel_groups(banks.shape[0], "bf16x3"))
 
 
+def _tiled_shape(n: int, n_fft: int) -> tuple[int, ...]:
+    """``_tiled_banks``' shape for a launch of ``n`` mels."""
+    return (n_fft // 64, launch_mels(n) // WGMMA_MAX_MELS * MEL_SPLIT, 2,
+            WGMMA_MAX_MELS // 8, 2, 8, 8)
+
+
+def tile_banks(banks: torch.Tensor, n_fft: int) -> tuple[torch.Tensor, ...]:
+    """``_tiled_groups(banks, n_fft)``, bit for bit: on a CUDA tensor one
+    launch of the ``tile_banks`` kernel writes every group's tiled tensor
+    (views of one buffer); on a CPU tensor ``_tiled_groups`` itself."""
+    if banks.device.type == "cpu":
+        return _tiled_groups(banks, n_fft)
+    n_mels = banks.shape[0]
+    if (n_fft != 1024 or banks.dim() != 2 or banks.shape[1] != n_fft // 2 + 1
+            or banks.dtype != torch.float32 or not banks.is_contiguous()):
+        raise ValueError("tile_banks takes contiguous float32 (n_mels, 513) banks, "
+                         f"got {banks.dtype} {tuple(banks.shape)}")
+    shapes = [_tiled_shape(n, n_fft) for _, n, _ in mel_groups(n_mels, "bf16x3")]
+    sizes = [int(np.prod(shape)) for shape in shapes]
+    flat = torch.empty(sum(sizes), device=banks.device, dtype=torch.bfloat16)
+    lib = _library()
+    err = lib.eat_tile_banks(banks.data_ptr(), n_mels, flat.data_ptr(), flat.numel(),
+                             torch.cuda.current_stream(banks.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError("tile_banks launch failed: " + lib.eat_error_string(err).decode())
+    CALL_LAUNCHES["tile_banks"] += 1
+    return tuple(part.view(shape) for part, shape in zip(flat.split(sizes), shapes))
+
+
 @lru_cache(maxsize=16)
 def _serving_tiled_banks(n_mels: int, n_fft: int, sr: int, fmin: float,
                          fmax: float, device: str) -> tuple[torch.Tensor, ...]:
@@ -276,11 +319,12 @@ def tiled_serving_banks(cfg: MelConfig, device) -> tuple[torch.Tensor, ...]:
 
 def _block_rows(wave: torch.Tensor, cfg: MelConfig, n_frames: int,
                 folded: bool = True) -> torch.Tensor:
-    """The kernel's rows, frame i at ``hop * i``: the raw wave behind
+    """The probe's rows, frame i at ``hop * i``: the raw wave behind
     an ``n_fft // 2`` zero pad (folded), or the pre-emphasised wave with the
     reflect pad (the probe's unfolded variant). Zero-padded to hold every
     frame of the last ``BLOCK``-frame block, to a multiple of 64 samples
-    (16-byte aligned rows)."""
+    (16-byte aligned rows). K1 reads the caller's wave instead
+    (``_k1_rows``)."""
     pad = cfg.n_fft // 2
     if folded:
         src, lead = wave, pad
@@ -290,6 +334,33 @@ def _block_rows(wave: torch.Tensor, cfg: MelConfig, n_frames: int,
     need = max(cfg.hopsize * (sub_frames - 1) + cfg.n_fft, lead + src.shape[1])
     row_len = -(-need // 64) * 64
     return F.pad(src, (lead, row_len - lead - src.shape[1])).contiguous()
+
+
+def k1_window(n_samples: int, n_fft: int = 1024) -> tuple[int, int]:
+    """K1's frame window on a clip of ``n_samples``: (lead, max_start),
+    frame f read from ``clamp(hop * f - lead, 0, max_start)`` of the raw
+    wave. lead is the centring pad, ``n_fft // 2``; max_start the largest
+    multiple of 8 at or below ``n_samples - n_fft`` (16-byte aligned
+    frames). Exact for every frame the call keeps from K1: a frame that is
+    not an edge frame (``edge_frames``) has its window inside the clip, the
+    edge frames are ``mel_edges``', and frames past the clip are never
+    written."""
+    return n_fft // 2, (n_samples - n_fft) // 8 * 8
+
+
+def _k1_rows(wave: torch.Tensor) -> torch.Tensor:
+    """K1's (B, row_len) rows: the caller's wave itself where its rows are
+    16-byte aligned (S a multiple of 4, as every whole clip at 32 kHz and
+    ``bucket_pad_collate``'s batches are), else one copy into rows of S
+    rounded up to a multiple of 4, the at most 3 samples past S left unset:
+    ``k1_window`` reads none of them. (The JAX wrapper also pays a pad only
+    for odd lengths, mel_pallas.py:283-289.)"""
+    n_samples = wave.shape[1]
+    if n_samples % 4 == 0 and wave.data_ptr() % 16 == 0:
+        return wave
+    rows = wave.new_empty((wave.shape[0], -(-n_samples // 4) * 4))
+    rows[:, :n_samples] = wave
+    return rows
 
 
 def _edge_frames_logmel(wave: torch.Tensor, banks: torch.Tensor,
@@ -307,7 +378,8 @@ def _edge_frames_logmel(wave: torch.Tensor, banks: torch.Tensor,
 
 def _patch_edges(out: torch.Tensor, wave: torch.Tensor, banks: torch.Tensor,
                  cfg: MelConfig) -> torch.Tensor:
-    """Overwrite the reflect-pad edge frames of ``out`` (B, n_mels, frames)."""
+    """Overwrite the reflect-pad edge frames of ``out`` (B, n_mels, frames):
+    the plain version of ``mel_edges``."""
     n_frames = out.shape[2]
     left_f, right_f = edge_frames(n_frames, cfg.hopsize, cfg.n_fft,
                                   wave.shape[1] - 1)
@@ -318,6 +390,65 @@ def _patch_edges(out: torch.Tensor, wave: torch.Tensor, banks: torch.Tensor,
         out[:, :, :nl] = edge[:, :, :nl]
         if right_f:
             out[:, :, right_f[0]:right_f[-1] + 1] = edge[:, :, nl:]
+    return out
+
+
+# mel_edges' counts of a clip's finished blocks, by (device, stream): int32,
+# zero between launches (the clip's last block sets its count back), made
+# once and grown with the batch
+_EDGE_DONE = {}
+
+
+def _edge_done(device: torch.device, stream, batch: int) -> torch.Tensor:
+    """``mel_edges``' zeroed counts for ``batch`` clips on ``stream``: one
+    buffer a stream, so that launches in flight on two streams never share
+    a count."""
+    key = (device, stream.cuda_stream)
+    done = _EDGE_DONE.get(key)
+    if done is None or done.numel() < batch:
+        with torch.cuda.stream(stream):
+            done = _EDGE_DONE[key] = torch.zeros(max(batch, 256), dtype=torch.int32,
+                                                 device=device)
+    return done
+
+
+def mel_edges(out: torch.Tensor, wave: torch.Tensor, banks: torch.Tensor,
+              cfg: MelConfig) -> torch.Tensor:
+    """Overwrite the reflect-pad edge frames of ``out`` (B, n_mels, n_frames)
+    with their log-mel from the fp32 operands of the reference math, in
+    place, and return it: on a CUDA tensor one launch of the ``mel_edges``
+    kernel (any n_mels; its sums in fp64, each clip's bins in up to 8
+    blocks), on a CPU tensor ``_patch_edges``. ``wave`` is
+    the (B, S) raw wave, ``banks`` the (n_mels, n_fft // 2 + 1) fp32
+    banks."""
+    if out.device.type == "cpu":
+        return _patch_edges(out, wave, banks, cfg)
+    batch, n_samples = wave.shape
+    n_frames = out.shape[2]
+    if (cfg.n_fft != 1024 or n_samples < MIN_SAMPLES
+            or out.shape != (batch, banks.shape[0], n_frames)
+            or banks.shape[1] != cfg.n_freqs
+            or any(t.device != out.device or t.dtype != torch.float32
+                   or not t.is_contiguous() for t in (out, wave, banks))):
+        raise ValueError("mel_edges takes contiguous float32 out (B, n_mels, frames), "
+                         f"wave (B, S >= {MIN_SAMPLES}) and banks (n_mels, "
+                         f"{cfg.n_freqs}) on one device, n_fft 1024")
+    left_f, right_f = edge_frames(n_frames, cfg.hopsize, cfg.n_fft, n_samples - 1)
+    if not (left_f or right_f):
+        return out
+    basis = device_const(_dft_basis, (cfg.n_fft, cfg.win_length), str(out.device))
+    stream = torch.cuda.current_stream(out.device)
+    power = out.new_empty((batch, len(left_f) + len(right_f), cfg.n_freqs))
+    lib = _library()
+    err = lib.eat_mel_edges(wave.data_ptr(), batch, n_samples, cfg.hopsize, n_frames,
+                            len(left_f), right_f[0] if right_f else n_frames,
+                            basis.data_ptr(), banks.data_ptr(), banks.shape[0],
+                            out.data_ptr(), power.data_ptr(),
+                            _edge_done(out.device, stream, batch).data_ptr(),
+                            stream.cuda_stream)
+    if err != 0:
+        raise RuntimeError("mel_edges launch failed: " + lib.eat_error_string(err).decode())
+    CALL_LAUNCHES["mel_edges"] += 1
     return out
 
 
@@ -372,18 +503,20 @@ def stft_log_mel_plain(wave: torch.Tensor, banks: torch.Tensor, cfg: MelConfig,
 
 def stft_log_mel(wave: torch.Tensor, banks: torch.Tensor, cfg: MelConfig,
                  dft_precision: str = "fp32", *,
-                 tiled_banks: torch.Tensor | None = None) -> torch.Tensor:
+                 tiled_banks: tuple[torch.Tensor, ...] | None = None) -> torch.Tensor:
     """Raw waveform (B, S) f32 -> normalized log-mel (B, n_mels, n_frames).
 
-    On a CUDA tensor this launches K1's kernel for each of ``mel_groups``'
-    launches (a bank of more than ``MELS_A_LAUNCH`` mels takes one for each
-    group of as many) or raises, once for each slice of at most
-    ``MAX_ROWS`` clips; nothing falls back to another kernel. On a CPU
-    tensor it runs ``stft_log_mel_plain``. ``banks`` is the (n_mels,
-    n_fft//2+1) Kaldi bank; its zero Nyquist column is dropped inside.
-    ``dft_precision`` defaults to exact fp32, as ``stft_log_mel_pallas``'s
-    does. ``tiled_banks`` is ``_tiled_groups(banks)`` made beforehand (the
-    serving banks', ``tiled_serving_banks``); by default it is made here."""
+    On a CUDA tensor this launches only hand-written kernels, or raises:
+    ``tile_banks`` when ``tiled_banks`` is None, K1's kernel for each of
+    ``mel_groups``' launches (a bank of more than ``MELS_A_LAUNCH`` mels takes
+    one for each group of as many) on the caller's wave in place, once for
+    each slice of at most ``MAX_ROWS`` clips, then ``mel_edges``; nothing
+    falls back to another kernel. On a CPU tensor it runs
+    ``stft_log_mel_plain``. ``banks`` is the (n_mels, n_fft//2+1) Kaldi bank;
+    its zero Nyquist column is dropped inside. ``dft_precision`` defaults to
+    exact fp32, as ``stft_log_mel_pallas``'s does. ``tiled_banks`` is
+    ``_tiled_groups(banks)`` made beforehand (the serving banks',
+    ``tiled_serving_banks``)."""
     if wave.device.type == "cpu":
         return stft_log_mel_plain(wave, banks, cfg, dft_precision)
     _check_args(wave, banks, cfg, dft_precision)
@@ -392,18 +525,18 @@ def stft_log_mel(wave: torch.Tensor, banks: torch.Tensor, cfg: MelConfig,
     if wave.dtype != torch.float32 or not wave.is_contiguous():
         raise ValueError("K1 takes a contiguous float32 wave, got "
                          f"{wave.dtype}, contiguous={wave.is_contiguous()}")
-    if banks.device != wave.device or banks.dtype != torch.float32:
-        raise ValueError("banks must be float32 on the wave's device")
-    from efficientat_tpu_torch.ops._build import load_library
-
+    if (banks.device != wave.device or banks.dtype != torch.float32
+            or not banks.is_contiguous()):
+        raise ValueError("banks must be contiguous float32 on the wave's device")
     groups = mel_groups(cfg.n_mels, dft_precision)
     if tiled_banks is None:
-        tiled_banks = _tiled_groups(banks, cfg.n_fft)
+        tiled_banks = tile_banks(banks, cfg.n_fft)
     _check_tiled(tiled_banks, groups, cfg.n_fft, wave.device)
-    lib = _bind(load_library("mel_kernel"))
+    lib = _library()
     n_fft, hop = cfg.n_fft, cfg.hopsize
     batch, n_samples = wave.shape
     n_frames = cfg.num_frames(n_samples)
+    lead, max_start = k1_window(n_samples, n_fft)
     out = torch.empty((batch, cfg.n_mels, n_frames), device=wave.device,
                       dtype=torch.float32)
     stream = torch.cuda.current_stream(wave.device).cuda_stream
@@ -412,27 +545,27 @@ def stft_log_mel(wave: torch.Tensor, banks: torch.Tensor, cfg: MelConfig,
                           str(wave.device), torch.bfloat16).data_ptr()
              for p in range(parts)]
     basis += [None] * (3 - parts)  # bf16x3 reads no third part
-    x = _block_rows(wave, cfg, n_frames)
+    x = _k1_rows(wave)
     for start in range(0, batch, MAX_ROWS):
         rows = min(MAX_ROWS, batch - start)
         for (m0, n, route), tiled in zip(groups, tiled_banks):
             err = lib.eat_mel_log_wgmma(x[start].data_ptr(), rows, x.shape[1], hop,
-                                        n_frames, *basis, parts, tiled.data_ptr(), n,
-                                        out[start, m0].data_ptr(), cfg.n_mels, stream)
+                                        n_frames, lead, max_start, *basis, parts,
+                                        tiled.data_ptr(), n, out[start, m0].data_ptr(),
+                                        cfg.n_mels, stream)
             if err != 0:
                 raise RuntimeError(f"K1 launch failed ({ROUTE_KERNELS[route]}): "
                                    + lib.eat_error_string(err).decode())
             LAUNCHES[dft_precision] += 1
             ROUTE_LAUNCHES[route] += 1
-    return _patch_edges(out, wave, banks, cfg)
+    return mel_edges(out, wave, banks, cfg)
 
 
 def _check_tiled(tiled_banks, groups, n_fft: int, device) -> None:
     """Raise unless ``tiled_banks`` holds, for each launch of ``groups``, a
     contiguous bfloat16 tensor on ``device`` of ``_tiled_banks``' shape at
     its instantiation's width."""
-    want = [(n_fft // 64, launch_mels(n) // WGMMA_MAX_MELS * MEL_SPLIT, 2,
-             WGMMA_MAX_MELS // 8, 2, 8, 8) for _, n, _ in groups]
+    want = [_tiled_shape(n, n_fft) for _, n, _ in groups]
     if (not isinstance(tiled_banks, tuple) or len(tiled_banks) != len(want)
             or any(t.shape != w or t.dtype != torch.bfloat16 or t.device != device
                    or not t.is_contiguous() for t, w in zip(tiled_banks, want))):
@@ -465,10 +598,25 @@ def stft_log_mel_sharded(wave_local: torch.Tensor, banks: torch.Tensor,
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.eat_mel_log_wgmma.argtypes = [p, i, i, i, i, p, p, p, i, p, i, p, i, p]
-    lib.eat_mel_log_wgmma.restype = i
+    lib.eat_mel_log_wgmma.argtypes = [p, i, i, i, i, i, i, p, p, p, i, p, i, p, i, p]
+    lib.eat_mel_edges.argtypes = [p, i, i, i, i, i, i, p, p, i, p, p, p, p]
+    lib.eat_tile_banks.argtypes = [p, i, p, ctypes.c_longlong, p]
     lib.eat_error_string.argtypes = [i]
     lib.eat_error_string.restype = ctypes.c_char_p
+    for fn in (lib.eat_mel_log_wgmma, lib.eat_mel_edges, lib.eat_tile_banks):
+        fn.restype = i
+    return lib
+
+
+def _library() -> ctypes.CDLL:
+    """K1's library (``csrc/mel_kernel.cu``), built at first use, each
+    library object bound once (a variant put in ``_build._LIBS`` is bound
+    at its first call)."""
+    from efficientat_tpu_torch.ops._build import load_library
+
+    lib = load_library("mel_kernel")
+    if not getattr(lib, "eat_bound", False):
+        _bind(lib).eat_bound = True
     return lib
 
 

@@ -200,10 +200,12 @@ def _edge_power(x_raw: torch.Tensor, n_fft: int, hop: int, win_length: int,
 
 
 def edge_frames(n_frames: int, hop: int, n_fft: int, len_xe: int):
-    """Frames whose window reaches into the reflect pad, left and right."""
+    """Frames whose window reaches into the reflect pad, left and right:
+    the f of ``range(n_frames)`` with ``f * hop < n_fft // 2``, and those with
+    ``f * hop + n_fft // 2 > len_xe``, in closed form."""
     pad = n_fft // 2
-    left_f = [f for f in range(n_frames) if f * hop < pad]
-    right_f = [f for f in range(n_frames) if f * hop + pad > len_xe]
+    left_f = list(range(min(n_frames, -(-pad // hop))))
+    right_f = list(range(max(0, (len_xe - pad) // hop + 1), n_frames))
     return left_f, right_f
 
 

@@ -19,13 +19,17 @@ prints one JSON line: ``variant``; ``ms``, the median of CUDA events over
 its calls after a warm-up (null on the CPU, where nothing is timed);
 ``max_vs_ref``; ``launches``, its kernel's launches during its run (0 on the
 CPU, which runs the plain versions); and for ``current`` ``kernel``, the
-kernel K1's route launches (``mel_kernel.ROUTE_KERNELS``). ``--device cpu`` with a small
-``--batch`` and ``--seconds`` checks the wiring without a card.
+kernel K1's route launches (``mel_kernel.ROUTE_KERNELS``); and ``sha256``,
+the first 16 hex digits of the SHA-256 of the variant's output bytes: two
+checkouts run on one card give the same digest where their kernels write
+the same bits. ``--device cpu`` with a small ``--batch`` and
+``--seconds`` checks the wiring without a card.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import statistics
 
@@ -132,11 +136,12 @@ def run(group: str = "all", device="cuda", batch: int = BATCH,
         before = launches()
         got = mel(waves, banks, cfg)
         err = float((got - ref).abs().max())
+        sha = hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest()[:16]
         del got
         ms = (median_ms(lambda: mel(waves, banks, cfg))
               if device.type == "cuda" else None)
         records.append({"variant": name, "ms": ms, "max_vs_ref": err,
-                        "launches": launches() - before})
+                        "launches": launches() - before, "sha256": sha})
         if name == "current":
             records[-1]["kernel"] = mel_kernel.ROUTE_KERNELS[
                 mel_kernel.k1_route(cfg, "bf16x3")]

@@ -15,7 +15,15 @@ Tagger's (``tiled_serving_banks``). One JSON line each, naming the kernel
 of the call's first launch (``mel_kernel.k1_route``; a bank over 256 mels
 takes a launch for each group of 256, ``mel_groups``), and the kernels
 alone (``kernel_alone_ms``: their device time a serving call in
-``torch.profiler``, over 5 calls). First a line with K1's ptxas registers
+``torch.profiler``, over 5 calls), and what a serving call and a call that
+tiles its banks launch on the card (``serving_kernels``,
+``kernel_kernels``: the device events of one call by kernel) and their
+device time by kernel (``serving_device_ms``, ``kernel_device_ms``, with
+the call's ``total``). After each bank's records, one for the edge
+kernel at that batch and bank (``time_edges``): ``mel_edges`` and its plain
+version, ``_patch_edges``, their device times and their largest gaps to
+each other and to the float64 value of their function (``edge_oracle``).
+First a line with K1's ptxas registers
 and spills, when this process built it, and last the card's name and power
 limit as ``nvidia-smi`` gives them. It uses only K1's public entry points,
 so one copy of it times two checkouts of the package in one run; in a
@@ -31,17 +39,23 @@ found exactly once in one of its files, reads NEW (say, another ring depth).
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
+import functools
 import hashlib
 import json
+import operator
 import shutil
+import statistics
 import subprocess
 
 import torch
 
 from efficientat_tpu_torch.ops import _build, mel_kernel
 from efficientat_tpu_torch.ops.filterbank import kaldi_mel_banks
+from efficientat_tpu_torch.ops.melspec import _dft_basis, device_const, edge_frames
 from efficientat_tpu_torch.tools.probe_mel_kernel import inputs, median_ms
+from efficientat_tpu_torch.utils.profiling import PRIMER_KERNELS
 
 
 def time_k1(batch: int, n_mels: int, precision: str, turns: int) -> dict:
@@ -67,7 +81,126 @@ def time_k1(batch: int, n_mels: int, precision: str, turns: int) -> dict:
     return {"precision": precision, "batch": batch, "n_mels": n_mels,
             "kernel": mel_kernel.ROUTE_KERNELS[route], "max_abs": err,
             "kernel_ms": runs["kernel"], "serving_ms": runs["serving"],
-            "plain_ms": runs["plain"], "kernel_alone_ms": kernel_alone_ms(calls["serving"])}
+            "plain_ms": runs["plain"], "kernel_alone_ms": kernel_alone_ms(calls["serving"]),
+            "serving_kernels": call_kernels(calls["serving"]),
+            "kernel_kernels": call_kernels(calls["kernel"]),
+            "serving_device_ms": call_device_ms(calls["serving"]),
+            "kernel_device_ms": call_device_ms(calls["kernel"])}
+
+
+# the hand-written kernels a K1 call may launch, as their device events
+# name them
+CALL_KERNEL_NAMES = ("mel_kernel_wgmma", "mel_edges", "tile_banks")
+
+
+def _call_events(fn, repeats: int):
+    """The device events of one call of ``fn`` in ``repeats`` profiles that
+    hold all of them: a list a profile of (kernel, ms), each event named by
+    the first of ``CALL_KERNEL_NAMES`` its name holds, else ``"other:"``
+    and its name (a copy, a fill, a PyTorch kernel; the profiler's own step
+    range is left out). Each profile starts with a warm-up step of
+    PRIMER_KERNELS small kernels, whose records it discards
+    (``utils/profiling.trace``). A profile can still drop some of the
+    call's records (on one H100, two of three profiles of a K1 call have
+    lacked its ``mel_edges`` event), so profiles are taken until
+    ``repeats`` of them hold, of each name, the most events any profile
+    saw, or until ``4 * repeats`` were taken; those that hold them all are
+    returned."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    fn()
+    torch.cuda.synchronize()
+    primer = torch.zeros(1, device="cuda")
+    runs = []
+
+    def whole():
+        counts = [collections.Counter(name for name, _ in run) for run in runs]
+        most = functools.reduce(operator.or_, counts, collections.Counter())
+        return [run for run, count in zip(runs, counts) if count == most]
+
+    while len(runs) < 4 * repeats and len(whole()) < repeats:
+        events = []
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda prof: events.extend(
+                         e for e in prof.events() if e.device_type == DeviceType.CUDA)) as prof:
+            for _ in range(PRIMER_KERNELS):
+                primer.fill_(0.0)
+            torch.cuda.synchronize()
+            prof.step()
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+        runs.append([(next((k for k in CALL_KERNEL_NAMES if k in e.name), "other:" + e.name[:60]),
+                      (e.time_range.end - e.time_range.start) / 1e3)
+                     for e in events if not e.name.startswith("ProfilerStep")])
+    if not whole():
+        raise RuntimeError(f"no profile of {4 * repeats} held every device event of the call")
+    return whole()
+
+
+def call_kernels(fn, repeats: int = 3) -> dict:
+    """What one call of ``fn`` runs on the card: {kernel: device events},
+    from the profiles that hold them all (``_call_events``)."""
+    return dict(collections.Counter(name for name, _ in _call_events(fn, repeats)[0]))
+
+
+def call_device_ms(fn, repeats: int = 3) -> dict:
+    """The device time of one call of ``fn`` by kernel, {kernel: ms}, and
+    ``"total"``, the call's: each the median over the profiles that hold
+    every event of the call (``_call_events``) of that profile's sum."""
+    runs = []
+    for run in _call_events(fn, repeats):
+        ms = collections.defaultdict(float)
+        for name, t in run:
+            ms[name] += t
+        runs.append(ms)
+    return {**{name: statistics.median(ms[name] for ms in runs) for name in runs[0]},
+            "total": statistics.median(sum(ms.values()) for ms in runs)}
+
+
+def edge_oracle(wave, banks, cfg):
+    """The edge frames' log-mel (B, n_mels, edge frames) in float64 on the
+    wave's device, from the fp32 operands ``mel_edges`` takes: the
+    pre-emphasised wave at the reflected index in fp32 (two roundings), the
+    fp32 basis and banks, the power rounded to fp32, then float64."""
+    n_samples = wave.shape[1]
+    left, right = edge_frames(cfg.num_frames(n_samples), cfg.hopsize, cfg.n_fft,
+                              n_samples - 1)
+    t = (cfg.hopsize * torch.tensor(left + right, device=wave.device)[:, None]
+         - cfg.n_fft // 2 + torch.arange(cfg.n_fft, device=wave.device)).abs()
+    t = torch.where(t > n_samples - 2, 2 * (n_samples - 2) - t, t)
+    xe = wave[:, t + 1] - 0.97 * wave[:, t]
+    proj = xe.double() @ device_const(_dft_basis, (cfg.n_fft, cfg.win_length),
+                                      str(wave.device)).double()
+    power = (proj[..., :cfg.n_freqs] ** 2 + proj[..., cfg.n_freqs:] ** 2).float().double()
+    return ((torch.log(power @ banks.double().t() + 1e-5) + 4.5) / 5).transpose(1, 2)
+
+
+def time_edges(batch: int, n_mels: int) -> dict:
+    """One record: ``mel_edges`` against ``_patch_edges`` on the inputs of
+    ``time_k1``: the device time of each (``call_device_ms``: the kernel's
+    event, the plain version's whole call) and the largest gaps over the
+    edge frames, to each other and to ``edge_oracle``."""
+    waves, _, cfg = inputs(torch.device("cuda"), batch)
+    cfg = dataclasses.replace(cfg, n_mels=n_mels)
+    banks = kaldi_mel_banks(n_mels, cfg.n_fft, cfg.sr, 0.0, 15000.0, device="cuda")
+    n_frames = cfg.num_frames(waves.shape[1])
+    left, right = edge_frames(n_frames, cfg.hopsize, cfg.n_fft, waves.shape[1] - 1)
+    out = torch.zeros(batch, n_mels, n_frames, device="cuda")
+    got = mel_kernel.mel_edges(out.clone(), waves, banks, cfg)[:, :, left + right].double()
+    plain = mel_kernel._patch_edges(out.clone(), waves, banks, cfg)[:, :, left + right].double()
+    oracle = edge_oracle(waves, banks, cfg)
+    return {"edges": "mel_edges", "batch": batch, "n_mels": n_mels,
+            "edge_frames": len(left + right),
+            "ms": call_device_ms(lambda: mel_kernel.mel_edges(out, waves, banks, cfg))[
+                "mel_edges"],
+            "plain_device_ms": call_device_ms(
+                lambda: mel_kernel._patch_edges(out, waves, banks, cfg))["total"],
+            "vs_plain": float((got - plain).abs().max()),
+            "vs_f64": float((got - oracle).abs().max()),
+            "plain_vs_f64": float((plain - oracle).abs().max())}
 
 
 def kernel_alone_ms(fn, calls: int = 5):
@@ -134,6 +267,8 @@ def main(argv=None):
             for precision in args.precision:
                 print(json.dumps(time_k1(batch, n_mels, precision, args.turns)),
                       flush=True)
+            if hasattr(mel_kernel, "mel_edges"):  # a checkout with the edge kernel
+                print(json.dumps(time_edges(batch, n_mels)), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)

@@ -806,20 +806,25 @@ def test_wgmma_route_raises_on_wrong_input_on_card():
     # the entry refuses what it does not take, and the wrapper would raise
     # on its code: no batch, a hop that is not a multiple of 64, parts
     # other than 2 (bf16x3) and 3 (fp32), more than 256 mels, an output of
-    # fewer mel rows than the launch writes
+    # fewer mel rows than the launch writes, a window start (lead, max_start)
+    # that is not a multiple of 8 or a window that leaves the row
     lib = mel_kernel._bind(load_library("mel_kernel"))
-    rows = mel_kernel._block_rows(wave, cfg, 101)
+    lead, last = mel_kernel.k1_window(wave.shape[1])
     out = torch.empty((2, 300, 101), device="cuda")
     wide = mel_kernel._tiled_banks(banks, cfg.n_fft, 256)
     basis = [device_const(mel_kernel._tiled_basis, (1024, 800, True, p), "cuda",
                           torch.bfloat16).data_ptr() for p in (0, 1, 2)]
-    for batch, hop, parts, n_mels, out_mels in (
-            (0, 320, 2, 128, 128), (2, 330, 2, 128, 128), (0, 320, 3, 128, 128),
-            (2, 330, 3, 128, 128), (2, 320, 4, 128, 128), (2, 320, 2, 257, 300),
-            (2, 320, 3, 257, 300), (2, 320, 2, 200, 199), (2, 320, 3, 128, 127),
-            (2, 320, 2, 0, 128)):
-        assert lib.eat_mel_log_wgmma(rows.data_ptr(), batch, rows.shape[1], hop, 101,
-                                     *basis, parts, wide.data_ptr(), n_mels,
+    for batch, hop, parts, n_mels, out_mels, window in (
+            (0, 320, 2, 128, 128, (lead, last)), (2, 330, 2, 128, 128, (lead, last)),
+            (0, 320, 3, 128, 128, (lead, last)), (2, 330, 3, 128, 128, (lead, last)),
+            (2, 320, 4, 128, 128, (lead, last)), (2, 320, 2, 257, 300, (lead, last)),
+            (2, 320, 3, 257, 300, (lead, last)), (2, 320, 2, 200, 199, (lead, last)),
+            (2, 320, 3, 128, 127, (lead, last)), (2, 320, 2, 0, 128, (lead, last)),
+            (2, 320, 2, 128, 128, (lead + 4, last)), (2, 320, 2, 128, 128, (-8, last)),
+            (2, 320, 3, 128, 128, (lead, last + 4)), (2, 320, 2, 128, 128, (lead, last + 8)),
+            (2, 320, 2, 128, 128, (lead, -8))):
+        assert lib.eat_mel_log_wgmma(wave.data_ptr(), batch, wave.shape[1], hop, 101,
+                                     *window, *basis, parts, wide.data_ptr(), n_mels,
                                      out.data_ptr(), out_mels,
                                      torch.cuda.current_stream().cuda_stream) != 0
 
