@@ -1,0 +1,1 @@
+"""Benchmark of efficientat_tpu_torch on one NVIDIA H100 (see README.md)."""
