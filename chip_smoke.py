@@ -240,6 +240,7 @@ from efficientat_tpu_torch.train.loop import (  # noqa: E402
     task_loss,
     train_step,
 )
+from efficientat_tpu_torch.utils import profiling  # noqa: E402
 
 SR = 32000
 CLIP = 10 * SR
@@ -436,11 +437,22 @@ def k1_instance(line):
 
 
 def reset_k1_launches():
-    """Set K1's launch counts, by precision and by route, and those of the
-    call's other kernels (``mel_edges``, ``tile_banks``) to 0."""
-    mel_kernel.LAUNCHES.update(dict.fromkeys(mel_kernel.LAUNCHES, 0))
-    mel_kernel.ROUTE_LAUNCHES.update(dict.fromkeys(mel_kernel.ROUTE_LAUNCHES, 0))
-    mel_kernel.CALL_LAUNCHES.update(dict.fromkeys(mel_kernel.CALL_LAUNCHES, 0))
+    """Set K1's launch counts (``k1.launch.<route>``) and those of the
+    call's other kernels (``k1.launch.mel_edges``, ``.tile_banks``) to 0."""
+    profiling.reset_counters("k1.launch.")
+
+
+def route_launches() -> dict:
+    """K1's launches by route since ``reset_k1_launches``."""
+    return {route: profiling.counter(f"k1.launch.{route}")
+            for route in mel_kernel.ROUTE_KERNELS}
+
+
+def call_launches() -> dict:
+    """The launches of ``mel_edges`` and ``tile_banks`` since
+    ``reset_k1_launches``."""
+    return {name: profiling.counter(f"k1.launch.{name}")
+            for name in mel_kernel.CALL_KERNELS}
 
 
 def k1_wgmma_launches(prec="bf16x3"):
@@ -449,9 +461,9 @@ def k1_wgmma_launches(prec="bf16x3"):
     "wgmma_fp32": ``mel_kernel.k1_route`` sends it a bank of at most 128
     mels, every path's but phase 18's 256-mel one)."""
     route = mel_kernel.WGMMA_ROUTES[prec]
-    launches = mel_kernel.ROUTE_LAUNCHES[route]
-    check(launches == mel_kernel.LAUNCHES[prec],
-          f"K1 {prec} took another route than {route}: {mel_kernel.ROUTE_LAUNCHES}")
+    launches = profiling.counter(f"k1.launch.{route}")
+    check(launches == mel_kernel.k1_launches(prec),
+          f"K1 {prec} took another route than {route}: {route_launches()}")
     return launches
 
 
@@ -706,9 +718,9 @@ def phase_train_k1(device, card):
         got = mel_kernel.log_mel_spectrogram_fused(
             waves, cfg, training=True, draws=draws, dft_precision=prec)
         torch.cuda.synchronize()
-        launched = mel_kernel.LAUNCHES[prec]
+        launched = mel_kernel.k1_launches(prec)
         route = mel_kernel.k1_route(cfg, prec)
-        check(mel_kernel.ROUTE_LAUNCHES[route] == launched,
+        check(profiling.counter(f"k1.launch.{route}") == launched,
               f"training-mode K1 {prec} did not take route {route}")
         want = apply_masks(mel_kernel.stft_log_mel_plain(waves, banks, cfg, prec),
                            cfg, draws, 0.9)
@@ -772,7 +784,7 @@ def phase_train(device, name="mn10_as", flags=((), ("--bf16",)), tag="train",
         seconds = time.perf_counter() - t0
         launches = k1_wgmma_launches()
         total += launches
-        call = dict(mel_kernel.CALL_LAUNCHES)
+        call = call_launches()
         for kernel, n in call.items():
             call_total[kernel] += n
         rec = result.history[-1]
@@ -1420,10 +1432,10 @@ def phase_probe(device, card):
             "bound_ms": bound, "bound_by": bound_by, "replaces": replaces}
 
     # the path: the probe's entry point, every variant of every group
-    mel_probe.LAUNCHES_P1 = mel_probe.LAUNCHES_P2 = mel_probe.LAUNCHES_P3 = 0
+    profiling.reset_counters("probe.launch.")
     records = probe_mel_kernel.run("all", device)
-    launches = {"P1": mel_probe.LAUNCHES_P1, "P2": mel_probe.LAUNCHES_P2,
-                "P3": mel_probe.LAUNCHES_P3}
+    launches = {p: profiling.counter(f"probe.launch.{p.lower()}")
+                for p in ("P1", "P2", "P3")}
     for rec in records:
         phase("probe_run", **rec)
         # the 2-pass variants are held to the oracle above, on the selftest
@@ -2692,7 +2704,7 @@ def main():
     wd = torch.from_numpy(waves).to(device)
     imp = torch.from_numpy(impulse_waves()).to(device)
     reset_k1_launches()
-    calls = dict.fromkeys(mel_kernel.ROUTE_LAUNCHES, 0)  # launches by route
+    calls = dict.fromkeys(mel_kernel.ROUTE_KERNELS, 0)  # launches by route
 
     def k1_call(w, banks, cfg, prec):
         for _, _, route in mel_kernel.mel_groups(cfg.n_mels, prec):
@@ -2823,11 +2835,10 @@ def main():
                       bound_plain=TOL_KERNEL_VS_PLAIN[prec])
                 check(dev_plain <= TOL_KERNEL_VS_PLAIN[prec],
                       f"K1 {prec} vs plain at {n_mels} mels, hop {hop}")
-    phase("k1_routes", launches=json.dumps(mel_kernel.ROUTE_LAUNCHES))
-    check(mel_kernel.ROUTE_LAUNCHES == calls
-          and sum(mel_kernel.LAUNCHES.values()) == sum(calls.values()),
+    phase("k1_routes", launches=json.dumps(route_launches()))
+    check(route_launches() == calls,
           f"phase 3's launches did not all take the route mel_groups gives them: "
-          f"{mel_kernel.ROUTE_LAUNCHES}, {mel_kernel.LAUNCHES}, expected {calls}")
+          f"{route_launches()}, expected {calls}")
     del imp
 
     lap("3 K1 selftest")
@@ -2840,7 +2851,7 @@ def main():
     reset_k1_launches()
     probs = {name: tagger.predict(w) for name, w in coded.items()}
     launches = k1_wgmma_launches()
-    tag_call = dict(mel_kernel.CALL_LAUNCHES)
+    tag_call = call_launches()
     phase("slice", model="mn10_as", batch=BATCH, seconds=CLIP // SR,
           k1_launches=launches, call_launches=json.dumps(tag_call))
     check(launches >= len(coded), "the main path did not launch K1")
@@ -3009,11 +3020,11 @@ def main():
         reset_k1_launches()
         probs = tagger.predict(batch)
         route = mel_kernel.k1_route(tagger.mel_cfg, prec)
-        mels_256[prec] = mel_kernel.ROUTE_LAUNCHES[route]
+        mels_256[prec] = profiling.counter(f"k1.launch.{route}")
         check(route == mel_kernel.WIDE_ROUTES[prec]
-              and mel_kernel.LAUNCHES[prec] == mels_256[prec],
+              and mel_kernel.k1_launches(prec) == mels_256[prec],
               f"the 256-mel Tagger's K1 {prec} took route {route}: "
-              f"{mel_kernel.ROUTE_LAUNCHES}")
+              f"{route_launches()}")
         check(bool(np.isfinite(probs).all()), "mn10_as_mels_256 probs")
         k_ms, plain_ms, err = times[prec, tagger.mel_cfg.n_mels]
         kernels.append(k1_row(prec, "tag_mels_256" + ("_fp32" if prec == "fp32" else ""),

@@ -11,7 +11,8 @@
 - ``evaluate <task>``: evaluate weights on a task's eval split;
 - ``complexity``: MACs and parameters, or analytic peak memory, of a
   registry model (upstream complexity.py), or a transformer's MACs;
-- ``profile``: a ``torch.profiler`` trace of ``Tagger.predict``;
+- ``profile``: a ``torch.profiler`` trace of ``Tagger.predict`` with its
+  spans, then the device's busy share and its idle time by span;
 - ``receptive-field``: the analytic receptive field (upstream
   receptive_field_cnn.py);
 - ``convert-dataset``: a reference mp3-HDF5 to an int16 PCM HDF5.
@@ -141,17 +142,30 @@ def _run_profile(args):
     import numpy as np
 
     from efficientat_tpu_torch.infer.tag import Tagger
-    from efficientat_tpu_torch.utils.profiling import trace
+    from efficientat_tpu_torch.utils.profiling import idle_by_span, set_spans, take_spans, trace
 
     tagger = Tagger(args.model_name, pretrained=False, device=args.device)
     sr = tagger.mel_cfg.sr
     waves = np.random.default_rng(0).normal(
         size=(args.batch_size, int(args.clip_seconds * sr))).astype(np.float32) * 0.1
     tagger.predict(waves)  # the first call's set-up stays outside the trace
-    with trace(args.log_dir):
-        for _ in range(args.iters):
-            tagger.predict(waves)
+    with trace(args.log_dir) as path:
+        set_spans(True)
+        try:
+            for _ in range(args.iters):
+                tagger.predict(waves)
+        finally:
+            set_spans(False)
+            take_spans()  # the trace holds them
     print(f"trace written to {args.log_dir} (view with TensorBoard/Perfetto)")
+    idle = idle_by_span(path)
+    if idle["busy_pct"] is None:
+        print("no device rows in the trace")
+        return
+    print(f"device busy {idle['busy_pct']:.1f} % of {idle['window_ms']:.3f} ms "
+          f"({args.iters} predicts)")
+    print("device idle by span (ms): " + ", ".join(
+        f"{name} {ms:.3f}" for name, ms in idle["idle_ms"]))
 
 
 def _add_rf(sub):

@@ -1,11 +1,14 @@
 """Single-clip audio tagging (port of efficientat_tpu/infer/tag.py;
 reference surface: upstream inference.py:15-63).
 
-One ``predict`` call: the batch goes to the device through a pinned host
-buffer, is decoded there (f32 / int16 / mu-law uint8), turned into log-mels
-by ``log_mel_spectrogram_fused`` (K1 on CUDA), run through every member
-(a DyMN at its ``cfg.t_max``, the final temperature of its training), and
-the members' logits are averaged in fp32 before the sigmoid. The whole
+One ``predict`` call (span ``tag.predict``): the batch is staged in a
+pinned host buffer (``tag.stage``), copied to the device (``tag.h2d``),
+decoded there (``tag.decode``) (f32 / int16 / mu-law uint8), turned into log-mels
+by ``log_mel_spectrogram_fused`` (K1 on CUDA; ``tag.mel``), run through
+every member (a DyMN at its ``cfg.t_max``, the final temperature of its
+training; ``tag.members``, timed on the device too), the members' logits
+are averaged in fp32 before the sigmoid (``tag.sigmoid``), and the probs
+are read back, where the host waits for the device (``tag.readback``). The whole
 batch runs at once: the JAX Tagger's DyMN micro-batching is a TPU
 workaround.
 
@@ -44,12 +47,23 @@ from efficientat_tpu_torch.parallel.ensemble import (
 )
 from efficientat_tpu_torch.parallel.mesh import Mesh
 from efficientat_tpu_torch.utils.labels import AUDIOSET_LABELS
+from efficientat_tpu_torch.utils.profiling import count, span
 
 
 def _serving_args(model: nn.Module) -> tuple:
     """A served member's forward arguments after the mel: a DyMN runs at its
     ``cfg.t_max``, the final temperature of its training."""
     return (model.cfg.t_max,) if isinstance(model, DyMN) else ()
+
+
+def _host_batch(waves) -> np.ndarray:
+    """The caller's batch as a contiguous (B, num_samples) array of its
+    transport dtype: int16 and uint8 as they are, anything else float32. No
+    copy when the batch already is one: a copy of a B=64 float32 batch costs
+    more than its H2D transfer."""
+    waves = np.atleast_2d(np.asarray(waves))
+    dtype = waves.dtype if waves.dtype in (np.int16, np.uint8) else np.float32
+    return np.ascontiguousarray(waves, dtype=dtype)
 
 
 def _member_logits(model: nn.Module, mel: torch.Tensor) -> torch.Tensor:
@@ -139,40 +153,49 @@ class Tagger:
         self.members = members
         self._pinned: Optional[torch.Tensor] = None  # last batch's host buffer
 
-    def _to_device(self, waves: np.ndarray) -> torch.Tensor:
+    def _stage(self, waves: np.ndarray) -> torch.Tensor:
+        """The batch in host memory, ready for its copy to the device: on
+        CUDA the pinned buffer, allocated anew (``tag.pin_alloc``) only when
+        the batch's shape or dtype changes."""
         if self.device.type != "cuda":
-            return torch.from_numpy(waves).to(self.device)
+            return torch.from_numpy(waves)
         buf = self._pinned
         if buf is None or buf.shape != waves.shape or buf.numpy().dtype != waves.dtype:
+            count("tag.pin_alloc")
             buf = self._pinned = torch.from_numpy(waves).pin_memory()
         else:
             # the previous copy out of this buffer finished: predict ends by
             # reading its result back, which waits for the device
             buf.numpy()[...] = waves
-        return buf.to(self.device, non_blocking=True)
+        return buf
 
     def predict(self, waves: np.ndarray) -> np.ndarray:
         """waves (B, num_samples) at mel_cfg.sr, float32, int16 PCM or mu-law
         uint8 -> probs (B, classes) float32. Under a mesh every rank passes
         the same whole batch and gets the same probs."""
-        waves = np.atleast_2d(np.asarray(waves))
-        # no copy when the caller's batch already has the transport dtype:
-        # a copy of a B=64 float32 batch costs more than its H2D transfer
-        dtype = waves.dtype if waves.dtype in (np.int16, np.uint8) else np.float32
-        waves = np.ascontiguousarray(waves, dtype=dtype)
-        if self._stacked is not None:
-            return self._predict_member_parallel(waves)
-        with torch.inference_mode():
-            x = decode(self._to_device(waves))
-            mel = log_mel_spectrogram_fused(x, self.mel_cfg,
-                                            dft_precision=self.dft_precision)
-            mel = mel[:, None]  # (B, 1, n_mels, frames)
-            with torch.autocast(self.device.type, dtype=self.dtype,
-                                enabled=self.dtype != torch.float32):
-                logits = [_member_logits(model, mel) for model in self.members]
-            logits = sum(lg.float() for lg in logits)
-            probs = torch.sigmoid(logits / len(self.members))
-            return probs.cpu().numpy()
+        with span("tag.predict"):
+            if self._stacked is not None:
+                return self._predict_member_parallel(waves)
+            with span("tag.stage"):
+                host = self._stage(_host_batch(waves))
+            with torch.inference_mode():
+                with span("tag.h2d"):
+                    x = host.to(self.device, non_blocking=True)
+                with span("tag.decode"):
+                    x = decode(x)
+                with span("tag.mel"):
+                    mel = log_mel_spectrogram_fused(x, self.mel_cfg,
+                                                    dft_precision=self.dft_precision)
+                    mel = mel[:, None]  # (B, 1, n_mels, frames)
+                with span("tag.members", device=True), torch.autocast(
+                        self.device.type, dtype=self.dtype,
+                        enabled=self.dtype != torch.float32):
+                    logits = [_member_logits(model, mel) for model in self.members]
+                with span("tag.sigmoid"):
+                    logits = sum(lg.float() for lg in logits)
+                    probs = torch.sigmoid(logits / len(self.members))
+                with span("tag.readback"):
+                    return probs.cpu().numpy()
 
     def _predict_member_parallel(self, waves: np.ndarray) -> np.ndarray:
         """The batch padded to a multiple of the data axis with the
@@ -182,31 +205,42 @@ class Tagger:
         sigmoid, and the rows of every data index put together by an
         all-reduce of a zero-filled (padded batch, classes) buffer over the
         data group (gloo reduces CUDA tensors but gathers none); the pad is
-        sliced off."""
+        sliced off. The spans of ``predict``, and ``tag.all_reduce``."""
         mesh = self.mesh
-        n, n_data = waves.shape[0], mesh.shape["data"]
-        pad = (-n) % n_data
-        if pad:
-            silence = 128 if waves.dtype == np.uint8 else 0
-            waves = np.concatenate(
-                [waves, np.full((pad,) + waves.shape[1:], silence, waves.dtype)])
-        rows = waves.shape[0] // n_data
-        start = mesh.data_index * rows
+        with span("tag.stage"):
+            waves = _host_batch(waves)
+            n, n_data = waves.shape[0], mesh.shape["data"]
+            pad = (-n) % n_data
+            if pad:
+                silence = 128 if waves.dtype == np.uint8 else 0
+                waves = np.concatenate(
+                    [waves, np.full((pad,) + waves.shape[1:], silence, waves.dtype)])
+            rows = waves.shape[0] // n_data
+            start = mesh.data_index * rows
+            host = self._stage(waves[start:start + rows])
         with torch.inference_mode():
-            x = decode(self._to_device(waves[start:start + rows]))
-            mel = log_mel_spectrogram_fused(x, self.mel_cfg,
-                                            dft_precision=self.dft_precision,
-                                            sharded=mesh.world > 1)[:, None]
-            with torch.autocast(self.device.type, dtype=self.dtype,
-                                enabled=self.dtype != torch.float32):
+            with span("tag.h2d"):
+                x = host.to(self.device, non_blocking=True)
+            with span("tag.decode"):
+                x = decode(x)
+            with span("tag.mel"):
+                mel = log_mel_spectrogram_fused(x, self.mel_cfg,
+                                                dft_precision=self.dft_precision,
+                                                sharded=mesh.world > 1)[:, None]
+            with span("tag.members", device=True), torch.autocast(
+                    self.device.type, dtype=self.dtype,
+                    enabled=self.dtype != torch.float32):
                 logits = self._ensemble(self._stacked, mel)
-            probs = torch.sigmoid(logits)
+            with span("tag.sigmoid"):
+                probs = torch.sigmoid(logits)
             if n_data > 1:
-                every = probs.new_zeros((waves.shape[0], probs.shape[1]))
-                every[start:start + rows] = probs
-                dist.all_reduce(every, group=mesh.data_group)
-                probs = every
-            return probs[:n].cpu().numpy()
+                with span("tag.all_reduce"):
+                    every = probs.new_zeros((waves.shape[0], probs.shape[1]))
+                    every[start:start + rows] = probs
+                    dist.all_reduce(every, group=mesh.data_group)
+                    probs = every
+            with span("tag.readback"):
+                return probs[:n].cpu().numpy()
 
     def tag(self, path: str, top_k: int = 10) -> List[Tuple[str, float]]:
         """Decode an audio file and return the top-k (label, prob) pairs."""

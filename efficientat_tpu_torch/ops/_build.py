@@ -5,7 +5,10 @@ by ``nvcc`` into its own shared library, loaded with ``ctypes``: no PyTorch
 headers, so a build takes seconds. Libraries go to ``build/efficientat_tpu_torch/``
 beside the package and are named by a hash of the source, every header of
 ``csrc/`` (``*.cuh``, which a source may include) and the flags, so a changed
-source or header rebuilds. Nothing here runs at import time.
+source or header rebuilds. Nothing here runs at import time. Each library
+compiled counts ``build.nvcc.<name>`` and each loaded ``build.load.<name>``
+(``utils/profiling.COUNTERS``), so a run tells a warm start from one that
+compiled.
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+from efficientat_tpu_torch.utils.profiling import count
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "efficientat_tpu_torch"
@@ -73,6 +78,7 @@ def load_libraries(names) -> dict:
                     raise RuntimeError(f"nvcc failed for {CSRC / name}.cu:\n{err}")
                 BUILD_LOG[name] = err
                 os.replace(tmp, _lib_path(name))
+                count(f"build.nvcc.{name}")
         finally:
             for _, proc in builds.values():
                 if proc.poll() is None:
@@ -81,4 +87,5 @@ def load_libraries(names) -> dict:
         for name in names:
             if name not in _LIBS:
                 _LIBS[name] = ctypes.CDLL(str(_lib_path(name)))
+                count(f"build.load.{name}")
         return {name: _LIBS[name] for name in names}

@@ -72,6 +72,7 @@ from efficientat_tpu_torch.ops.melspec import (
     preemphasis,
     true_fp32,
 )
+from efficientat_tpu_torch.utils.profiling import count, counter, span
 
 # bf16 parts of K1's split operands by dft_precision: the products of parts
 # i and j, i + j < parts, make fp32's 6 passes and bf16x3's 3
@@ -104,13 +105,17 @@ ROUTE_KERNELS = {
 WGMMA_ROUTES = {"bf16x3": "wgmma", "fp32": "wgmma_fp32"}
 WIDE_ROUTES = {"bf16x3": "wgmma256", "fp32": "wgmma256_fp32"}
 
-# K1 launches in this process, by dft_precision and by route, and the
-# launches of the call's other kernels by name; a run sets them to 0 and
-# reads them after
-LAUNCHES = dict.fromkeys(DFT_PRECISIONS, 0)
-ROUTE_LAUNCHES = dict.fromkeys(ROUTE_KERNELS, 0)
+# the call's kernels besides K1's, by name; each launch of K1 and of them
+# is counted in utils/profiling's COUNTERS as k1.launch.<route or name>
 CALL_KERNELS = ("mel_edges", "tile_banks")
-CALL_LAUNCHES = dict.fromkeys(CALL_KERNELS, 0)
+
+
+def k1_launches(dft_precision: str | None = None) -> int:
+    """K1's launches in this process (``k1.launch.<route>``), on the routes
+    of ``dft_precision``, or on every route."""
+    routes = (ROUTE_KERNELS if dft_precision is None else
+              (WGMMA_ROUTES[dft_precision], WIDE_ROUTES[dft_precision]))
+    return sum(counter(f"k1.launch.{route}") for route in routes)
 
 
 def kernel_supported(cfg: MelConfig) -> bool:
@@ -295,7 +300,7 @@ def tile_banks(banks: torch.Tensor, n_fft: int) -> tuple[torch.Tensor, ...]:
                              torch.cuda.current_stream(banks.device).cuda_stream)
     if err != 0:
         raise RuntimeError("tile_banks launch failed: " + lib.eat_error_string(err).decode())
-    CALL_LAUNCHES["tile_banks"] += 1
+    count("k1.launch.tile_banks")
     return tuple(part.view(shape) for part, shape in zip(flat.split(sizes), shapes))
 
 
@@ -304,6 +309,7 @@ def _serving_tiled_banks(n_mels: int, n_fft: int, sr: int, fmin: float,
                          fmax: float, device: str) -> tuple[torch.Tensor, ...]:
     """``_tiled_groups`` of the fixed banks (made on the host in float64),
     on ``device``."""
+    count("k1.const_miss")
     banks = kaldi_mel_banks(n_mels, n_fft, sr, fmin, fmax)
     return tuple(t.to(device) for t in _tiled_groups(banks, n_fft))
 
@@ -448,7 +454,7 @@ def mel_edges(out: torch.Tensor, wave: torch.Tensor, banks: torch.Tensor,
                             stream.cuda_stream)
     if err != 0:
         raise RuntimeError("mel_edges launch failed: " + lib.eat_error_string(err).decode())
-    CALL_LAUNCHES["mel_edges"] += 1
+    count("k1.launch.mel_edges")
     return out
 
 
@@ -556,8 +562,7 @@ def stft_log_mel(wave: torch.Tensor, banks: torch.Tensor, cfg: MelConfig,
             if err != 0:
                 raise RuntimeError(f"K1 launch failed ({ROUTE_KERNELS[route]}): "
                                    + lib.eat_error_string(err).decode())
-            LAUNCHES[dft_precision] += 1
-            ROUTE_LAUNCHES[route] += 1
+            count(f"k1.launch.{route}")
     return mel_edges(out, wave, banks, cfg)
 
 
@@ -654,14 +659,18 @@ def log_mel_spectrogram_fused(waveform: torch.Tensor,
     if not use_kernel:
         return log_mel_spectrogram(waveform, cfg, training=training,
                                    draws=draws)
-    fmin, fmax = (jittered_fmin_fmax(cfg, draws, waveform.device) if training
-                  else (cfg.fmin, cfg.effective_fmax))
-    banks = kaldi_mel_banks(cfg.n_mels, cfg.n_fft, cfg.sr, fmin, fmax,
-                            device=waveform.device)
+    on_card = waveform.device.type == "cuda" and kernel_supported(cfg)
+    if training:
+        with span("mel.banks"):
+            fmin, fmax = jittered_fmin_fmax(cfg, draws, waveform.device)
+            banks = kaldi_mel_banks(cfg.n_mels, cfg.n_fft, cfg.sr, fmin, fmax,
+                                    device=waveform.device)
+            tiled = tile_banks(banks, cfg.n_fft) if on_card else None
+    else:
+        banks = kaldi_mel_banks(cfg.n_mels, cfg.n_fft, cfg.sr, cfg.fmin,
+                                cfg.effective_fmax, device=waveform.device)
+        tiled = tiled_serving_banks(cfg, waveform.device) if on_card else None
     dft_precision = dft_precision or "bf16x3"
-    tiled = None
-    if not training and waveform.device.type == "cuda" and kernel_supported(cfg):
-        tiled = tiled_serving_banks(cfg, waveform.device)
     run = stft_log_mel_sharded if sharded else stft_log_mel
     mel = run(waveform.to(torch.float32).contiguous(), banks, cfg,
               dft_precision, tiled_banks=tiled)

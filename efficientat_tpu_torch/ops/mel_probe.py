@@ -61,6 +61,7 @@ from efficientat_tpu_torch.ops.melspec import (
     preemphasis,
     true_fp32,
 )
+from efficientat_tpu_torch.utils.profiling import count
 
 PASSES = (3, 21, 22)
 SUB_TILE = 64  # frames a warpgroup computes; frame tiles are multiples
@@ -90,11 +91,6 @@ DESIGN = ("wgmma m64n64k16 DFT, A frames in registers, B basis from a "
           "in three bf16 parts, six products (fp32's precision), banks "
           "through the same ring; 128-frame blocks of two warpgroups (P2 "
           "past hop 320: 64 frames, one), P2's wave segment by bulk copy")
-
-# each kernel's launches in this process; a run resets them to 0 and reads them after
-LAUNCHES_P1 = 0
-LAUNCHES_P2 = 0
-LAUNCHES_P3 = 0
 
 
 def smem_plan(staged: bool, hop: int, parts: int = 2, mels: int = MAX_MELS) -> tuple:
@@ -239,12 +235,11 @@ def variant_mel(wave: torch.Tensor, banks: torch.Tensor, cfg: MelConfig,
                 frame_tile: int = 128, folded: bool = False) -> torch.Tensor:
     """P1: (B, S) f32 -> (B, n_mels, n_frames), the probe's ``variant_mel``.
     Launches its kernel on a CUDA tensor; the plain version on a CPU one."""
-    global LAUNCHES_P1
     if wave.device.type == "cpu":
         return variant_mel_plain(wave, banks, cfg, frame_tile, folded)
     _check_args(wave, banks, cfg, frame_tile)
     out = _launch("eat_probe_p1", wave, banks, cfg, folded, frame_tile)
-    LAUNCHES_P1 += 1
+    count("probe.launch.p1")
     return _patch_edges(out, wave, banks, cfg) if folded else out
 
 
@@ -260,12 +255,11 @@ def variant_mel_dma(wave: torch.Tensor, banks: torch.Tensor, cfg: MelConfig,
                     frame_tile: int = 128, sub64: bool = False) -> torch.Tensor:
     """P2: P1 folded with each sub-tile's wave segment brought into shared
     memory by one bulk copy; ``sub64`` launches the same kernel."""
-    global LAUNCHES_P2
     if wave.device.type == "cpu":
         return variant_mel_dma_plain(wave, banks, cfg, frame_tile, sub64)
     _check_args(wave, banks, cfg, frame_tile, max_hop=MAX_STAGED_HOP)
     out = _launch("eat_probe_p2", wave, banks, cfg, True, frame_tile)
-    LAUNCHES_P2 += 1
+    count("probe.launch.p2")
     return _patch_edges(out, wave, banks, cfg)
 
 
@@ -280,10 +274,9 @@ def variant_mel_e(wave: torch.Tensor, banks: torch.Tensor, cfg: MelConfig,
                   passes: int = 3) -> torch.Tensor:
     """P3: P1 folded at hop 320 and 128-frame tiles, with 3, 21 or 22
     passes (see the module docstring)."""
-    global LAUNCHES_P3
     if wave.device.type == "cpu":
         return variant_mel_e_plain(wave, banks, cfg, passes)
     _check_args(wave, banks, cfg, 128, passes, hop=P3_HOP)
     out = _launch("eat_probe_p3", wave, banks, cfg, True, passes)
-    LAUNCHES_P3 += 1
+    count("probe.launch.p3")
     return _patch_edges(out, wave, banks, cfg)

@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from efficientat_tpu_torch.ops.filterbank import kaldi_mel_banks
+from efficientat_tpu_torch.utils.profiling import count
 
 PREEMPH = 0.97
 
@@ -138,7 +139,9 @@ def _folded_dft_basis(n_fft: int, win_length: int,
 def device_const(make, args: tuple, device: str,
                  dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """``make(*args)`` (a cached numpy constant) as a ``dtype`` tensor on
-    ``device``, copied there once per process."""
+    ``device``, copied there once per process (``k1.const_miss`` counts each
+    copy)."""
+    count("k1.const_miss")
     return torch.from_numpy(np.ascontiguousarray(make(*args))).to(
         device=device, dtype=dtype)
 

@@ -39,6 +39,7 @@ import torch
 from efficientat_tpu_torch.ops import mel_kernel, mel_probe
 from efficientat_tpu_torch.ops.filterbank import kaldi_mel_banks
 from efficientat_tpu_torch.ops.melspec import MelConfig, log_mel_spectrogram
+from efficientat_tpu_torch.utils.profiling import counter
 
 SR = 32000
 CLIP_SECONDS = 10
@@ -54,16 +55,16 @@ def _variant(name, fn, counter, **kwargs):
 def variants(group: str):
     """The variants of ``group`` (fold, dma, e or all), in the script's order."""
     def p1():
-        return mel_probe.LAUNCHES_P1
+        return counter("probe.launch.p1")
 
     def p2():
-        return mel_probe.LAUNCHES_P2
+        return counter("probe.launch.p2")
 
     def p3():
-        return mel_probe.LAUNCHES_P3
+        return counter("probe.launch.p3")
 
     def k1():
-        return mel_kernel.LAUNCHES["bf16x3"]
+        return mel_kernel.k1_launches("bf16x3")
 
     groups = {
         "fold": [

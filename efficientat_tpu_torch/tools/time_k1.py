@@ -214,12 +214,12 @@ def kernel_alone_ms(fn, calls: int = 5):
 
     fn()
     torch.cuda.synchronize()
-    before = sum(mel_kernel.LAUNCHES.values())
+    before = mel_kernel.k1_launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    launches = sum(mel_kernel.LAUNCHES.values()) - before
+    launches = mel_kernel.k1_launches() - before
     events = [e.time_range.end - e.time_range.start for e in prof.events()
               if e.device_type == DeviceType.CUDA and "mel_kernel" in e.name]
     return sum(events) / len(events) / 1e3 * launches / calls if events else None

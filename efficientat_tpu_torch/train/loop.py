@@ -55,6 +55,7 @@ from efficientat_tpu_torch.train.augment import (
     mixstyle_draws,
     mixup_coefficients,
 )
+from efficientat_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,15 +97,16 @@ class StepRandom:
 
     def draw(self, mel_cfg: MelConfig, loss_cfg: LossConfig, batch: int,
              n_samples: int) -> StepDraws:
-        mel = draw_mel_augment(mel_cfg, batch, mel_cfg.num_frames(n_samples),
-                               self.torch)
-        if loss_cfg.mixstyle_p > 0:
-            return StepDraws(mel, mixstyle=mixstyle_draws(
-                self.numpy, batch, loss_cfg.mixstyle_p, loss_cfg.mixstyle_alpha))
-        if loss_cfg.mixup_alpha > 0:
-            return StepDraws(mel, mixup=mixup_coefficients(
-                self.numpy, batch, loss_cfg.mixup_alpha))
-        return StepDraws(mel)
+        with span("train.draws"):
+            mel = draw_mel_augment(mel_cfg, batch, mel_cfg.num_frames(n_samples),
+                                   self.torch)
+            if loss_cfg.mixstyle_p > 0:
+                return StepDraws(mel, mixstyle=mixstyle_draws(
+                    self.numpy, batch, loss_cfg.mixstyle_p, loss_cfg.mixstyle_alpha))
+            if loss_cfg.mixup_alpha > 0:
+                return StepDraws(mel, mixup=mixup_coefficients(
+                    self.numpy, batch, loss_cfg.mixup_alpha))
+            return StepDraws(mel)
 
     def state_dict(self) -> dict:
         return {"torch": self.torch.get_state(),
@@ -187,39 +189,50 @@ def train_step(model: nn.Module, optimizer: torch.optim.Optimizer, scheduler,
     and ``teacher_valid``) with ``draws`` made for the global batch.
     ``model`` is the module, or its ``DistributedDataParallel`` wrapper under
     ``dp``. Returns the metrics, averaged over the ranks. The gradients stay
-    in ``.grad`` until the next step."""
-    model.train()
-    world = dp.world if dp is not None else 1
-    local = batch["wave"].shape[0]
-    rows = dp.rows(local * world) if dp is not None else slice(None)
-    wave = decode(batch["wave"])
-    mel = log_mel_spectrogram_fused(wave, mel_cfg, training=True,
-                                    draws=draws.mel.rows(rows),
-                                    dft_precision=dft_precision,
-                                    sharded=world > 1)
-    x = mel[:, None]  # (B, 1, n_mels, frames)
+    in ``.grad`` until the next step. Spans: ``train.step`` around
+    ``train.mel`` (decode and log-mel, the jittered banks included),
+    ``train.mix``, ``train.forward``, ``train.loss``, ``train.backward`` and
+    ``train.optimizer`` (the step and the scheduler); the forward, backward
+    and optimizer are timed on the device too."""
+    with span("train.step"):
+        model.train()
+        world = dp.world if dp is not None else 1
+        local = batch["wave"].shape[0]
+        rows = dp.rows(local * world) if dp is not None else slice(None)
+        with span("train.mel"):
+            wave = decode(batch["wave"])
+            mel = log_mel_spectrogram_fused(wave, mel_cfg, training=True,
+                                            draws=draws.mel.rows(rows),
+                                            dft_precision=dft_precision,
+                                            sharded=world > 1)
+            x = mel[:, None]  # (B, 1, n_mels, frames)
 
-    mix = None
-    if draws.mixstyle is not None:
-        x = mixstyle(gather_rows(x, dp), draws.mixstyle)[rows]
-    elif draws.mixup is not None:
-        perm, lam = draws.mixup
-        x = apply_mixup(gather_rows(x, dp), perm, lam)[rows]
-        partner_rows = torch.from_numpy(np.array(perm[rows])).to(x.device)
-        partner = {k: gather_rows(batch[k], dp)[partner_rows]
-                   for k in ("target", "teacher") if k in batch}
-        mix = (torch.from_numpy(np.array(lam[rows])).to(x.device), partner)
+        mix = None
+        with span("train.mix"):
+            if draws.mixstyle is not None:
+                x = mixstyle(gather_rows(x, dp), draws.mixstyle)[rows]
+            elif draws.mixup is not None:
+                perm, lam = draws.mixup
+                x = apply_mixup(gather_rows(x, dp), perm, lam)[rows]
+                partner_rows = torch.from_numpy(np.array(perm[rows])).to(x.device)
+                partner = {k: gather_rows(batch[k], dp)[partner_rows]
+                           for k in ("target", "teacher") if k in batch}
+                mix = (torch.from_numpy(np.array(lam[rows])).to(x.device), partner)
 
-    with torch.autocast(x.device.type, dtype=torch.bfloat16, enabled=bf16):
-        logits, _ = model_forward(model, x, temperature)
-    loss, aux = task_loss(loss_cfg, logits.float(), batch, mix)
-    optimizer.zero_grad(set_to_none=True)
-    loss.backward()
-    optimizer.step()
-    if scheduler is not None:
-        scheduler.step()
-    return {k: mean_over_ranks(v, dp)
-            for k, v in {"train_loss": loss, **aux}.items()}
+        with span("train.forward", device=True), torch.autocast(
+                x.device.type, dtype=torch.bfloat16, enabled=bf16):
+            logits, _ = model_forward(model, x, temperature)
+        with span("train.loss"):
+            loss, aux = task_loss(loss_cfg, logits.float(), batch, mix)
+        with span("train.backward", device=True):
+            optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+        with span("train.optimizer", device=True):
+            optimizer.step()
+            if scheduler is not None:
+                scheduler.step()
+        return {k: mean_over_ranks(v, dp)
+                for k, v in {"train_loss": loss, **aux}.items()}
 
 
 @torch.no_grad()

@@ -1,4 +1,5 @@
-"""Runtime profiling and timing (port of efficientat_tpu/utils/profiling.py).
+"""Runtime profiling, timing, spans and counters (port of
+efficientat_tpu/utils/profiling.py).
 
     from efficientat_tpu_torch.utils.profiling import trace
     with trace("traces"):
@@ -8,11 +9,38 @@ writes a Chrome/Perfetto trace of the host's PyTorch ops and, where PyTorch
 was built with CUDA, the card's kernels and copies (``torch.profiler``, the
 counterpart of ``jax.profiler``). ``time_fn`` times a call and
 ``device_memory_stats`` reads the allocator's statistics of each card.
+
+Spans mark the port's layer boundaries (``Tagger.predict``'s staging, copy,
+mel, members and read-back; ``train_step``'s forward, backward and
+optimizer):
+
+    with span("tag.members", device=True):
+        ...
+
+They are off by default, and then a span costs one check of a flag.
+``set_spans(True)`` turns them on: each records its name, start and end on
+the host clock (``time.perf_counter_ns``), its parent and a call id (the
+sequence number of its root span, shared by every span of one call);
+``device=True`` adds a pair of CUDA timing events on the current stream,
+resolved only when the spans are taken. While ``torch.profiler`` records,
+each span also opens a ``record_function`` of its name, so the trace shows
+the spans on the clock of the device's rows. ``take_spans`` returns the
+records with their self times and empties the buffer.
+
+Counters (``count``) are always on: one increment of a plain dict,
+``COUNTERS``. Their names: ``k1.launch.<route>``, ``k1.launch.mel_edges``
+and ``k1.launch.tile_banks`` (K1's launches), ``probe.launch.p1``-``p3``,
+``k1.const_miss`` (a device constant built and uploaded), ``tag.pin_alloc``
+(a pinned staging buffer allocated), ``build.nvcc.<library>`` and
+``build.load.<library>`` (a kernel library compiled, loaded).
 """
 
 from __future__ import annotations
 
+import bisect
+import collections
 import contextlib
+import json
 import os
 import socket
 import time
@@ -23,6 +51,142 @@ import torch
 
 # kernels launched in the profiler's warm-up step; see ``trace``
 PRIMER_KERNELS = 64
+
+
+# the counters, by name
+COUNTERS: dict = {}
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to counter ``name``."""
+    COUNTERS[name] = COUNTERS.get(name, 0) + n
+
+
+def counter(name: str) -> int:
+    """Counter ``name``'s value; 0 where nothing counted it yet."""
+    return COUNTERS.get(name, 0)
+
+
+def reset_counters(prefix: str = "") -> None:
+    """Drop every counter whose name starts with ``prefix`` (all of them by
+    default)."""
+    for name in [k for k in COUNTERS if k.startswith(prefix)]:
+        del COUNTERS[name]
+
+
+# spans recorded at most between two ``take_spans``; later ones are dropped
+# and counted as ``span.dropped``
+MAX_SPANS = 1 << 16
+_SPANS_ON = False
+_RECORDS: list = []  # [name, parent, call, start_ns, end_ns, (start, end events)]
+_OPEN: list = []     # indices of the open spans, innermost last
+_ROOTS = 0           # root spans begun: the next call id
+_TAKES = 0           # ``take_spans`` calls: a span open across one is dropped
+
+
+class _Span:
+    __slots__ = ("name", "device", "index", "take", "annotation")
+
+    def __init__(self, name: str, device: bool):
+        self.name, self.device = name, device
+
+    def __enter__(self):
+        global _ROOTS
+        self.annotation = None
+        if torch._C._autograd._profiler_enabled():
+            self.annotation = torch.profiler.record_function(self.name)
+            self.annotation.__enter__()
+        if len(_RECORDS) >= MAX_SPANS:
+            self.index = None
+            count("span.dropped")
+            return self
+        if _OPEN:
+            parent = _OPEN[-1]
+            call = _RECORDS[parent][2]
+        else:
+            parent, call = None, _ROOTS
+            _ROOTS += 1
+        events = None
+        if self.device and torch.cuda.is_initialized():
+            events = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+            events[0].record()
+        self.index, self.take = len(_RECORDS), _TAKES
+        _RECORDS.append([self.name, parent, call, time.perf_counter_ns(), None, events])
+        _OPEN.append(self.index)
+        return self
+
+    def __exit__(self, *exc):
+        if self.index is not None and self.take == _TAKES:
+            record = _RECORDS[self.index]
+            if record[5] is not None:
+                record[5][1].record()
+            record[4] = time.perf_counter_ns()
+            _OPEN.pop()
+        if self.annotation is not None:
+            self.annotation.__exit__(*exc)
+        return False
+
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str, device: bool = False):
+    """A context manager that records the block as span ``name`` while
+    spans are on (``set_spans``), and does nothing otherwise. ``device``
+    also times the block on the current CUDA stream with a pair of events,
+    where CUDA is in use. Spans nest by the order they open, in one
+    thread."""
+    return _Span(name, device) if _SPANS_ON else _OFF
+
+
+def set_spans(on: bool) -> bool:
+    """Turn spans on or off; returns whether they were on."""
+    global _SPANS_ON
+    was, _SPANS_ON = _SPANS_ON, bool(on)
+    return was
+
+
+def _covered_ns(start: int, end: int, intervals) -> int:
+    """How much of [start, end] the union of ``intervals`` covers."""
+    covered, reach = 0, start
+    for a, b in sorted(intervals):
+        a, b = max(a, reach), min(b, end)
+        if b > a:
+            covered += b - a
+            reach = b
+    return covered
+
+
+def take_spans() -> list:
+    """The closed spans recorded since the last call, in the order they
+    opened, and empty the buffer (spans still open are dropped). Each is a
+    dict: ``name``, ``parent`` (its index in the list, or None), ``call``,
+    ``start_ns``, ``end_ns``, ``ms`` (duration), ``self_ms`` (duration less
+    what its children cover) and ``device_ms`` (the CUDA events' time of a
+    ``device=True`` span; None otherwise). Synchronises the card once where
+    a span holds events."""
+    global _TAKES
+    _TAKES += 1
+    closed = [i for i, r in enumerate(_RECORDS) if r[4] is not None]
+    records = [_RECORDS[i] for i in closed]
+    _RECORDS.clear()
+    _OPEN.clear()
+    if any(r[5] is not None for r in records):
+        torch.cuda.synchronize()
+    where = {old: new for new, old in enumerate(closed)}
+    out = [{"name": name, "parent": where.get(parent), "call": call,
+            "start_ns": start, "end_ns": end, "ms": (end - start) / 1e6,
+            "device_ms": None if events is None else events[0].elapsed_time(events[1])}
+           for name, parent, call, start, end, events in records]
+    children = collections.defaultdict(list)
+    for s in out:
+        if s["parent"] is not None:
+            children[s["parent"]].append((s["start_ns"], s["end_ns"]))
+    for i, s in enumerate(out):
+        s["self_ms"] = (s["end_ns"] - s["start_ns"]
+                        - _covered_ns(s["start_ns"], s["end_ns"], children[i])) / 1e6
+    return out
 
 
 @contextlib.contextmanager
@@ -40,7 +204,8 @@ def trace(log_dir: str):
     missing (on an H100 with torch 2.11, a predict's first copies and
     kernels, K1 among them; ``chip_smoke.py`` phase 20 counts K1's events in
     a bare ``torch.profiler.profile`` beside this trace), and the primer's
-    records take their place."""
+    records take their place. Yields the trace's path, written when the
+    block ends."""
     from torch.profiler import profile, schedule, supported_activities
 
     os.makedirs(log_dir, exist_ok=True)
@@ -55,7 +220,60 @@ def trace(log_dir: str):
                 primer.fill_(0.0)
             torch.cuda.synchronize()
         prof.step()
-        yield
+        yield path
+
+
+# the device's rows in a trace file: kernels, copies and memsets
+DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def idle_by_span(path: str, top: int = 10) -> dict:
+    """What a trace written by ``trace`` with spans on says of the device's
+    idle time, on the trace's one clock. The window runs from the first
+    span or device row to the last (a train step's spans end before its
+    device work, a predict's after); ``busy_ms`` is the union of the device
+    rows. Each idle gap (between device rows, and at the window's ends) is
+    summed by the innermost span open at its middle, ``"no span"`` where
+    none was: the rule of ``portbench/device.py::breakdown``, which names
+    host ops instead. Returns ``window_ms``, ``busy_ms``,
+    ``busy_pct`` and ``idle_ms`` (the ``top`` spans, largest first); None
+    and [] where the trace holds no device row (a CPU run)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    rows, spans = [], []
+    for e in events:
+        if "dur" not in e:
+            continue
+        item = (float(e["ts"]), float(e["ts"]) + float(e["dur"]), e.get("name", ""))
+        if e.get("cat") in DEVICE_CATEGORIES:
+            rows.append(item)
+        elif e.get("cat") == "user_annotation" and not item[2].startswith("ProfilerStep"):
+            spans.append(item)
+    if not rows:
+        return {"window_ms": None, "busy_ms": None, "busy_pct": None, "idle_ms": []}
+    t0 = min(e[0] for e in spans + rows)
+    t1 = max(e[1] for e in spans + rows)
+    busy = []
+    for a, b, _ in sorted(rows):
+        if busy and a <= busy[-1][1]:
+            busy[-1][1] = max(busy[-1][1], b)
+        else:
+            busy.append([a, b])
+    bounds = [t0] + [x for interval in busy for x in interval] + [t1]
+    gaps = [(a, b) for a, b in zip(bounds[::2], bounds[1::2]) if b > a]
+    mids = [(a + b) / 2 for a, b in gaps]
+    innermost = [(float("inf"), "no span")] * len(gaps)
+    for start, end, name in spans:
+        for i in range(bisect.bisect_left(mids, start), bisect.bisect_right(mids, end)):
+            innermost[i] = min(innermost[i], (end - start, name))
+    idle = collections.Counter()
+    for (a, b), (_, name) in zip(gaps, innermost):
+        idle[name] += (b - a) / 1e3
+    busy_ms = sum(b - a for a, b in busy) / 1e3
+    window_ms = (t1 - t0) / 1e3
+    return {"window_ms": window_ms, "busy_ms": busy_ms,
+            "busy_pct": 100.0 * busy_ms / window_ms,
+            "idle_ms": idle.most_common(top)}
 
 
 def time_fn(fn: Callable, *args, iters: int = 10, warmup: int = 1) -> float:

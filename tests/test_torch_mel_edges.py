@@ -33,6 +33,7 @@ from efficientat_tpu_torch.ops.melspec import (
     mel_oracle_f64,
     true_fp32,
 )
+from efficientat_tpu_torch.utils.profiling import counter
 
 # the plain version against the Pallas kernel in interpret mode: fp32 sums
 # in another order (test_torch_mel_kernel.py's ATOL_VS_PALLAS["fp32"])
@@ -342,10 +343,10 @@ def test_mel_edges_matches_patch_edges_on_card(hop, n_mels):
         banks = _banks(cfg, device="cuda")
         n_frames = cfg.num_frames(n_samples)
         seed = torch.randn(5, n_mels, n_frames, device="cuda")
-        before = mel_kernel.CALL_LAUNCHES["mel_edges"]
+        before = counter("k1.launch.mel_edges")
         got = mel_kernel.mel_edges(seed.clone(), wave, banks, cfg)
         torch.cuda.synchronize()
-        assert mel_kernel.CALL_LAUNCHES["mel_edges"] == before + 1
+        assert counter("k1.launch.mel_edges") == before + 1
         want = mel_kernel._patch_edges(seed.clone(), wave, banks, cfg)
         left, right = edge_frames(n_frames, hop, cfg.n_fft, n_samples - 1)
         edge = left + right
@@ -366,9 +367,9 @@ def test_tile_banks_bit_equal_to_tiled_groups_on_card(n_mels):
     for banks in (_banks(MelConfig(n_mels=n_mels), device="cuda"),
                   kaldi_mel_banks(n_mels, 1024, 32000, torch.tensor(7.0, device="cuda"),
                                   torch.tensor(14321.0, device="cuda"))):
-        before = mel_kernel.CALL_LAUNCHES["tile_banks"]
+        before = counter("k1.launch.tile_banks")
         got = mel_kernel.tile_banks(banks, 1024)
-        assert mel_kernel.CALL_LAUNCHES["tile_banks"] == before + 1
+        assert counter("k1.launch.tile_banks") == before + 1
         want = mel_kernel._tiled_groups(banks, 1024)
         assert len(got) == len(want)
         for a, b in zip(got, want):

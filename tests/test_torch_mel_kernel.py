@@ -24,6 +24,7 @@ from efficientat_tpu_torch.ops.melspec import (
     log_mel_spectrogram,
     mel_oracle_f64,
 )
+from efficientat_tpu_torch.utils.profiling import counter
 
 # plain version against the Pallas kernel: fp32 sums in another order
 # (measured 2-3e-6); bf16x3 adds the rounding of the split on both sides
@@ -38,6 +39,11 @@ ATOL_VS_ORACLE = {"fp32": 1e-4, "bf16x3": 2e-2}
 # product moves the output by 7e-4 (test_kernel_bound_catches_bf16_banks),
 # a bf16x3 DFT by 3e-4 (test_fp32_bound_catches_bf16x3)
 ATOL_KERNEL_VS_PLAIN = {"fp32": 1e-4, "bf16x3": 1e-4}
+
+
+def _routes():
+    """K1's launches by route (``k1.launch.<route>``)."""
+    return {route: counter(f"k1.launch.{route}") for route in mel_kernel.ROUTE_KERNELS}
 
 
 @pytest.fixture(autouse=True)
@@ -171,11 +177,11 @@ def test_kernel_supported_matches_pallas_supported():
 def test_cpu_tensor_runs_plain_version(precision):
     cfg = MelConfig()
     wave = torch.from_numpy(_wave(2, 16000, seed=1))
-    before = dict(mel_kernel.LAUNCHES), dict(mel_kernel.ROUTE_LAUNCHES)
+    before = _routes()
     got = mel_kernel.stft_log_mel(wave, _banks(cfg), cfg, precision)
     want = mel_kernel.stft_log_mel_plain(wave, _banks(cfg), cfg, precision)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
-    assert (mel_kernel.LAUNCHES, mel_kernel.ROUTE_LAUNCHES) == before
+    assert _routes() == before
 
 
 @pytest.mark.parametrize("hop", [320, 640])
@@ -359,7 +365,7 @@ def test_k1_route_by_arguments(precision, n_mels, route):
     for hop in (320, 640):
         assert mel_kernel.k1_route(MelConfig(n_mels=n_mels, hopsize=hop),
                                    precision) == route
-    assert route in mel_kernel.ROUTE_KERNELS and route in mel_kernel.ROUTE_LAUNCHES
+    assert route in mel_kernel.ROUTE_KERNELS
     with pytest.raises(ValueError, match="dft_precision"):
         mel_kernel.k1_route(MelConfig(n_mels=n_mels), "fp16")
 
@@ -677,12 +683,12 @@ def test_kernel_matches_plain_on_card(batch, n_samples, hop, n_mels, precision):
     # a launch a group of at most 256 mels, each counted on the route of
     # the instantiation it launched
     groups = Counter(route for _, _, route in mel_kernel.mel_groups(n_mels, precision))
-    before = mel_kernel.LAUNCHES[precision], dict(mel_kernel.ROUTE_LAUNCHES)
+    before = mel_kernel.k1_launches(precision), _routes()
     got = mel_kernel.stft_log_mel(wave, banks, cfg, precision)
     torch.cuda.synchronize()
-    assert mel_kernel.LAUNCHES[precision] == before[0] + sum(groups.values())
-    assert {r: n - before[1][r] for r, n in mel_kernel.ROUTE_LAUNCHES.items()} == {
-        r: groups[r] for r in mel_kernel.ROUTE_LAUNCHES}
+    assert mel_kernel.k1_launches(precision) == before[0] + sum(groups.values())
+    assert {r: n - before[1][r] for r, n in _routes().items()} == {
+        r: groups[r] for r in mel_kernel.ROUTE_KERNELS}
     want = mel_kernel.stft_log_mel_plain(wave, banks, cfg, precision)
     assert got.shape == want.shape == (batch, n_mels, cfg.num_frames(n_samples))
     torch.testing.assert_close(got, want, rtol=0,
@@ -713,10 +719,10 @@ def test_kernel_slices_a_batch_over_the_grid_limit():
     g = torch.Generator(device="cuda").manual_seed(11)
     wave = 0.1 * torch.randn(batch, 4096, generator=g, device="cuda")
     banks = _banks(cfg, device="cuda")
-    before = mel_kernel.LAUNCHES["fp32"]
+    before = mel_kernel.k1_launches("fp32")
     got = mel_kernel.stft_log_mel(wave, banks, cfg)
     torch.cuda.synchronize()
-    assert mel_kernel.LAUNCHES["fp32"] == before + 2
+    assert mel_kernel.k1_launches("fp32") == before + 2
     assert got.shape == (batch, cfg.n_mels, cfg.num_frames(4096))
     ends = [0, batch - 1]
     want = mel_kernel.stft_log_mel_plain(wave[ends], banks, cfg, "fp32")
@@ -736,9 +742,9 @@ def test_wgmma_route_mel_product_at_fp32_on_card(hop, n_mels):
     banks = _banks(cfg, device="cuda")
     wave = torch.from_numpy(chip_smoke.impulse_waves(samples=96000)).cuda()
     route = mel_kernel.k1_route(cfg, "bf16x3")
-    before = mel_kernel.ROUTE_LAUNCHES[route]
+    before = counter(f"k1.launch.{route}")
     got = mel_kernel.stft_log_mel(wave, banks, cfg, "bf16x3")
-    assert mel_kernel.ROUTE_LAUNCHES[route] == before + 1
+    assert counter(f"k1.launch.{route}") == before + 1
     want = mel_kernel.stft_log_mel_plain(wave, banks, cfg, "bf16x3")
     assert chip_smoke.mel_sum_gap(got, want) <= chip_smoke.TOL_PROBE_MEL_SUMS
 
@@ -756,9 +762,9 @@ def test_wgmma_fp32_route_mel_sums_at_fp32_on_card(hop, n_mels):
     banks = _banks(cfg, device="cuda")
     wave = torch.from_numpy(chip_smoke.impulse_waves(samples=96000)).cuda()
     route = mel_kernel.k1_route(cfg, "fp32")
-    before = mel_kernel.ROUTE_LAUNCHES[route]
+    before = counter(f"k1.launch.{route}")
     got = mel_kernel.stft_log_mel(wave, banks, cfg, "fp32")
-    assert mel_kernel.ROUTE_LAUNCHES[route] == before + 1
+    assert counter(f"k1.launch.{route}") == before + 1
     want = mel_kernel.stft_log_mel_plain(wave, banks, cfg, "fp32")
     assert chip_smoke.mel_sum_gap(got, want) <= chip_smoke.TOL_PROBE_MEL_SUMS
     control = mel_kernel.stft_log_mel(wave, banks, cfg, "bf16x3")
@@ -774,10 +780,10 @@ def test_wgmma_route_slices_a_batch_over_the_grid_limit():
     g = torch.Generator(device="cuda").manual_seed(12)
     wave = 0.1 * torch.randn(batch, 4096, generator=g, device="cuda")
     banks = _banks(cfg, device="cuda")
-    before = mel_kernel.ROUTE_LAUNCHES["wgmma"]
+    before = counter("k1.launch.wgmma")
     got = mel_kernel.stft_log_mel(wave, banks, cfg, "bf16x3")
     torch.cuda.synchronize()
-    assert mel_kernel.ROUTE_LAUNCHES["wgmma"] == before + 2
+    assert counter("k1.launch.wgmma") == before + 2
     assert got.shape == (batch, cfg.n_mels, cfg.num_frames(4096))
     ends = [0, batch - 1]
     want = mel_kernel.stft_log_mel_plain(wave[ends], banks, cfg, "bf16x3")
@@ -841,11 +847,11 @@ def test_serving_mel_takes_the_tiled_banks_once_on_card(precision, n_mels):
     first = mel_kernel.log_mel_spectrogram_fused(wave, cfg, backend="kernel",
                                                  dft_precision=precision)
     misses = mel_kernel._serving_tiled_banks.cache_info().misses
-    before = mel_kernel.ROUTE_LAUNCHES[route]
+    before = counter(f"k1.launch.{route}")
     second = mel_kernel.log_mel_spectrogram_fused(wave, cfg, backend="kernel",
                                                   dft_precision=precision)
     assert mel_kernel._serving_tiled_banks.cache_info().misses == misses
-    assert mel_kernel.ROUTE_LAUNCHES[route] == before + 1
+    assert counter(f"k1.launch.{route}") == before + 1
     want = mel_kernel.stft_log_mel(wave, _banks(cfg, device="cuda"), cfg, precision)
     torch.testing.assert_close(first, want, rtol=0, atol=0)
     torch.testing.assert_close(second, want, rtol=0, atol=0)

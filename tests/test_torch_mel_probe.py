@@ -19,6 +19,7 @@ import torch
 from efficientat_tpu_torch.ops import mel_kernel, mel_probe
 from efficientat_tpu_torch.ops.filterbank import kaldi_mel_banks
 from efficientat_tpu_torch.ops.melspec import MelConfig, frame_signal, mel_oracle_f64
+from efficientat_tpu_torch.utils.profiling import counter
 
 SCRIPT = Path(__file__).resolve().parents[1] / "scripts" / "probe_mel_kernel.py"
 
@@ -44,8 +45,8 @@ VARIANTS = [
     ("p3_passes21", "variant_mel_e", {"passes": 21}),
     ("p3_passes22", "variant_mel_e", {"passes": 22}),
 ]
-COUNTERS = {"variant_mel": "LAUNCHES_P1", "variant_mel_dma": "LAUNCHES_P2",
-            "variant_mel_e": "LAUNCHES_P3"}
+COUNTERS = {"variant_mel": "probe.launch.p1", "variant_mel_dma": "probe.launch.p2",
+            "variant_mel_e": "probe.launch.p3"}
 
 
 @pytest.fixture(autouse=True)
@@ -268,12 +269,12 @@ def test_smem_plan_at_256_mels(parts):
 def test_cpu_tensor_runs_plain_version(name, fn, kwargs):
     cfg = MelConfig()
     wave = torch.from_numpy(_wave(2, 16000, seed=1))
-    counter = COUNTERS[fn]
-    before = getattr(mel_probe, counter)
+    key = COUNTERS[fn]
+    before = counter(key)
     got = getattr(mel_probe, fn)(wave, _banks(cfg), cfg, **kwargs)
     want = getattr(mel_probe, fn + "_plain")(wave, _banks(cfg), cfg, **kwargs)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
-    assert getattr(mel_probe, counter) == before
+    assert counter(key) == before
 
 
 def test_folded_three_pass_is_k1_bf16x3():
@@ -379,11 +380,11 @@ def test_kernel_matches_plain_on_card(name, fn, kwargs, hop):
     cfg = MelConfig(hopsize=hop)
     wave = torch.from_numpy(_wave(3, 320000 + 123, seed=5)).cuda()
     banks = _banks(cfg, device="cuda")
-    counter = COUNTERS[fn]
-    before = getattr(mel_probe, counter)
+    key = COUNTERS[fn]
+    before = counter(key)
     got = getattr(mel_probe, fn)(wave, banks, cfg, **kwargs)
     torch.cuda.synchronize()
-    assert getattr(mel_probe, counter) == before + 1
+    assert counter(key) == before + 1
     want = getattr(mel_probe, fn + "_plain")(wave, banks, cfg, **kwargs)
     assert got.shape == want.shape == (3, cfg.n_mels, cfg.num_frames(wave.shape[1]))
     torch.testing.assert_close(got, want, rtol=0, atol=ATOL_KERNEL_VS_PLAIN)

@@ -1,16 +1,27 @@
 """The port's ``utils/profiling.py`` and the ``profile`` subcommand: the trace
 file loads as JSON and holds events; on the card, one K1 kernel event a
-traced predict."""
+traced predict, every device row of a predict inside its ``tag.predict``
+span on the trace's clock, and the staging buffer allocated once a shape."""
 
 import json
 
+import numpy as np
 import pytest
 import torch
 from torch_threads import one_torch_thread  # noqa: F401
 
 from efficientat_tpu_torch import cli
+from efficientat_tpu_torch.infer.tag import Tagger
 from efficientat_tpu_torch.ops import mel_kernel
-from efficientat_tpu_torch.utils.profiling import device_memory_stats, time_fn, trace
+from efficientat_tpu_torch.utils.profiling import (
+    DEVICE_CATEGORIES,
+    counter,
+    device_memory_stats,
+    set_spans,
+    take_spans,
+    time_fn,
+    trace,
+)
 
 
 @pytest.fixture(autouse=True)
@@ -73,11 +84,52 @@ def test_profile_defaults_to_the_card(tmp_path):
 @pytest.mark.cuda
 def test_profile_traces_one_k1_kernel_a_predict(tmp_path):
     iters = 3
-    before = mel_kernel.LAUNCHES["bf16x3"]
+    before = mel_kernel.k1_launches("bf16x3")
     events = _profile(tmp_path / "trace", "cuda", model_name="mn10_as", batch=4,
                       seconds=10, iters=iters)
     k1 = [e for e in events
           if e.get("cat") == "kernel" and "mel_kernel_wgmma" in e.get("name", "")]
     assert len(k1) == iters
     # the warm-up predict outside the trace launched K1 as well
-    assert mel_kernel.LAUNCHES["bf16x3"] - before == iters + 1
+    assert mel_kernel.k1_launches("bf16x3") - before == iters + 1
+
+
+@pytest.mark.cuda
+def test_profile_spans_enclose_their_predicts_device_rows(tmp_path, capsys):
+    iters = 3
+    events = _profile(tmp_path / "trace", "cuda", model_name="mn10_as", batch=4,
+                      seconds=10, iters=iters)
+    predicts = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                      if e.get("cat") == "user_annotation" and e.get("name") == "tag.predict")
+    rows = [e for e in events if e.get("cat") in DEVICE_CATEGORIES]
+    assert len(predicts) == iters and rows
+    # on the trace's one clock, each kernel and copy lies within the
+    # tag.predict span of the call that launched it
+    for e in rows:
+        assert any(a <= e["ts"] and e["ts"] + e["dur"] <= b for a, b in predicts), e
+    assert all(any(a <= e["ts"] <= b for e in rows) for a, b in predicts)
+    out = capsys.readouterr().out
+    assert "device busy" in out and "device idle by span (ms): " in out
+
+
+@pytest.mark.cuda
+def test_predict_pins_one_staging_buffer_a_shape():
+    tagger = Tagger("mn04_as", pretrained=False, device="cuda")
+    waves = np.zeros((2, 32000), np.float32)
+    before = counter("tag.pin_alloc")
+    tagger.predict(waves)
+    tagger.predict(waves + 0.1)
+    assert counter("tag.pin_alloc") == before + 1
+    tagger.predict(np.zeros((3, 32000), np.float32))
+    tagger.predict(np.zeros((3, 32000), np.int16))
+    assert counter("tag.pin_alloc") == before + 3
+    # spans on: the members' span holds its CUDA-event time
+    take_spans()
+    set_spans(True)
+    try:
+        tagger.predict(waves)
+    finally:
+        set_spans(False)
+    got = {s["name"]: s for s in take_spans()}
+    assert got["tag.members"]["device_ms"] > 0
+    assert got["tag.stage"]["device_ms"] is None

@@ -69,8 +69,8 @@ def _rank_main(rank, world, model_axis, init, out_dir, model_dir, cases):
         for key, names in cases.items():
             tagger = Tagger(names, model_dir=model_dir, device="cpu", mesh=mesh)
             seen = []
-            to_device = tagger._to_device
-            tagger._to_device = lambda w: (seen.append(w.copy()), to_device(w))[1]
+            stage = tagger._stage
+            tagger._stage = lambda w: (seen.append(w.copy()), stage(w))[1]
             result[key] = {
                 "stacked": None if tagger._stacked is None else
                 {k: tuple(v.shape) for k, v in tagger._stacked.items()},

@@ -19,6 +19,7 @@ import torch
 from efficientat_tpu_torch.ops import filterbank as tfb
 from efficientat_tpu_torch.ops import mel_kernel
 from efficientat_tpu_torch.ops import melspec as tmel
+from efficientat_tpu_torch.utils.profiling import counter
 
 # fp32 bank construction on both sides: the same operations, but XLA's and
 # ATen's log round differently in the last bit; one ulp of a mel edge near
@@ -144,12 +145,12 @@ def test_fused_training_plain_matches_pallas_interpret(precision):
     with pltpu.force_tpu_interpret_mode():
         want = np.asarray(jax.jit(fused)(jnp.asarray(wave), key))
     draws = mel_draws(key, cfg, 2, cfg.num_frames(32000))
-    before = mel_kernel.LAUNCHES[precision]
+    before = mel_kernel.k1_launches(precision)
     got = mel_kernel.log_mel_spectrogram_fused(
         torch.from_numpy(wave), cfg, training=True, draws=draws,
         backend="kernel", dft_precision=precision).numpy()
     # a CPU tensor runs the plain version
-    assert mel_kernel.LAUNCHES[precision] == before
+    assert mel_kernel.k1_launches(precision) == before
     assert got.shape == want.shape == (2, 128, 100)
     np.testing.assert_array_equal(_masked(got), _masked(want))
     assert _masked(got).any()
@@ -225,13 +226,13 @@ def test_training_kernel_matches_plain_on_card(n_mels, precision):
     # the jittered banks, tiled in the call: the kernel's 128-mel
     # instantiation at 128 mels, its 256-mel one at 256
     route = mel_kernel.k1_route(cfg, precision)
-    before = mel_kernel.LAUNCHES[precision], mel_kernel.ROUTE_LAUNCHES[route]
+    before = mel_kernel.k1_launches(precision), counter(f"k1.launch.{route}")
     got = mel_kernel.log_mel_spectrogram_fused(wave, cfg, training=True,
                                                draws=draws,
                                                dft_precision=precision)
     torch.cuda.synchronize()
-    assert (mel_kernel.LAUNCHES[precision],
-            mel_kernel.ROUTE_LAUNCHES[route]) == (before[0] + 1, before[1] + 1)
+    assert (mel_kernel.k1_launches(precision),
+            counter(f"k1.launch.{route}")) == (before[0] + 1, before[1] + 1)
     plain = tmel.apply_masks(
         mel_kernel.stft_log_mel_plain(wave, banks, cfg, precision), cfg, draws, 0.9)
     assert got.shape == (4, n_mels, 1000)
@@ -245,9 +246,9 @@ def test_training_mel_on_card_never_leaves_it():
     cfg = tmel.MelConfig()
     wave = torch.from_numpy(_wave(2, 32000, seed=10)).cuda()
     draws = tmel.draw_mel_augment(cfg, 2, 100, torch.Generator().manual_seed(3))
-    before = mel_kernel.LAUNCHES["bf16x3"], mel_kernel.ROUTE_LAUNCHES["wgmma"]
+    before = mel_kernel.k1_launches("bf16x3"), counter("k1.launch.wgmma")
     mel = mel_kernel.log_mel_spectrogram_fused(wave, cfg, training=True,
                                                draws=draws)
-    assert mel.is_cuda and (mel_kernel.LAUNCHES["bf16x3"],
-                            mel_kernel.ROUTE_LAUNCHES["wgmma"]) == (before[0] + 1,
+    assert mel.is_cuda and (mel_kernel.k1_launches("bf16x3"),
+                            counter("k1.launch.wgmma")) == (before[0] + 1,
                                                                     before[1] + 1)
