@@ -2,8 +2,10 @@
 reference surface: upstream inference.py:15-63).
 
 One ``predict`` call (span ``tag.predict``): the batch is staged in a
-pinned host buffer (``tag.stage``), copied to the device (``tag.h2d``),
-decoded there (``tag.decode``) (f32 / int16 / mu-law uint8), turned into log-mels
+pinned host buffer (``tag.stage``), in row chunks on a pool of host threads
+where it is large (``stage_rows``), and each chunk's copy to the device
+(``tag.h2d``, inside ``tag.stage``) is issued as soon as its rows have
+landed; it is decoded there (``tag.decode``) (f32 / int16 / mu-law uint8), turned into log-mels
 by ``log_mel_spectrogram_fused`` (K1 on CUDA; ``tag.mel``), run through
 every member (a DyMN at its ``cfg.t_max``, the final temperature of its
 training; ``tag.members``, timed on the device too), the members' logits
@@ -28,8 +30,11 @@ probs over the data group.
 
 from __future__ import annotations
 
+import os
+import threading
 import warnings
-from typing import List, Optional, Sequence, Tuple, Union
+from concurrent.futures import ThreadPoolExecutor, wait
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -57,13 +62,80 @@ def _serving_args(model: nn.Module) -> tuple:
 
 
 def _host_batch(waves) -> np.ndarray:
-    """The caller's batch as a contiguous (B, num_samples) array of its
-    transport dtype: int16 and uint8 as they are, anything else float32. No
-    copy when the batch already is one: a copy of a B=64 float32 batch costs
-    more than its H2D transfer."""
-    waves = np.atleast_2d(np.asarray(waves))
-    dtype = waves.dtype if waves.dtype in (np.int16, np.uint8) else np.float32
-    return np.ascontiguousarray(waves, dtype=dtype)
+    """The caller's batch as a (B, num_samples) array, as it is: no copy, no
+    cast (``stage_rows`` casts while it stages)."""
+    return np.atleast_2d(np.asarray(waves))
+
+
+def _transport_dtype(waves: np.ndarray) -> np.dtype:
+    """The dtype a batch travels in: int16 and uint8 as they are, anything
+    else float32."""
+    return waves.dtype if waves.dtype in (np.int16, np.uint8) else np.dtype(np.float32)
+
+
+_TORCH_DTYPES = {np.dtype(np.float32): torch.float32, np.dtype(np.int16): torch.int16,
+                 np.dtype(np.uint8): torch.uint8}
+
+# A batch of at least this many bytes (in its transport dtype) and of more
+# than one row is staged in row chunks on the staging pool; a smaller one on
+# the calling thread, where the pool's hand-off costs more than it saves.
+STAGE_MIN_BYTES = 4 << 20
+# staging threads at most: of 4, 8 and 16, 8 staged fastest and served most
+# on an 8-CPU H100 host (PERF.md)
+STAGE_THREADS = 8
+# row chunks a staging thread: the copy to the device of the last chunk, the
+# one part not hidden behind the staging, is small
+CHUNKS_A_THREAD = 2
+
+_pool: Optional[Tuple[ThreadPoolExecutor, int]] = None
+_pool_lock = threading.Lock()
+
+
+def _stage_pool() -> Tuple[ThreadPoolExecutor, int]:
+    """The process's staging threads and their count, made on first use and
+    shared by every Tagger: one a CPU the process may run on, at most
+    ``STAGE_THREADS``."""
+    global _pool
+    with _pool_lock:
+        if _pool is None:
+            threads = min(len(os.sched_getaffinity(0)), STAGE_THREADS)
+            _pool = (ThreadPoolExecutor(threads, thread_name_prefix="tag.stage"), threads)
+        return _pool
+
+
+def stage_rows(dst: np.ndarray, waves: np.ndarray,
+               landed: Callable[[int, int], None]) -> None:
+    """Copy ``waves`` into ``dst`` of the same shape, cast to ``dst``'s dtype
+    as ``np.ascontiguousarray(waves, dtype=dst.dtype)`` would, and call
+    ``landed(start, stop)`` for each range of rows once it is in ``dst``, in
+    row order. A batch of ``STAGE_MIN_BYTES`` or more and of more than one
+    row goes in row chunks (``CHUNKS_A_THREAD`` a thread) on the staging
+    pool, counted by ``tag.stage.chunks``; numpy's copy releases the GIL, so
+    the threads copy at once and ``landed`` runs while later chunks are
+    still being copied. Any other batch goes in one piece on the calling
+    thread (``tag.stage.serial``)."""
+    if waves.shape != dst.shape:
+        raise ValueError(f"staging {waves.shape} rows into a buffer of {dst.shape}")
+    rows = len(dst)
+    if dst.nbytes < STAGE_MIN_BYTES or rows < 2:
+        count("tag.stage.serial")
+        dst[...] = waves
+        landed(0, rows)
+        return
+    pool, threads = _stage_pool()
+    n = min(rows, CHUNKS_A_THREAD * threads)
+    bounds = [rows * i // n for i in range(n + 1)]
+    chunks = list(zip(bounds, bounds[1:]))
+    futures = [pool.submit(np.copyto, dst[a:b], waves[a:b], casting="unsafe")
+               for a, b in chunks]
+    count("tag.stage.chunks", n)
+    try:
+        for (a, b), future in zip(chunks, futures):
+            future.result()
+            landed(a, b)
+    finally:
+        # no thread writes into dst after this returns, nor after it raises
+        wait(futures)
 
 
 def _member_logits(model: nn.Module, mel: torch.Tensor) -> torch.Tensor:
@@ -154,20 +226,30 @@ class Tagger:
         self._pinned: Optional[torch.Tensor] = None  # last batch's host buffer
 
     def _stage(self, waves: np.ndarray) -> torch.Tensor:
-        """The batch in host memory, ready for its copy to the device: on
-        CUDA the pinned buffer, allocated anew (``tag.pin_alloc``) only when
-        the batch's shape or dtype changes."""
+        """The rows ``waves`` on the device, in their transport dtype. On CUDA
+        they land in the pinned buffer (``stage_rows``), allocated anew
+        (``tag.pin_alloc``) only when the rows' shape or dtype changes, and
+        each range of rows is copied on to the device (``tag.h2d``) on the
+        current stream as soon as it has landed."""
         if self.device.type != "cuda":
-            return torch.from_numpy(waves)
+            host = torch.from_numpy(np.ascontiguousarray(waves, _transport_dtype(waves)))
+            with span("tag.h2d"):
+                return host.to(self.device)
+        dtype = _TORCH_DTYPES[_transport_dtype(waves)]
         buf = self._pinned
-        if buf is None or buf.shape != waves.shape or buf.numpy().dtype != waves.dtype:
+        if buf is None or buf.shape != waves.shape or buf.dtype != dtype:
             count("tag.pin_alloc")
-            buf = self._pinned = torch.from_numpy(waves).pin_memory()
-        else:
-            # the previous copy out of this buffer finished: predict ends by
-            # reading its result back, which waits for the device
-            buf.numpy()[...] = waves
-        return buf
+            buf = self._pinned = torch.empty(waves.shape, dtype=dtype, pin_memory=True)
+        x = torch.empty(buf.shape, dtype=dtype, device=self.device)
+
+        def landed(start: int, stop: int) -> None:
+            with span("tag.h2d"):
+                x[start:stop].copy_(buf[start:stop], non_blocking=True)
+
+        # the previous copies out of this buffer finished: predict ends by
+        # reading its result back, which waits for the device
+        stage_rows(buf.numpy(), waves, landed)
+        return x
 
     def predict(self, waves: np.ndarray) -> np.ndarray:
         """waves (B, num_samples) at mel_cfg.sr, float32, int16 PCM or mu-law
@@ -176,11 +258,9 @@ class Tagger:
         with span("tag.predict"):
             if self._stacked is not None:
                 return self._predict_member_parallel(waves)
-            with span("tag.stage"):
-                host = self._stage(_host_batch(waves))
             with torch.inference_mode():
-                with span("tag.h2d"):
-                    x = host.to(self.device, non_blocking=True)
+                with span("tag.stage"):
+                    x = self._stage(_host_batch(waves))
                 with span("tag.decode"):
                     x = decode(x)
                 with span("tag.mel"):
@@ -207,20 +287,18 @@ class Tagger:
         data group (gloo reduces CUDA tensors but gathers none); the pad is
         sliced off. The spans of ``predict``, and ``tag.all_reduce``."""
         mesh = self.mesh
-        with span("tag.stage"):
-            waves = _host_batch(waves)
-            n, n_data = waves.shape[0], mesh.shape["data"]
-            pad = (-n) % n_data
-            if pad:
-                silence = 128 if waves.dtype == np.uint8 else 0
-                waves = np.concatenate(
-                    [waves, np.full((pad,) + waves.shape[1:], silence, waves.dtype)])
-            rows = waves.shape[0] // n_data
-            start = mesh.data_index * rows
-            host = self._stage(waves[start:start + rows])
         with torch.inference_mode():
-            with span("tag.h2d"):
-                x = host.to(self.device, non_blocking=True)
+            with span("tag.stage"):
+                waves = _host_batch(waves)
+                n, n_data = waves.shape[0], mesh.shape["data"]
+                pad = (-n) % n_data
+                if pad:
+                    silence = 128 if waves.dtype == np.uint8 else 0
+                    waves = np.concatenate(
+                        [waves, np.full((pad,) + waves.shape[1:], silence, waves.dtype)])
+                rows = waves.shape[0] // n_data
+                start = mesh.data_index * rows
+                x = self._stage(waves[start:start + rows])
             with span("tag.decode"):
                 x = decode(x)
             with span("tag.mel"):

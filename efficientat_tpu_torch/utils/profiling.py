@@ -31,7 +31,9 @@ Counters (``count``) are always on: one increment of a plain dict,
 ``COUNTERS``. Their names: ``k1.launch.<route>``, ``k1.launch.mel_edges``
 and ``k1.launch.tile_banks`` (K1's launches), ``probe.launch.p1``-``p3``,
 ``k1.const_miss`` (a device constant built and uploaded), ``tag.pin_alloc``
-(a pinned staging buffer allocated), ``build.nvcc.<library>`` and
+(a pinned staging buffer allocated), ``tag.stage.chunks`` (row chunks
+staged on the staging pool) and ``tag.stage.serial`` (batches staged on the
+calling thread), ``build.nvcc.<library>`` and
 ``build.load.<library>`` (a kernel library compiled, loaded).
 """
 

@@ -1,9 +1,11 @@
 """The port's ``utils/profiling.py`` and the ``profile`` subcommand: the trace
 file loads as JSON and holds events; on the card, one K1 kernel event a
 traced predict, every device row of a predict inside its ``tag.predict``
-span on the trace's clock, and the staging buffer allocated once a shape."""
+span on the trace's clock, and the staging buffer allocated once a shape, and the chunked staging's probs bit
+for bit those of the serial staging's."""
 
 import json
+import math
 
 import numpy as np
 import pytest
@@ -11,7 +13,8 @@ import torch
 from torch_threads import one_torch_thread  # noqa: F401
 
 from efficientat_tpu_torch import cli
-from efficientat_tpu_torch.infer.tag import Tagger
+from efficientat_tpu_torch.infer import tag
+from efficientat_tpu_torch.infer.tag import Tagger, _stage_pool
 from efficientat_tpu_torch.ops import mel_kernel
 from efficientat_tpu_torch.utils.profiling import (
     DEVICE_CATEGORIES,
@@ -133,3 +136,52 @@ def test_predict_pins_one_staging_buffer_a_shape():
     got = {s["name"]: s for s in take_spans()}
     assert got["tag.members"]["device_ms"] > 0
     assert got["tag.stage"]["device_ms"] is None
+
+
+def _clips(batch, seed):
+    rng = np.random.default_rng(seed)
+    return (0.1 * rng.normal(size=(batch, 320000))).astype(np.float32)
+
+
+def _input_sensitive_tagger():
+    """mn10_as with its weights drawn at 1 / sqrt(fan-in): upstream's init
+    leaves every logit so near 0 that each prob rounds to 0.5 whatever the
+    input, and a comparison of probs would then show nothing."""
+    tagger = Tagger("mn10_as", pretrained=False, device="cuda")
+    g = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for p in tagger.members[0].parameters():
+            if p.dim() > 1:
+                p.copy_(torch.randn(p.shape, generator=g) / math.sqrt(p[0].numel()))
+    return tagger
+
+
+@pytest.mark.cuda
+def test_chunked_staging_gives_the_serial_probs(monkeypatch):
+    tagger = _input_sensitive_tagger()
+    waves = _clips(64, 0)
+    chunks = counter("tag.stage.chunks")
+    pooled = tagger.predict(waves)
+    assert counter("tag.stage.chunks") - chunks == min(64, tag.CHUNKS_A_THREAD * _stage_pool()[1])
+    # the same Tagger with the batch under the threshold: one serial copy
+    monkeypatch.setattr(tag, "STAGE_MIN_BYTES", waves.nbytes + 1)
+    serial = counter("tag.stage.serial")
+    np.testing.assert_array_equal(tagger.predict(waves), pooled)
+    assert counter("tag.stage.serial") - serial == 1
+
+
+@pytest.mark.cuda
+def test_back_to_back_predicts_each_answer_their_own_batch(monkeypatch):
+    tagger = _input_sensitive_tagger()
+    batches = [_clips(64, seed) for seed in range(4)]
+    pins = counter("tag.pin_alloc")
+    pooled = [tagger.predict(b) for b in batches]
+    assert counter("tag.pin_alloc") - pins == 1
+    # each batch alone, staged serially, between two others
+    monkeypatch.setattr(tag, "STAGE_MIN_BYTES", batches[0].nbytes + 1)
+    for i, b in enumerate(batches):
+        tagger.predict(batches[i - 1])
+        np.testing.assert_array_equal(tagger.predict(b), pooled[i])
+    assert counter("tag.pin_alloc") - pins == 1
+    assert all(np.abs(pooled[i] - pooled[j]).max() > 0
+               for i in range(4) for j in range(i))
