@@ -8,7 +8,9 @@ where it is large (``stage_rows``), and each chunk's copy to the device
 landed; it is decoded there (``tag.decode``) (f32 / int16 / mu-law uint8), turned into log-mels
 by ``log_mel_spectrogram_fused`` (K1 on CUDA; ``tag.mel``), run through
 every member (a DyMN at its ``cfg.t_max``, the final temperature of its
-training; ``tag.members``, timed on the device too), the members' logits
+training; ``tag.members``, and inside it ``tag.member.mn`` or
+``tag.member.dymn`` around each member by its family, all timed on the device
+too), the members' logits
 are averaged in fp32 before the sigmoid (``tag.sigmoid``), and the probs
 are read back, where the host waits for the device (``tag.readback``). The whole
 batch runs at once: the JAX Tagger's DyMN micro-batching is a TPU
@@ -142,6 +144,11 @@ def _member_logits(model: nn.Module, mel: torch.Tensor) -> torch.Tensor:
     return model(mel, *_serving_args(model))[0]
 
 
+def _member_span(model: nn.Module) -> str:
+    """The span of a member's forward inside ``tag.members``, by family."""
+    return "tag.member.dymn" if isinstance(model, DyMN) else "tag.member.mn"
+
+
 class Tagger:
     """Audio tagger over one MN or DyMN model or an averaged ensemble of them.
 
@@ -270,7 +277,10 @@ class Tagger:
                 with span("tag.members", device=True), torch.autocast(
                         self.device.type, dtype=self.dtype,
                         enabled=self.dtype != torch.float32):
-                    logits = [_member_logits(model, mel) for model in self.members]
+                    logits = []
+                    for model in self.members:
+                        with span(_member_span(model), device=True):
+                            logits.append(_member_logits(model, mel))
                 with span("tag.sigmoid"):
                     logits = sum(lg.float() for lg in logits)
                     probs = torch.sigmoid(logits / len(self.members))

@@ -11,8 +11,9 @@ counterpart of ``jax.profiler``). ``time_fn`` times a call and
 ``device_memory_stats`` reads the allocator's statistics of each card.
 
 Spans mark the port's layer boundaries (``Tagger.predict``'s staging, copy,
-mel, members and read-back; ``train_step``'s forward, backward and
-optimizer):
+mel, members and read-back, and inside ``tag.members`` one
+``tag.member.mn`` or ``tag.member.dymn`` a member, on the device's clock
+too; ``train_step``'s forward, backward and optimizer):
 
     with span("tag.members", device=True):
         ...

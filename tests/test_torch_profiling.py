@@ -126,7 +126,7 @@ def test_predict_pins_one_staging_buffer_a_shape():
     tagger.predict(np.zeros((3, 32000), np.float32))
     tagger.predict(np.zeros((3, 32000), np.int16))
     assert counter("tag.pin_alloc") == before + 3
-    # spans on: the members' span holds its CUDA-event time
+    # spans on: the members' span and its member's hold their CUDA-event time
     take_spans()
     set_spans(True)
     try:
@@ -135,6 +135,7 @@ def test_predict_pins_one_staging_buffer_a_shape():
         set_spans(False)
     got = {s["name"]: s for s in take_spans()}
     assert got["tag.members"]["device_ms"] > 0
+    assert 0 < got["tag.member.mn"]["device_ms"] <= got["tag.members"]["device_ms"]
     assert got["tag.stage"]["device_ms"] is None
 
 

@@ -134,6 +134,9 @@ def test_predict_records_every_span_inside_its_call(spans_on):
         # copies to the device are issued inside the staging
         top = [s["name"] for s in mine if s["parent"] == i]
         assert top == [n for n in PREDICT_SPANS[1:] if n != "tag.h2d"]
+        # the one member's forward is the members' only child
+        members = got.index(next(s for s in mine if s["name"] == "tag.members"))
+        assert [s["name"] for s in mine if s["parent"] == members] == ["tag.member.mn"]
         # the root's self time is what its children leave
         assert root["self_ms"] == pytest.approx(
             root["ms"] - sum(s["ms"] for s in mine if s["parent"] == i), abs=1e-6)
@@ -259,7 +262,7 @@ def test_profile_trace_holds_the_spans(tmp_path, capsys):
         events = json.load(f)["traceEvents"]
     names = [e.get("name") for e in events if e.get("cat") == "user_annotation"]
     assert names.count("tag.predict") == 2 and names.count("tag.stage") == 2
-    assert set(PREDICT_SPANS) <= set(names)
+    assert set(PREDICT_SPANS) <= set(names) and names.count("tag.member.mn") == 2
     assert "no device rows in the trace" in capsys.readouterr().out
     # the subcommand leaves spans off and the buffer empty
     assert set_spans(False) is False and take_spans() == []
