@@ -150,14 +150,24 @@ and member-parallel serving through the Tagger, and DyMN's options:
     B=2, the model alone at B=64 and 256 with its device groups; the KD
     train step at B=120 in fp32 with and without the bf16 mix (time, split,
     peak memory, profile, K1 at every step) and that step's loss against
-    the CPU's at the card's model input.
+    the CPU's at the card's model input;
+24. training-mode BatchNorm (``ops/batch_norm.py``, ``csrc/batch_norm.cu``)
+    at each of ``mn10_as``'s 19 BatchNorm shapes at B=120, fp32 and bf16:
+    y, dx, dgamma, dbeta and the running statistics against ATen's own
+    kernels on the same input (``TOL_BN``, which the bf16 kernels miss
+    against fp32's), timed beside the plain version, cuDNN and the byte
+    bound; one ``train_step`` at B=120, fp32 and bf16 autocast, launches
+    them once a layer each way (46 and 46), a ``Tagger.predict`` not at
+    all.
 
 Then one JSON line on the kernels, per path (tag, train, train_dp,
 tag_fp32, train_fp32, tag_dymn, train_dymn, train_dp_dymn, tag_windowed,
 tag_ensemble2, tag_bf16, eval_variable, tag_mels_256, tag_mels_256_fp32,
 profile, tag_member_parallel, tag_mesh, train_dymn_dyconv_bf16, probe),
 each K1 row naming the kernel its route launched, then the rows of
-``mel_edges`` (tag, train) and ``tile_banks`` (train), the card's
+``mel_edges`` (tag, train) and ``tile_banks`` (train), the BatchNorm
+kernels' rows (``train_bn``: forward and backward, fp32 and bf16, summed
+over the 46 layers), the card's
 ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 nothing falls back to the CPU.
@@ -165,6 +175,7 @@ nothing falls back to the CPU.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import multiprocessing
@@ -200,6 +211,7 @@ from efficientat_tpu_torch.models.registry import (  # noqa: E402
     get_model_config,
 )
 from efficientat_tpu_torch.ops import _build, mel_kernel, mel_probe  # noqa: E402
+from efficientat_tpu_torch.ops import batch_norm as bn_ops  # noqa: E402
 from efficientat_tpu_torch.ops.mel_kernel import log_mel_spectrogram_fused  # noqa: E402
 from efficientat_tpu_torch.ops.filterbank import kaldi_mel_banks  # noqa: E402
 from efficientat_tpu_torch.ops.melspec import (  # noqa: E402
@@ -225,7 +237,7 @@ from efficientat_tpu_torch.parallel.ensemble import (  # noqa: E402
     stack_member_params,
 )
 from efficientat_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
-from efficientat_tpu_torch.tools import probe_mel_kernel, time_k1  # noqa: E402
+from efficientat_tpu_torch.tools import probe_mel_kernel, time_bn, time_k1  # noqa: E402
 from efficientat_tpu_torch.tools.complexity import count_module_params  # noqa: E402
 from efficientat_tpu_torch.tools.macs import count_macs  # noqa: E402
 from efficientat_tpu_torch.tools.probe_mel_kernel import median_ms  # noqa: E402
@@ -2646,6 +2658,139 @@ def phase_dymn_options(device, card):
     return launches[(False, False)]
 
 
+# ------------------------------------------------------- training-mode BN
+
+BN_MODEL, BN_LAYERS = "mn10_as", 46  # the model whose BatchNorm shapes phase 24 takes
+BN_DTYPES = (torch.float32, torch.bfloat16)
+BN_TIME_ITERS = 5
+# the kernels against ATen's own CUDA kernels on the same input
+# (``native_batch_norm`` and its backward): the largest difference of an
+# output over its largest value. fp32: sums in another order, set from two
+# readings: the kernels' gaps to float64 at these shapes (at most 1.6e-6,
+# cuDNN's 3.8e-6, tests/test_torch_batch_norm.py) and the bf16 kernels
+# against fp32's plain version (~2e-3), which must miss it. bf16 outputs:
+# two bf16 steps at the largest value (2**-6), where the two round an
+# fp32 result either way; the running statistics are fp32 in both.
+TOL_BN = {torch.float32: 2e-5, torch.bfloat16: 2.0 ** -6}
+BN_OUTPUTS = ("y", "dx", "dgamma", "dbeta", "running_mean", "running_var")
+BN_KERNELS = {"forward": "bn_forward_stats + bn_forward_apply",
+              "backward": "bn_backward_reduce + bn_backward_apply"}
+
+
+def bn_kernel_gap(got, want):
+    """The largest difference over ``want``'s largest value."""
+    want = want.double()
+    return float((got.double() - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def bn_outputs(shape, dtype, port):
+    """One training-mode forward and backward at ``shape`` on
+    ``time_bn.shape_inputs``: the port's kernels (``port``) or ATen's own
+    (``native_batch_norm`` and its backward). Returns ``BN_OUTPUTS``."""
+    x, dy, w, b, rm, rv = time_bn.shape_inputs(shape, dtype, seed=sum(shape))
+    mom, eps = time_bn.MOMENTUM, time_bn.EPS
+    if port:
+        y, stats = bn_ops.forward_kernels(x, w, b, rm, rv, mom, eps)
+        dx, dw, db = bn_ops.backward_kernels(x, dy, w, stats)
+    else:
+        y, mean, invstd = torch.ops.aten.native_batch_norm(x, w, b, rm, rv, True, mom, eps)
+        dx, dw, db = torch.ops.aten.native_batch_norm_backward(
+            dy, x, w, rm, rv, mean, invstd, True, eps, [True, True, True])
+    return dict(zip(BN_OUTPUTS, (y, dx, dw, db, rm, rv)))
+
+
+def bn_step_launches(device, bf16):
+    """One ``train_step`` of ``BN_MODEL`` at B=120, 10 s clips, with the BN
+    counters set to 0 just before: (forward, backward) launches."""
+    mel_cfg, loss_cfg = audioset_configs()
+    model = _step_model(seeded_weights(BN_MODEL, 11), BN_MODEL).to(device)
+    opt = make_optimizer(model.parameters(), 8e-4)
+    rng = np.random.default_rng(11)
+    batch = {k: torch.from_numpy(v).to(device) for k, v in {
+        "wave": train_waves(TRAIN_BATCH, seed=11),
+        "target": (rng.random((TRAIN_BATCH, 527)) > 0.9).astype(np.float32),
+        "teacher": rng.random((TRAIN_BATCH, 527)).astype(np.float32),
+        "teacher_valid": np.ones(TRAIN_BATCH, np.float32)}.items()}
+    draws = StepRandom(11).draw(mel_cfg, loss_cfg, TRAIN_BATCH, CLIP)
+    profiling.reset_counters("bn.")
+    metrics = train_step(model, opt, None, mel_cfg, loss_cfg, batch, draws, bf16=bf16)
+    torch.cuda.synchronize()
+    check(bool(np.isfinite(float(metrics["train_loss"]))), "BN step: non-finite loss")
+    return profiling.counter("bn.launch.forward"), profiling.counter("bn.launch.backward")
+
+
+def phase_batch_norm(device, card):
+    """24. Training-mode BatchNorm's kernels (``ops/batch_norm.py``,
+    ``csrc/batch_norm.cu``) at each of ``BN_MODEL``'s BatchNorm shapes at
+    B=120, fp32 and bf16: y, dx, dgamma, dbeta and the running statistics
+    against ATen's own kernels on the same input within ``TOL_BN`` (the
+    bf16 kernels against fp32's must miss the fp32 bound); the kernels',
+    the plain version's and cuDNN's device time beside the byte bound
+    (``time_bn.time_shape``); the launches of one ``train_step`` (fp32 and
+    bf16 autocast), one a layer each way, and of a ``Tagger.predict``,
+    none. Returns the kernels line's rows, one a precision and direction,
+    summed over the model's layers."""
+    shapes = time_bn.layer_shapes(BN_MODEL, TRAIN_BATCH)
+    layers = collections.Counter(shapes)
+    check(len(shapes) == BN_LAYERS, f"{BN_MODEL} has {len(shapes)} BatchNorm layers")
+    sums = {(dt, d): collections.defaultdict(float) for dt in BN_DTYPES
+            for d in ("forward", "backward")}
+    worst = {dt: dict.fromkeys(BN_OUTPUTS, 0.0) for dt in BN_DTYPES}
+    control = []  # the bf16 kernels' y and dx against fp32's plain version
+    for shape in layers:
+        plain32 = bn_outputs(shape, torch.float32, port=False)
+        for dtype in BN_DTYPES:
+            got = bn_outputs(shape, dtype, port=True)
+            want = plain32 if dtype == torch.float32 else bn_outputs(shape, dtype, port=False)
+            gaps = {k: bn_kernel_gap(got[k], want[k]) for k in BN_OUTPUTS}
+            if dtype == torch.bfloat16:
+                control.append(max(bn_kernel_gap(got[k], plain32[k]) for k in ("y", "dx")))
+            rec = time_bn.time_shape(shape, dtype, BN_TIME_ITERS)
+            phase("bn_shape", shape=json.dumps(list(shape)), layers=layers[shape],
+                  dtype=str(dtype)[6:], plan=json.dumps(rec["plan"]),
+                  gaps=json.dumps(gaps), bound=TOL_BN[dtype],
+                  forward=json.dumps(rec["forward"]), backward=json.dumps(rec["backward"]))
+            for k, g in gaps.items():
+                worst[dtype][k] = max(worst[dtype][k], g)
+                tol = TOL_BN[torch.float32 if k.startswith("running") else dtype]
+                check(g <= tol, f"BN kernels {k} at {shape} {dtype}: {g} against {tol}")
+            for d in ("forward", "backward"):
+                for k in ("kernel_ms", "plain_ms", "library_ms", "bound_ms"):
+                    sums[dtype, d][k] += layers[shape] * rec[d][k]
+            del got, want
+        del plain32
+    check(min(control) > TOL_BN[torch.float32],
+          f"the bf16 kernels pass the fp32 bound against fp32's plain version: {min(control)}")
+    phase("bn_control", what="bf16 kernels' y and dx against fp32's plain version",
+          least=min(control), bound=TOL_BN[torch.float32])
+    launches = {dt: bn_step_launches(device, bf16=dt == torch.bfloat16) for dt in BN_DTYPES}
+    tagger = Tagger(BN_MODEL, pretrained=False, device=device, seed=0)
+    profiling.reset_counters("bn.")
+    tagger.predict(train_waves(4, seed=7))
+    predict = (profiling.counter("bn.launch.forward"), profiling.counter("bn.launch.backward"))
+    phase("bn_launches", model=BN_MODEL, batch=TRAIN_BATCH,
+          train_step=json.dumps({str(dt)[6:]: n for dt, n in launches.items()}),
+          predict=json.dumps(predict))
+    check(all(n == (BN_LAYERS, BN_LAYERS) for n in launches.values()),
+          f"a train step did not launch the BN kernels once a layer each way: {launches}")
+    check(predict == (0, 0), f"a predict launched the training BN kernels: {predict}")
+    del tagger
+    torch.cuda.empty_cache()
+    rows = []
+    for (dtype, d), t in sums.items():
+        rows.append({"name": "batch_norm_" + d, "path": "train_bn", "route": "cuda",
+                     "source": "efficientat_tpu_torch/csrc/batch_norm.cu",
+                     "entry": "efficientat_tpu_torch/csrc/batch_norm.cu::eat_bn_" + d,
+                     "kernel": BN_KERNELS[d], "replaces": None,
+                     "precision": str(dtype)[6:], "batch": TRAIN_BATCH, "layers": BN_LAYERS,
+                     "launches": launches[dtype][d == "backward"],
+                     "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
+                     "library_ms": t["library_ms"], "bound_ms": t["bound_ms"],
+                     "bound_by": "bytes", "share_pct": 100 * t["bound_ms"] / t["kernel_ms"],
+                     "max_gap": json.dumps(worst[dtype]), "card": card})
+    return rows
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -3067,6 +3212,8 @@ def main():
                           **{**k1_train["bf16x3"],
                              "launches": phase_dymn_options(device, card)}))
     lap("23 dymn options")
+    bn_rows = phase_batch_norm(device, card)
+    lap("24 batch_norm")
 
     # each K1 row's bound (its mel product priced as its route computes it)
     # and cuBLAS yardstick, at the clips a launch and the precision of its
@@ -3102,6 +3249,7 @@ def main():
           f"a K1 call's kernel did not run on its path: {call_rows}")
     kernels.extend(call_rows)
     kernels.extend(probe_rows)
+    kernels.extend(bn_rows)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

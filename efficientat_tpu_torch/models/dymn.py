@@ -58,6 +58,7 @@ from efficientat_tpu_torch.models.layers import (
     ACTIVATIONS,
     BN_EPS,
     BN_MOMENTUM,
+    BatchNorm2d,
     BlockConfig,
     ConvNormAct,
     FullyConvHead,
@@ -79,8 +80,8 @@ def dyconv_temperature(epoch: int, t_max: float = 30.0, t_min: float = 1.0,
     return max(t0, t1, t_min)
 
 
-def _bn(channels: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(channels, eps=BN_EPS, momentum=BN_MOMENTUM)
+def _bn(channels: int) -> BatchNorm2d:
+    return BatchNorm2d(channels, eps=BN_EPS, momentum=BN_MOMENTUM)
 
 
 PW_FORMS = ("per_sample", "shared_out", "shared_in")

@@ -8,7 +8,10 @@ BN; ``InvertedResidual.block``; ``ConcurrentSEBlock.conc_se_layers.k.fc1/fc2``;
 
 BatchNorm: eps 1e-3, momentum 0.01 in the backbone (upstream
 models/mn/model.py:114-115); the fully-convolutional head keeps torch's
-defaults, eps 1e-5 and momentum 0.1 (models/mn/model.py:183).
+defaults, eps 1e-5 and momentum 0.1 (models/mn/model.py:183). Every
+BatchNorm of MN and DyMN is ``BatchNorm2d`` below: in training mode on a
+CUDA input it runs the port's kernels (``ops/batch_norm.py``), elsewhere
+``nn.BatchNorm2d``.
 
 Exact-length evaluation of a bucket-padded batch (``time_valid``, the
 number of valid time frames of each row): the padded frames are zeroed
@@ -28,6 +31,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from efficientat_tpu_torch.ops import batch_norm
 from efficientat_tpu_torch.utils.common import cnn_out_size, make_divisible
 
 BN_EPS = 1e-3
@@ -61,6 +65,36 @@ def masked_time_mean(x: torch.Tensor, time_valid: torch.Tensor) -> torch.Tensor:
     return time_mask(x, time_valid).sum(dim=(2, 3)) / denom
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` with the same parameters, buffers and
+    ``state_dict`` keys, whose training-mode forward on a CUDA input runs
+    the port's kernels (``ops/batch_norm.py``; their backward too). A CPU
+    input, and eval mode (inference BatchNorm), take ``nn.BatchNorm2d``'s
+    own path. Its parameters are checked for the kernels once, and again
+    only when one of them is replaced (another address). The running
+    statistics are updated in place on the same tensors, so
+    ``_buffers_kept`` restores them."""
+
+    _checked = None  # the parameters' addresses and x's channels and card, checked
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not (self.training and x.is_cuda):
+            return super().forward(x)
+        self._check_input_dim(x)
+        batch_norm.check_input(x)
+        params = (self.weight, self.bias, self.running_mean, self.running_var)
+        key = (x.shape[1], x.get_device(),
+               *(None if t is None else t.data_ptr() for t in params))
+        if key != self._checked:
+            batch_norm.check_parameters(x, *params)
+            self._checked = key
+        factor = self.momentum
+        self.num_batches_tracked.add_(1)
+        if self.momentum is None:  # cumulative moving average
+            factor = 1.0 / float(self.num_batches_tracked)
+        return batch_norm.BatchNormTrain.apply(x, *params, factor, self.eps)
+
+
 class ConvNormAct(nn.Sequential):
     """Conv2d (no bias, torch-style symmetric padding) -> BatchNorm -> activation."""
 
@@ -71,7 +105,7 @@ class ConvNormAct(nn.Sequential):
             nn.Conv2d(in_channels, out_channels, kernel, stride,
                       padding=(kernel - 1) // 2 * dilation, dilation=dilation,
                       groups=groups, bias=False),
-            nn.BatchNorm2d(out_channels, eps=BN_EPS, momentum=BN_MOMENTUM),
+            BatchNorm2d(out_channels, eps=BN_EPS, momentum=BN_MOMENTUM),
         ]
         if act is not None:
             layers.append(act())
@@ -278,7 +312,7 @@ class FullyConvHead(nn.Sequential):
     def __init__(self, in_channels: int, num_classes: int):
         super().__init__(
             nn.Conv2d(in_channels, num_classes, 1, bias=False),
-            nn.BatchNorm2d(num_classes, eps=1e-5, momentum=0.1),
+            BatchNorm2d(num_classes, eps=1e-5, momentum=0.1),
             nn.AdaptiveAvgPool2d(1),
             nn.Flatten(1),
         )

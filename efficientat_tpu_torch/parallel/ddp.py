@@ -29,6 +29,8 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from efficientat_tpu_torch.models.layers import BatchNorm2d
+
 
 @dataclasses.dataclass(frozen=True)
 class DataParallel:
@@ -125,7 +127,7 @@ class _AllReduceSum(torch.autograd.Function):
         return grad
 
 
-class GlobalBatchNorm2d(nn.BatchNorm2d):
+class GlobalBatchNorm2d(BatchNorm2d):
     """BatchNorm2d whose training-mode statistics span every rank's rows.
 
     Under an initialised process group of more than one rank, in training,
@@ -134,7 +136,8 @@ class GlobalBatchNorm2d(nn.BatchNorm2d):
     ``_AllReduceSum`` (whose backward all-reduces the gradient, so every
     rank's loss reaches every rank's activations), and the global mean and
     biased variance normalise the rows. The running variance takes the unbiased estimate, as
-    ``nn.BatchNorm2d``. Otherwise it is ``nn.BatchNorm2d``. Same
+    ``nn.BatchNorm2d``. Otherwise it is the port's ``models.layers.BatchNorm2d``
+    (its kernels in training on a CUDA input, at world size 1 too). Same
     ``state_dict`` keys."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -165,11 +168,12 @@ class GlobalBatchNorm2d(nn.BatchNorm2d):
 
 
 def convert_global_bn(module: nn.Module) -> nn.Module:
-    """Swap every ``nn.BatchNorm2d`` of ``module`` for a ``GlobalBatchNorm2d``
-    holding the same parameters and buffers. Call before the optimizer is
-    built: the parameters are new objects."""
+    """Swap every BatchNorm of ``module``, the port's ``BatchNorm2d`` or a
+    plain ``nn.BatchNorm2d``, for a ``GlobalBatchNorm2d`` holding the same
+    parameters and buffers. Call before the optimizer is built: the
+    parameters are new objects."""
     for name, child in module.named_children():
-        if type(child) is nn.BatchNorm2d:
+        if type(child) in (BatchNorm2d, nn.BatchNorm2d):
             if child.momentum is None:
                 raise ValueError("GlobalBatchNorm2d needs a momentum")
             new = GlobalBatchNorm2d(child.num_features, child.eps,

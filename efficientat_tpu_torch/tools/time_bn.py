@@ -1,0 +1,243 @@
+"""Time the training-mode BatchNorm kernels on the card at a model's shapes.
+
+    python -m efficientat_tpu_torch.tools.time_bn [--model_name mn10_as]
+        [--batch 120] [--dtype float32 bfloat16] [--iters 20]
+    python -m efficientat_tpu_torch.tools.time_bn --trace_step [--batch 120]
+
+The shapes are every BatchNorm input of ``--model_name`` on ``--batch``
+10 s clips (128 mels, 1000 frames), in the model's order. For each shape
+and dtype, one JSON line: the layers of that shape, the launch plan
+(``ops/batch_norm.py::plan``), and for the forward and the backward the
+kernels' device time a call (``kernel_ms``, ``torch.profiler``'s rows),
+the byte bound at 3.35 TB/s (``bound_ms``: 3 and 5 passes over the input)
+and the kernels' share of it, the plain version's time (``plain_ms``:
+ATen's own CUDA kernels, ``native_batch_norm`` and its backward) and the
+library's (``library_ms``: the kernels ``F.batch_norm`` picks in training,
+which the port never calls: cuDNN's for fp32, ATen's for a bf16 input with
+fp32 gamma, which cuDNN refuses). Then the sums over the model's layers,
+and last the card's name and power limit as ``nvidia-smi`` gives them.
+
+``--trace_step`` profiles one ``train_step`` of ``--model_name`` (fp32 with TF32
+off, K1's DFT bf16x3, after two warm-up steps) and prints each
+BatchNorm kernel of the step in launch order with its device time, grid and
+block, one JSON line a kernel, then their sums by kernel name. It needs only
+``train_step`` and the profiler, so a copy of this file runs it in a
+checkout that predates the port's kernels (cuDNN's BatchNorm).
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import os
+import subprocess
+import tempfile
+
+import numpy as np
+import torch
+from torch import nn
+
+from efficientat_tpu_torch.models.registry import build_model
+from efficientat_tpu_torch.utils.profiling import PRIMER_KERNELS
+
+MOMENTUM, EPS = 0.01, 1e-3
+CLIP_FRAMES, N_MELS = 1000, 128
+BN_KERNELS = ("bn_", "batch_norm", "batchnorm")
+
+
+def layer_shapes(name: str, batch: int, device: str = "cuda") -> list:
+    """(N, C, H, W) of each BatchNorm input of ``name`` at ``batch`` clips,
+    in the model's order (one eval-mode forward of one clip on ``device``)."""
+    model = build_model(name).to(device).eval()
+    shapes = []
+    hooks = [m.register_forward_hook(lambda m, inp, out: shapes.append(
+        (batch,) + tuple(inp[0].shape[1:]))) for m in model.modules()
+        if isinstance(m, nn.BatchNorm2d)]
+    with torch.no_grad():
+        model(torch.zeros(1, 1, N_MELS, CLIP_FRAMES, device=device))
+    for h in hooks:
+        h.remove()
+    return shapes
+
+
+def device_ms(fn, iters: int, warmup: int = 3, tries: int = 3) -> float:
+    """The device time of one call of ``fn``: its kernels' and memsets'
+    durations in ``torch.profiler``, summed over ``iters`` calls back to
+    back, over ``iters``. (CUDA events around one call would add the host's
+    enqueue to the small layers' microseconds.) Each profile starts with a
+    warm-up step of ``PRIMER_KERNELS`` small kernels whose records it
+    discards: in a process profiled many times before, the card's first
+    records after the profiler turns them on can go missing
+    (``utils/profiling.trace``). A profile that still holds no device row is
+    taken again, up to ``tries`` times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    primer = torch.zeros(1, device="cuda")
+    for _ in range(tries):
+        events = []
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda prof: events.extend(
+                         e for e in prof.events() if e.device_type == DeviceType.CUDA)) as prof:
+            for _ in range(PRIMER_KERNELS):
+                primer.fill_(0.0)
+            torch.cuda.synchronize()
+            prof.step()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+        us = sum(e.time_range.end - e.time_range.start for e in events
+                 if not e.name.startswith("ProfilerStep"))
+        if us > 0:
+            return us / 1e3 / iters
+    raise RuntimeError(f"the profiler recorded no device time in {tries} profiles")
+
+
+def shape_inputs(shape, dtype, seed: int = 0):
+    """Seeded CUDA inputs of a layer: x, dy, gamma, beta, running mean and
+    variance (x with an offset and a spread)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    c = shape[1]
+    x = (torch.randn(shape, device="cuda", generator=gen) * 2 + 0.5).to(dtype)
+    dy = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+    w = torch.rand(c, device="cuda", generator=gen) + 0.5
+    b = torch.randn(c, device="cuda", generator=gen)
+    return x, dy, w, b, torch.zeros(c, device="cuda"), torch.ones(c, device="cuda")
+
+
+def time_shape(shape, dtype, iters: int) -> dict:
+    """One record: the kernels, the plain version and the library at ``shape``."""
+    from efficientat_tpu_torch.ops import batch_norm as bn
+
+    x, dy, w, b, rm, rv = shape_inputs(shape, dtype)
+    itemsize = x.element_size()
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    launch = bn.plan(shape, itemsize, sms)
+    _, stats = bn.forward_kernels(x, w, b, rm, rv, MOMENTUM, EPS)
+    kernels = {
+        "forward": lambda: bn.forward_kernels(x, w, b, rm, rv, MOMENTUM, EPS),
+        "backward": lambda: bn.backward_kernels(x, dy, w, stats),
+    }
+    _, smean, sinv = torch.ops.aten.native_batch_norm(x, w, b, rm, rv, True, MOMENTUM, EPS)
+    _, lmean, lvar, reserve = torch.ops.aten._batch_norm_with_update(x, w, b, rm, rv,
+                                                                     MOMENTUM, EPS)
+    plain = {
+        "forward": lambda: torch.ops.aten.native_batch_norm(x, w, b, rm, rv, True,
+                                                            MOMENTUM, EPS),
+        "backward": lambda: torch.ops.aten.native_batch_norm_backward(
+            dy, x, w, rm, rv, smean, sinv, True, EPS, [True, True, True]),
+    }
+    library = {
+        "forward": lambda: torch.ops.aten._batch_norm_with_update(x, w, b, rm, rv,
+                                                                  MOMENTUM, EPS),
+        "backward": lambda: torch.ops.aten.batch_norm_backward(
+            dy, x, w, rm, rv, lmean, lvar, True, EPS, [True, True, True], reserve),
+    }
+    rec = {"shape": list(shape), "dtype": str(dtype).replace("torch.", ""),
+           "plan": {"vec": launch.vec, "chunks": launch.chunks,
+                    "blocks": shape[1] * launch.chunks}}
+    for d in ("forward", "backward"):
+        ms = device_ms(kernels[d], iters)
+        bound = bn.bound_bytes(shape, itemsize, d) / bn.HBM_BYTES_PER_S * 1e3
+        rec[d] = {"kernel_ms": ms, "bound_ms": bound, "share_pct": 100 * bound / ms,
+                  "plain_ms": device_ms(plain[d], iters),
+                  "library_ms": device_ms(library[d], iters)}
+    return rec
+
+
+def time_model(name: str, batch: int, dtypes, iters: int) -> None:
+    shapes = layer_shapes(name, batch)
+    counts = collections.Counter(shapes)
+    for dtype in dtypes:
+        sums = collections.defaultdict(float)
+        for shape in dict.fromkeys(shapes):
+            rec = time_shape(shape, dtype, iters)
+            rec["layers"] = counts[shape]
+            print(json.dumps(rec), flush=True)
+            for d in ("forward", "backward"):
+                for k in ("kernel_ms", "bound_ms", "plain_ms", "library_ms"):
+                    sums[f"{d}_{k}"] += counts[shape] * rec[d][k]
+        print(json.dumps({"model": name, "batch": batch, "layers": len(shapes),
+                          "dtype": str(dtype).replace("torch.", ""),
+                          "sums_ms": dict(sums)}), flush=True)
+
+
+def trace_step(name: str, batch: int) -> None:
+    """One profiled ``train_step``: its BatchNorm kernels in launch order."""
+    from efficientat_tpu_torch.ops.melspec import MelConfig
+    from efficientat_tpu_torch.train.loop import LossConfig, StepRandom, make_optimizer, train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.manual_seed(0)
+    model = build_model(name).cuda()
+    mel_cfg = MelConfig(freqm=0, timem=0)
+    loss_cfg = LossConfig(kind="bce", mixup_alpha=0.3)
+    samples = 10 * mel_cfg.sr
+    rng = np.random.default_rng(0)
+    wave = torch.from_numpy((rng.standard_normal((batch, samples)) * 0.1)
+                            .astype(np.float32)).cuda()
+    target = torch.from_numpy((rng.random((batch, 527)) < 0.05).astype(np.float32)).cuda()
+    opt = make_optimizer(model.parameters(), 1e-4)
+    draws = StepRandom(0)
+
+    def step():
+        train_step(model, opt, None, mel_cfg, loss_cfg, {"wave": wave, "target": target},
+                   draws.draw(mel_cfg, loss_cfg, batch, samples), dft_precision="bf16x3")
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    rows = sorted((e for e in events if e.get("cat") == "kernel"
+                   and any(k in e["name"].lower() for k in BN_KERNELS)),
+                  key=lambda e: e["ts"])
+    sums = collections.defaultdict(lambda: [0, 0.0])
+    for e in rows:
+        args = e.get("args", {})
+        print(json.dumps({"kernel": e["name"][:120], "ms": e["dur"] / 1e3,
+                          "grid": args.get("grid"), "block": args.get("block")}), flush=True)
+        sums[e["name"][:120]][0] += 1
+        sums[e["name"][:120]][1] += e["dur"] / 1e3
+    print(json.dumps({"model": name, "batch": batch, "bn_kernels": len(rows),
+                      "bn_ms": sum(v[1] for v in sums.values()),
+                      "by_kernel": {k: {"launches": n, "ms": ms}
+                                    for k, (n, ms) in sums.items()}}), flush=True)
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--model_name", default="mn10_as")
+    p.add_argument("--batch", type=int, default=120)
+    p.add_argument("--dtype", nargs="+", choices=("float32", "bfloat16"), default=["float32"])
+    p.add_argument("--iters", type=int, default=20)
+    p.add_argument("--trace_step", action="store_true")
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise RuntimeError("time_bn needs a CUDA device; none is visible")
+    if args.trace_step:
+        trace_step(args.model_name, args.batch)
+    else:
+        time_model(args.model_name, args.batch,
+                   [getattr(torch, d) for d in args.dtype], args.iters)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip(), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -285,7 +285,7 @@ def test_global_bn_is_batchnorm_in_one_process():
     converted = convert_global_bn(MN(MODEL_CFG))
     converted.load_state_dict(state_dict(seed=7), strict=True)
     assert sum(isinstance(m, GlobalBatchNorm2d) for m in converted.modules()) == \
-        sum(type(m) is nn.BatchNorm2d for m in model.modules()) > 0
+        sum(isinstance(m, nn.BatchNorm2d) for m in model.modules()) > 0
     assert list(converted.state_dict()) == list(model.state_dict())
     x = torch.randn(2, 1, 128, 100)
     model.train()
