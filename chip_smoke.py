@@ -44,9 +44,7 @@ seeded random weights, in phases that each print a line:
    B=64, a training call at B=120, an fp32 serving call at B=8: only
    ``mel_kernel_wgmma``, ``mel_edges`` and, in training, ``tile_banks``);
    ``mel_edges`` and ``tile_banks`` (at 128 and 256 mels) against their
-   plain versions in ms beside their bounds; the model alone, and the
-   whole pipeline in clips/s; the pipeline's device time by kernel group
-   (``torch.profiler``).
+   plain versions in ms beside their bounds.
 
 and the training path, ``train audioset`` (KD, mixup, fmin/fmax jitter):
 
@@ -60,9 +58,8 @@ and the training path, ``train audioset`` (KD, mixup, fmin/fmax jitter):
 8. K1-dp and data parallelism: two ranks on this card over gloo, each
    running K1 on its rows and one DDP step, against one process; then
    ``train audioset`` on the two ranks as ``torchrun --nproc_per_node 2``
-   starts it, K1-dp at every step;
-9. the train step's time at B=120, its split into mel, forward+backward
-   and optimizer, and its device time by kernel group;
+   starts it, K1-dp at every step (there is no phase 9: the served and
+   trained paths are timed by the benchmark, ``portbench/``);
 
 and the probe path, the tensor-core variants P1-P3 of the fused log-mel
 (``efficientat_tpu_torch/csrc/mel_probe_kernel.cu``):
@@ -82,14 +79,10 @@ and DyMN (``dymn10_as``, full width, seeded weights), after the probe:
 11. serving through ``Tagger.predict`` at B=64 as f32, int16 and mu-law,
     K1 at every predict; card against CPU in fp32 (seeded init, a seeded
     checkpoint file, and a seeded ``dymn10_im`` file served at its t_max
-    30); model and pipeline times at B=64 and B=256 (the fold's largest
-    group count) with their device profiles by kernel group and by
-    PyTorch op, and each DynamicConv of blocks 1 and 12 alone (forward at
-    B=64; forward+backward at B=120, fp32 and bf16);
+    30);
 12. ``run_train("audioset", ["--model_name", "dymn10_as", ...])`` at B=120
     in fp32, --bf16 and --bf16 --remat, as phase 7; one step on the card
-    against the CPU at temperature 30; the step's time, split, peak memory
-    and profile in fp32, bf16 and bf16 with remat, as phase 9;
+    against the CPU at temperature 30;
 13. ``train audioset --model_name dymn10_as`` on two gloo ranks of cuda:0
     as torchrun starts them: K1-dp at every step, every BatchNorm global.
 
@@ -98,12 +91,12 @@ and the rest of serving and exact-length eval, full width, seeded weights:
 14. windowed tagging, ``EATagger.tag_audio_window(path, 10, 2.5)`` on a
     seeded 60 s WAV (21 windows, one batch) for ``dymn10_as`` and
     ``mn10_as``: K1 once a call, card against CPU, chunks of 8 windows
-    against one batch, audio-seconds/s with the file's decode left out;
-15. the ensemble ``Tagger(["mn40_as_ext", "dymn20_as"])`` at B=32: clips/s,
-    the probs against its members' mean logits, card against CPU at B=2;
+    against one batch;
+15. the ensemble ``Tagger(["mn40_as_ext", "dymn20_as"])`` at B=32: the
+    probs against its members' mean logits, card against CPU at B=2;
 16. the bf16 Tagger (``dtype=torch.bfloat16``, the mel fp32): ``mn10_as``
-    at B=64 and ``dymn10_as`` at B=256, clips/s beside the fp32 Tagger's,
-    probs within the bf16 bound of the fp32 Tagger's;
+    at B=64 and ``dymn10_as`` at B=256, probs within the bf16 bound of the
+    fp32 Tagger's;
 17. ``train esc50 --pretrained --model_name mn10_as`` from a seeded
     527-class file: the head drawn fresh with 50 classes, every other
     tensor from the file, one epoch of 2 steps;
@@ -117,21 +110,16 @@ and the rest of serving and exact-length eval, full width, seeded weights:
 and the analysis tools, the profiler and member-parallel ensembles:
 
 19. complexity: ``tools.macs.count_macs`` and the module's parameter count
-    of ``mn10_as`` and ``dymn10_as`` at a 10 s clip, and the model FLOP rate
-    they imply at phases 5 and 11's model-alone times (2 x MACs x B / ms,
-    and its share of the fp32 peak), printed, not gated;
+    of ``mn10_as`` and ``dymn10_as`` at a 10 s clip;
 20. ``cli.main(["profile", ...])`` on ``mn10_as``, B=16, 4 traced
     predicts: the trace file loads and holds exactly 4 K1 kernel events
-    (``mel_kernel_wgmma``), and
-    K1 launched 5 times (the warm-up predict is outside the trace); beside
-    it, the K1 events a bare ``torch.profiler.profile`` keeps;
+    (``mel_kernel_wgmma``), and K1 launched 5 times (the warm-up predict is
+    outside the trace);
 21. member-parallel serving: two gloo ranks on cuda:0 at data 1 x model 2,
     four seeded full-width ``mn10_as`` members stacked, two a rank, on K1's
     mel of 32 seeded 10 s clips on each rank; rank 0's mean logits against
     one process's sequential mean of the members on the card (a bf16
-    control must miss the bound), and the call's ms (two ranks share one
-    card: not a scaling figure); a rank's two members in one process, the
-    loop the ensemble runs against ``torch.func.vmap`` over the members;
+    control must miss the bound);
 
 and member-parallel serving through the Tagger, and DyMN's options:
 
@@ -142,15 +130,13 @@ and member-parallel serving through the Tagger, and DyMN's options:
     rows), two dymn10_im members (served at t_max 30) and the
     ``mn40_as_ext`` + ``dymn20_as`` ensemble (which falls back) at data 1 x
     model 2; every rank's probs against one process's replicated Tagger,
-    the ms a predict and the device memory a rank beside the replicated
-    Tagger's (ranks sharing one card: not a scaling figure); K1-dp on a
-    rank's rows against its plain version;
-23. ``aten::bmm.dtype`` on the card; ``dymn10_as`` with each ``pw_form``
-    and with ``dyconv_compute="bfloat16"``: logits against the CPU's at
-    B=2, the model alone at B=64 and 256 with its device groups; the KD
-    train step at B=120 in fp32 with and without the bf16 mix (time, split,
-    peak memory, profile, K1 at every step) and that step's loss against
-    the CPU's at the card's model input;
+    and the device memory a rank beside the replicated Tagger's; K1-dp on
+    a rank's rows against its plain version;
+23. ``aten::bmm.dtype`` on the card; ``dymn10_as`` in fp32 and with
+    ``dyconv_compute="bfloat16"``: logits against the CPU's at B=2, the
+    mix's gradients too; one KD train step in fp32 with the bf16 mix (K1
+    fp32), its loss against the CPU's at the card's model input; one
+    untimed B=120 step with the mix (K1 bf16x3 once);
 24. training-mode BatchNorm (``ops/batch_norm.py``, ``csrc/batch_norm.cu``)
     at each of ``mn10_as``'s 19 BatchNorm shapes at B=120, fp32 and bf16:
     y, dx, dgamma, dbeta and the running statistics against ATen's own
@@ -192,12 +178,10 @@ import numpy as np
 import torch
 import torch.distributed as dist
 from torch import nn
-from torch.func import functional_call, vmap
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
-import efficientat_tpu_torch.data as port_data  # noqa: E402
 from efficientat_tpu_torch import cli as port_cli  # noqa: E402
 from efficientat_tpu_torch.data import encode, load_waveform  # noqa: E402
 from efficientat_tpu_torch.data.core import bucket_pad_collate  # noqa: E402
@@ -216,7 +200,6 @@ from efficientat_tpu_torch.ops.mel_kernel import log_mel_spectrogram_fused  # no
 from efficientat_tpu_torch.ops.filterbank import kaldi_mel_banks  # noqa: E402
 from efficientat_tpu_torch.ops.melspec import (  # noqa: E402
     MelConfig,
-    _dft_basis,
     apply_masks,
     device_const,
     draw_mel_augment,
@@ -240,8 +223,6 @@ from efficientat_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
 from efficientat_tpu_torch.tools import probe_mel_kernel, time_bn, time_k1  # noqa: E402
 from efficientat_tpu_torch.tools.complexity import count_module_params  # noqa: E402
 from efficientat_tpu_torch.tools.macs import count_macs  # noqa: E402
-from efficientat_tpu_torch.tools.probe_mel_kernel import median_ms  # noqa: E402
-from efficientat_tpu_torch.train.augment import apply_mixup  # noqa: E402
 from efficientat_tpu_torch.train.cli import run_train  # noqa: E402
 from efficientat_tpu_torch.train.loop import (  # noqa: E402
     LossConfig,
@@ -253,6 +234,7 @@ from efficientat_tpu_torch.train.loop import (  # noqa: E402
     train_step,
 )
 from efficientat_tpu_torch.utils import profiling  # noqa: E402
+from efficientat_tpu_torch.utils.profiling import median_ms  # noqa: E402
 
 SR = 32000
 CLIP = 10 * SR
@@ -378,36 +360,6 @@ DFT_PASSES = {prec: n * (n + 1) // 2 for prec, n in mel_kernel.PARTS.items()}
 # H100 SXM dense peaks (NVIDIA's data sheet): bf16 tensor cores, fp32 CUDA
 # cores, HBM3
 PEAK_BF16, PEAK_FP32, PEAK_BYTES = 989e12, 67e12, 3.35e12
-# the groups of device_profile: kernel-name fragments, the first match
-# wins; "k1" is K1's kernel alone, "k1_call" the other kernels of a K1 call
-KERNEL_GROUPS = (
-    ("k1", ("mel_kernel",)),
-    ("k1_call", ("mel_edges", "tile_banks")),
-    ("batchnorm", ("bn_", "batch_norm", "batchnorm")),
-    ("depthwise_conv", ("conv_depthwise",)),
-    ("dense_conv", ("conv", "xmma", "implicit", "cudnn", "wgrad")),
-    ("copy", ("memcpy", "memset")),
-    ("elementwise", ("elementwise",)),
-)
-
-
-# DyMN's groups: its depthwise convs are the batch-into-groups fold; its
-# 1x1 DynamicConvs are batched GEMMs (cuBLAS names; cuBLASLt's "nvjet"
-# kernels run the bf16 ones), as are att @ banks and the head; cuDNN runs
-# the static convs (stem, tail, ContextGen's 1x1s)
-DYMN_KERNEL_GROUPS = (
-    ("k1", ("mel_kernel",)),
-    ("k1_call", ("mel_edges", "tile_banks")),
-    ("batchnorm", ("bn_", "batch_norm", "batchnorm")),
-    ("depthwise_fold", ("conv_depthwise",)),
-    ("dense_conv", ("conv", "fprop", "dgrad", "wgrad", "implicit", "cudnn")),
-    ("gemm", ("gemm", "gemv", "cutlass", "xmma", "nvjet")),
-    ("copy", ("memcpy", "memset")),
-    ("reduce", ("reduce",)),
-    ("elementwise", ("elementwise", "catarray", "softmax", "pool")),
-)
-
-
 def phase(tag, /, **fields):
     print(f"[{tag}] " + " ".join(f"{k}={v}" for k, v in fields.items()),
           flush=True)
@@ -477,50 +429,6 @@ def k1_wgmma_launches(prec="bf16x3"):
     check(launches == mel_kernel.k1_launches(prec),
           f"K1 {prec} took another route than {route}: {route_launches()}")
     return launches
-
-
-def device_profile(fn, calls=3, groups=None):
-    """Device time of ``fn``, from ``torch.profiler``'s kernel and copy rows
-    over ``calls`` calls after a warm-up: ms a call by group of ``groups``
-    (KERNEL_GROUPS by default; the rest under "other"), the busy ms a call
-    (the union of the rows), the idle share of the span from the first
-    row's start to the last one's end, and the PyTorch ops that launched
-    the most device time (their own kernels, ms a call)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    groups = groups or KERNEL_GROUPS
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    rows = sorted((e.time_range.start, e.time_range.end, e.name)
-                  for e in prof.events() if e.device_type == DeviceType.CUDA)
-    check(rows, "the profiler saw no device time")
-    ms = dict.fromkeys([g for g, _ in groups] + ["other"], 0.0)
-    other = {}
-    busy, reach = 0.0, float("-inf")
-    for start, end, name in rows:
-        group = next((g for g, keys in groups
-                      if any(k in name.lower() for k in keys)), "other")
-        ms[group] += (end - start) / 1e3 / calls
-        if group == "other":
-            key = name[:48]
-            other[key] = other.get(key, 0.0) + (end - start) / 1e3 / calls
-        if end > reach:
-            busy += end - max(start, reach)
-            reach = end
-    span = reach - rows[0][0]
-    ops = sorted(((getattr(e, "self_device_time_total", 0) / 1e3 / calls, e.key)
-                  for e in prof.key_averages() if e.device_type == DeviceType.CPU),
-                 reverse=True)
-    return {"busy_ms": busy / 1e3 / calls, "idle_share": 1 - busy / span,
-            "rows_a_call": len(rows) / calls,
-            **{f"{g}_ms": v for g, v in ms.items()},
-            "other_top": json.dumps(sorted(other.items(), key=lambda kv: -kv[1])[:4]),
-            "ops_top": json.dumps([(k, round(v, 4)) for v, k in ops[:8] if v > 0])}
 
 
 def selftest_waves():
@@ -603,16 +511,17 @@ def audioset_configs():
             LossConfig(kind="bce", mixup_alpha=0.3, kd_lambda=0.1))
 
 
-def step_inputs(seed, name="mn10_as"):
-    """Weights of ``name``, a batch of STEP_CLIPS clips and the step's
-    draws, all from ``seed``: every process that asks gets the same."""
+def step_inputs(seed, name="mn10_as", clips=STEP_CLIPS, samples=STEP_SAMPLES):
+    """Weights of ``name``, a batch of ``clips`` clips of ``samples`` and
+    the step's draws, all from ``seed``: every process that asks gets the
+    same."""
     rng = np.random.default_rng(seed)
-    batch = {"wave": train_waves(STEP_CLIPS, seed, STEP_SAMPLES),
-             "target": (rng.random((STEP_CLIPS, 527)) > 0.9).astype(np.float32),
-             "teacher": rng.random((STEP_CLIPS, 527)).astype(np.float32),
-             "teacher_valid": np.ones(STEP_CLIPS, np.float32)}
+    batch = {"wave": train_waves(clips, seed, samples),
+             "target": (rng.random((clips, 527)) > 0.9).astype(np.float32),
+             "teacher": rng.random((clips, 527)).astype(np.float32),
+             "teacher_valid": np.ones(clips, np.float32)}
     mel_cfg, loss_cfg = audioset_configs()
-    draws = StepRandom(seed).draw(mel_cfg, loss_cfg, STEP_CLIPS, STEP_SAMPLES)
+    draws = StepRandom(seed).draw(mel_cfg, loss_cfg, clips, samples)
     return seeded_weights(name, seed), batch, draws
 
 
@@ -974,70 +883,6 @@ def phase_train_dp(device):
           "the ranks' train losses are not finite or not equal")
     return {"launches": sum(t["launches"] for t in train), "max_abs_err": err,
             "ms": ranks[0]["ms"], "plain_ms": ranks[0]["plain_ms"]}
-
-
-def phase_train_times(device, card, name="mn10_as", variants=((False, False), (True, False)),
-                      temperature=1.0, groups=None, tag="train", changes=None):
-    """9. The train step at B=120, 10 s clips, full-width ``name`` (a DyMN
-    at ``temperature``, its config with ``changes``), for each (bf16
-    autocast, remat) of ``variants``: its time and clips/s, its split into
-    mel (K1), forward+backward and the optimizer (CUDA events), its peak
-    memory and its device time by kernel group. Returns each variant's K1
-    launches in its timed steps, which must be one a step."""
-    mel_cfg, loss_cfg = audioset_configs()
-    # the preset's model, dropout 0.2
-    model = build_model(dataclasses.replace(get_model_config(name).model_cfg,
-                                            **(changes or {})))
-    model.load_state_dict(seeded_weights(name, 9), strict=True)
-    model.to(device)
-    opt = make_optimizer(model.parameters(), 8e-4)
-    rng = np.random.default_rng(9)
-    batch = {k: torch.from_numpy(v).to(device) for k, v in {
-        "wave": train_waves(TRAIN_BATCH, seed=9),
-        "target": (rng.random((TRAIN_BATCH, 527)) > 0.9).astype(np.float32),
-        "teacher": rng.random((TRAIN_BATCH, 527)).astype(np.float32),
-        "teacher_valid": np.ones(TRAIN_BATCH, np.float32)}.items()}
-    draws = StepRandom(9).draw(mel_cfg, loss_cfg, TRAIN_BATCH, CLIP)
-    perm, lam = (torch.from_numpy(np.array(a)).to(device) for a in draws.mixup)
-    mix = (lam, {k: batch[k][perm] for k in ("target", "teacher")})
-
-    def mel():
-        return mel_kernel.log_mel_spectrogram_fused(
-            batch["wave"], mel_cfg, training=True, draws=draws.mel)
-
-    x = apply_mixup(mel()[:, None], perm, lam)
-    launches = {}
-    for bf16, remat in variants:
-        model.cfg = dataclasses.replace(model.cfg, remat=remat)
-
-        def step():
-            train_step(model, opt, None, mel_cfg, loss_cfg, batch, draws,
-                       bf16=bf16, temperature=temperature)
-
-        def forward_backward():
-            opt.zero_grad(set_to_none=True)
-            with torch.autocast("cuda", dtype=torch.bfloat16, enabled=bf16):
-                logits, _ = model_forward(model, x, temperature)
-            task_loss(loss_cfg, logits.float(), batch, mix)[0].backward()
-
-        torch.cuda.reset_peak_memory_stats()
-        reset_k1_launches()
-        step_ms = median_ms(step, iters=5)
-        launches[bf16, remat] = k1_wgmma_launches()
-        check(launches[bf16, remat] == 5 + 2, f"{tag}: K1 did not run once a step")
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        mel_ms = median_ms(mel, iters=5)
-        fb_ms = median_ms(forward_backward, iters=5)
-        opt_ms = median_ms(opt.step, iters=5)
-        phase(f"{tag}_time", model=name, batch=TRAIN_BATCH, bf16=bf16, remat=remat,
-              changes=json.dumps(changes or {}), k1_launches=launches[bf16, remat],
-              step_ms=step_ms, clips_per_s=TRAIN_BATCH / step_ms * 1e3,
-              mel_ms=mel_ms, forward_backward_ms=fb_ms, optimizer_ms=opt_ms,
-              rest_ms=step_ms - mel_ms - fb_ms - opt_ms, peak_gb=peak_gb,
-              tf32=False, card=repr(card))
-        phase(f"{tag}_profile", model=name, batch=TRAIN_BATCH, bf16=bf16, remat=remat,
-              **device_profile(step, groups=groups), card=repr(card))
-    return launches
 
 
 # ---------------------------------------------------------------- the probe
@@ -1474,84 +1319,14 @@ DYMN, DYMN_IM = "dymn10_as", "dymn10_im"  # the _im name serves at t_max 30
 DYMN_BIG_BATCH = 256
 # train audioset --model_name dymn10_as from scratch: t_max 30, epoch 0
 DYMN_TRAIN_TEMPERATURE = 30.0
-DYMN_BLOCKS = (1, 12)  # the DynamicConvs timed alone: an early and a late block
 
 
-def dynamic_conv_times(model, mel, temperature, card, rows, train):
-    """Each DynamicConv of blocks DYMN_BLOCKS alone, at the shapes the model
-    gives it on ``rows`` clips of ``mel`` (forward pre-hooks): its time,
-    and its core alone (the fold's conv2d, or the pointwise bmm, on the
-    mixed kernels made beforehand). Serving: forward in fp32; training:
-    forward+backward in fp32 and under bf16 autocast."""
-    shapes, hooks = {}, []
-
-    def keep(key):
-        def hook(conv, inp):
-            shapes[key] = (conv, inp[0].shape, inp[1].shape)
-        return hook
-
-    for i in DYMN_BLOCKS:
-        for name, conv in model.layers[i].named_children():
-            if isinstance(conv, DynamicConv):
-                hooks.append(conv.register_forward_pre_hook(keep((i, name))))
-    with torch.inference_mode():
-        model(mel[:rows], temperature)
-    for h in hooks:
-        h.remove()
-    g = torch.Generator(device=mel.device).manual_seed(11)
-    for (i, name), (conv, x_shape, h_shape) in shapes.items():
-        x = torch.randn(x_shape, device=mel.device, generator=g)
-        h_c = torch.randn(h_shape, device=mel.device, generator=g)
-        b, c, f, t = x_shape
-        with torch.no_grad():
-            att = torch.softmax(conv.residuals(h_c) / temperature, dim=-1)
-            wb = att @ conv.weight.reshape(conv.k, -1)
-        if conv.depthwise:
-            ks = conv.kernel_size
-            xf, wf = x.reshape(1, b * c, f, t), wb.reshape(b * c, 1, ks, ks)
-
-            def core():
-                return torch.nn.functional.conv2d(
-                    xf, wf, None, conv.stride, (ks - 1) // 2 * conv.dilation,
-                    conv.dilation, groups=b * c)
-        else:
-            wp, xp = wb.reshape(b, conv.out_channels, c), x.reshape(b, c, f * t)
-
-            def core():
-                return torch.bmm(wp, xp)
-        fields = dict(block=i, conv=name, form="depthwise_fold" if conv.depthwise
-                      else "pointwise_bmm", x=tuple(x_shape), out=conv.out_channels,
-                      kernel=conv.kernel_size, stride=conv.stride)
-        if conv.depthwise:
-            fields["groups"] = b * c
-        if not train:
-            with torch.inference_mode():
-                phase("dymn_conv_time", mode="serving", **fields,
-                      fp32_ms=median_ms(lambda: conv(x, h_c, temperature)),
-                      core_fp32_ms=median_ms(core), card=repr(card))
-            continue
-        xg = x.clone().requires_grad_(True)
-        ms = {}
-        for bf16 in (False, True):
-            def forward_backward():
-                with torch.autocast("cuda", dtype=torch.bfloat16, enabled=bf16):
-                    y = conv(xg, h_c, temperature)
-                y.float().sum().backward()
-            ms["bf16" if bf16 else "fp32"] = median_ms(forward_backward)
-        conv.zero_grad(set_to_none=True)
-        phase("dymn_conv_time", mode="training", **fields,
-              forward_backward_fp32_ms=ms["fp32"],
-              forward_backward_bf16_ms=ms["bf16"], card=repr(card))
-
-
-def phase_dymn_slice(device, card, batch, coded):
+def phase_dymn_slice(device, batch, coded):
     """11. DyMN serving through ``Tagger.predict``: ``dymn10_as`` at B=64
     of 10 s clips as f32, int16 and mu-law (K1 at every predict, finite
     probs); card against CPU in fp32 on 4 clips, for seeded init, a seeded
     checkpoint file, and a seeded ``dymn10_im`` file served at its t_max
-    30; then model and pipeline times at B=64 and B=256 with their device
-    profiles, and each DynamicConv of blocks 1 and 12 alone. Returns K1's
-    launches on the path and the model's ms at each batch."""
+    30. Returns K1's launches on the path."""
     tagger = Tagger(DYMN, pretrained=False, device=device, seed=0)
     model = tagger.members[0]
     reset_k1_launches()
@@ -1594,7 +1369,7 @@ def phase_dymn_slice(device, card, batch, coded):
     check(fp32_launches == len(pairs) * len(coded),
           "the card's fp32 DyMN Taggers did not launch K1 fp32 once a predict")
     # what serving dymn10_im at forward's default temperature, 1, would change
-    cfg, t_max = tagger.mel_cfg, model.cfg.t_max
+    cfg = tagger.mel_cfg
     banks = kaldi_mel_banks(cfg.n_mels, cfg.n_fft, cfg.sr, cfg.fmin,
                             cfg.effective_fmax, device=device)
     mel = mel_kernel.stft_log_mel(torch.from_numpy(batch[:4]).to(device), banks,
@@ -1604,36 +1379,9 @@ def phase_dymn_slice(device, card, batch, coded):
                      - torch.sigmoid(im(mel, 1.0)[0])).abs().max())
     phase("dymn_slice_vs_cpu_k1", precision="fp32", k1_launches=fp32_launches,
           im_probs_t30_vs_t1=gap)
-    del pairs, im, mel
+    del pairs, im, mel, tagger, model
     torch.cuda.empty_cache()
-
-    # times: B=64 and B=256 (the same clips rolled by 1-3 s)
-    big = np.concatenate([np.roll(batch, k * SR, axis=1)
-                          for k in range(DYMN_BIG_BATCH // BATCH)])
-    widest = max(m.out_channels for m in model.modules()
-                 if isinstance(m, DynamicConv) and m.depthwise)
-    model_times = {}
-    for rows, waves in ((BATCH, batch), (DYMN_BIG_BATCH, big)):
-        xb = torch.from_numpy(waves).to(device)
-        with torch.inference_mode():
-            mel = mel_kernel.stft_log_mel(xb, banks, cfg, "bf16x3")[:, None]
-            model_ms = model_times[rows] = median_ms(lambda: model(mel, t_max))
-        pipe_ms = median_ms(lambda: tagger.predict(waves), iters=5)
-        phase("dymn_slice_time", model=DYMN, batch=rows, dft_precision="bf16x3",
-              widest_fold_groups=rows * widest, model_ms=model_ms,
-              pipeline_ms=pipe_ms, clips_per_s=rows / pipe_ms * 1e3, card=repr(card))
-        phase("dymn_slice_profile", model=DYMN, batch=rows,
-              **device_profile(lambda: tagger.predict(waves),
-                               groups=DYMN_KERNEL_GROUPS), card=repr(card))
-        if rows == BATCH:
-            dynamic_conv_times(model, mel, t_max, card, BATCH, train=False)
-        else:
-            dynamic_conv_times(model, mel, DYMN_TRAIN_TEMPERATURE, card, TRAIN_BATCH,
-                               train=True)
-        del xb, mel
-    del tagger, model
-    torch.cuda.empty_cache()
-    return launches, model_times
+    return launches
 
 
 def _dymn_dp_rank(rank, port, work, device):
@@ -1762,36 +1510,17 @@ def write_scene(path, seconds=60):
         f.writeframes(pcm.tobytes())
 
 
-class decoded:
-    """``load_waveform`` answers ``path`` from memory inside the block, so a
-    timed ``tag_audio_window`` leaves the file's decode out."""
-
-    def __init__(self, path, wave):
-        self.path, self.wave = path, wave
-
-    def __enter__(self):
-        self.load = port_data.load_waveform
-        port_data.load_waveform = lambda path, target_sr=SR: (
-            self.wave if path == self.path else self.load(path, target_sr))
-
-    def __exit__(self, *exc):
-        port_data.load_waveform = self.load
-
-
-def phase_windowed(device, card):
+def phase_windowed(device):
     """14. ``EATagger.tag_audio_window(path, 10, 2.5)`` on a seeded 60 s WAV
     (21 windows, one batch) for ``dymn10_as`` and ``mn10_as`` with seeded
     checkpoint files: K1 counted; the rows' probs on the card (DFT fp32)
     within TOL_CARD_VS_CPU of the CPU's; chunks of WINDOW_CHUNK equal to one
-    batch; audio-seconds/s of the whole call with the file's decode left out
-    (its time printed beside). Returns K1's launches on the path."""
+    batch. Returns K1's launches on the path."""
     work = os.path.join(HERE, "build", "chip_smoke", "windowed")
     os.makedirs(work, exist_ok=True)
     path = os.path.join(work, "scene60.wav")
     write_scene(path)
-    t0 = time.perf_counter()
     wave = load_waveform(path, target_sr=SR)
-    decode_ms = (time.perf_counter() - t0) * 1e3
     n_windows = len(window_signal(wave, int(WINDOW_SECONDS * SR), int(WINDOW_HOP * SR)))
     total = 0
     for name in WINDOWED_MODELS:
@@ -1813,27 +1542,11 @@ def phase_windowed(device, card):
         on_cpu = all_probs(EATagger(name, model_dir=work, device="cpu").tag_audio_window(
             path, WINDOW_SECONDS, WINDOW_HOP, top_k=labels))
         cpu_gap = float(np.abs(on_card - on_cpu).max())
-        with decoded(path, wave), torch.inference_mode():
-            call_ms = median_ms(lambda: tagger.tag_audio_window(
-                path, WINDOW_SECONDS, WINDOW_HOP), iters=5)
-            # the call's parts: the windows cut on the host, and the predict
-            t0 = time.perf_counter()
-            windows = window_signal(wave, int(WINDOW_SECONDS * SR), int(WINDOW_HOP * SR))
-            windows_ms = (time.perf_counter() - t0) * 1e3
-            predict_ms = median_ms(lambda: tagger.predict(windows), iters=5)
-            profile = device_profile(lambda: tagger.tag_audio_window(
-                path, WINDOW_SECONDS, WINDOW_HOP),
-                groups=DYMN_KERNEL_GROUPS if name == DYMN else None)
         phase("windowed", model=name, audio_seconds=len(wave) / SR, windows=len(rows),
               window_s=WINDOW_SECONDS, hop_s=WINDOW_HOP, k1_launches=launches,
               vs_cpu=cpu_gap, bound_cpu=TOL_CARD_VS_CPU, chunk=WINDOW_CHUNK,
-              chunked_vs_whole=chunk_gap, bound_chunks=TOL_CHUNKS, call_ms=call_ms,
-              audio_sec_per_s=len(wave) / SR / call_ms * 1e3,
-              windows_host_ms=windows_ms, predict_ms=predict_ms,
-              decode_ms_excluded=decode_ms, probs_std=float(whole.std()),
-              first_window=json.dumps(rows[0]["tags"][:3]), card=repr(card))
-        phase("windowed_profile", model=name, windows=len(rows), **profile,
-              card=repr(card))
+              chunked_vs_whole=chunk_gap, bound_chunks=TOL_CHUNKS,
+              probs_std=float(whole.std()), first_window=json.dumps(rows[0]["tags"][:3]))
         check(len(rows) == n_windows == 21, f"{name}: {len(rows)} windows, not 21")
         check(launches == 1, f"{name}: the windowed call launched K1 {launches} times")
         check(cpu_gap <= TOL_CARD_VS_CPU, f"{name}: windowed probs card vs CPU")
@@ -1857,12 +1570,12 @@ def member_logits(tagger, waves):
     return probs, [x.double().cpu() for x in seen]
 
 
-def phase_ensemble2(device, card, batch):
-    """15. ``Tagger(["mn40_as_ext", "dymn20_as"])`` at B=32 of 10 s clips:
-    clips/s and its profile, K1 counted; the probs equal the sigmoid of the
-    mean of the members' logits, each member run alone with the same seeded
-    init on the card; card against CPU at B=2 (DFT fp32, seeded files).
-    Returns K1's launches on the path."""
+def phase_ensemble2(device, batch):
+    """15. ``Tagger(["mn40_as_ext", "dymn20_as"])`` at B=32 of 10 s clips,
+    K1 counted: the probs equal the sigmoid of the mean of the members'
+    logits, each member run alone with the same seeded init on the card;
+    card against CPU at B=2 (DFT fp32, seeded files). Returns K1's launches
+    on the path."""
     waves = batch[:ENSEMBLE_BATCH]
     tagger = Tagger(list(ENSEMBLE2), pretrained=False, device=device, seed=0)
     reset_k1_launches()
@@ -1872,8 +1585,6 @@ def phase_ensemble2(device, card, batch):
                              waves)[1][0] for i, name in enumerate(ENSEMBLE2)]
     member_gap = max(float((a - b).abs().max()) for a, b in zip(logits, singles))
     mean_gap = float(np.abs(probs - torch.sigmoid(sum(singles) / 2).numpy()).max())
-    pipe_ms = median_ms(lambda: tagger.predict(waves), iters=5)
-    profile = device_profile(lambda: tagger.predict(waves), groups=DYMN_KERNEL_GROUPS)
     del tagger
     torch.cuda.empty_cache()
     model_dir = os.path.join(HERE, "build", "chip_smoke", "ensemble2")
@@ -1884,12 +1595,10 @@ def phase_ensemble2(device, card, batch):
     card_probs = on_card.predict(waves[:2])
     cpu_gap = float(np.abs(card_probs - on_cpu.predict(waves[:2])).max())
     phase("ensemble2", members=json.dumps(ENSEMBLE2), batch=ENSEMBLE_BATCH,
-          seconds=CLIP // SR, k1_launches=launches, pipeline_ms=pipe_ms,
-          clips_per_s=ENSEMBLE_BATCH / pipe_ms * 1e3, members_vs_alone=member_gap,
+          seconds=CLIP // SR, k1_launches=launches, members_vs_alone=member_gap,
           probs_vs_mean_of_members=mean_gap, bound_mean=TOL_ENSEMBLE_MEAN,
           vs_cpu_b2=cpu_gap, bound_cpu=TOL_CARD_VS_CPU,
-          probs_std_b2=float(card_probs.std()), card=repr(card))
-    phase("ensemble2_profile", batch=ENSEMBLE_BATCH, **profile, card=repr(card))
+          probs_std_b2=float(card_probs.std()))
     check(launches == 1, f"the ensemble launched K1 {launches} times, not once")
     check(probs.shape == (ENSEMBLE_BATCH, 527) and bool(np.isfinite(probs).all()),
           "ensemble probs")
@@ -1901,12 +1610,11 @@ def phase_ensemble2(device, card, batch):
     return launches
 
 
-def phase_tag_bf16(device, card, batch):
+def phase_tag_bf16(device, batch):
     """16. ``Tagger(dtype=torch.bfloat16)``: ``mn10_as`` at B=64 and
-    ``dymn10_as`` at B=256 with seeded checkpoint files; clips/s against the
-    fp32 Tagger's in turns, the profile, K1 counted (the mel stays fp32,
-    bf16x3 DFT); probs within TOL_BF16 of the fp32 Tagger's on the card.
-    Returns K1's launches on the path."""
+    ``dymn10_as`` at B=256 with seeded checkpoint files, K1 counted (the mel
+    stays fp32, bf16x3 DFT); probs within TOL_BF16 of the fp32 Tagger's on
+    the card. Returns K1's launches on the path."""
     model_dir = os.path.join(HERE, "build", "chip_smoke", "bf16")
     big = np.concatenate([np.roll(batch, k * SR, axis=1)
                           for k in range(DYMN_BIG_BATCH // BATCH)])
@@ -1921,19 +1629,8 @@ def phase_tag_bf16(device, card, batch):
         launches = k1_wgmma_launches()
         total += launches
         gap = float(np.abs(got - fp32.predict(waves)).max())
-        runs = {"fp32": [], "bf16": []}
-        for which in ("fp32", "bf16", "bf16", "fp32"):
-            tagger = bf16 if which == "bf16" else fp32
-            runs[which].append(median_ms(lambda: tagger.predict(waves), iters=5))
-        groups = DYMN_KERNEL_GROUPS if name == DYMN else None
         phase("tag_bf16", model=name, batch=rows, k1_launches=launches,
-              vs_fp32=gap, bound=TOL_BF16, pipeline_ms=runs["bf16"],
-              fp32_pipeline_ms=runs["fp32"],
-              clips_per_s=rows / statistics.mean(runs["bf16"]) * 1e3,
-              fp32_clips_per_s=rows / statistics.mean(runs["fp32"]) * 1e3,
-              probs_std=float(got.std()), card=repr(card))
-        phase("tag_bf16_profile", model=name, batch=rows,
-              **device_profile(lambda: bf16.predict(waves), groups=groups), card=repr(card))
+              vs_fp32=gap, bound=TOL_BF16, probs_std=float(got.std()))
         check(launches == 1, f"{name}: the bf16 Tagger launched K1 {launches} times")
         check(bool(np.isfinite(got).all()), f"{name}: non-finite bf16 probs")
         check(0.0 < gap <= TOL_BF16, f"{name}: bf16 probs vs fp32 ({gap})")
@@ -1992,7 +1689,7 @@ def eval_clips():
             for s in EVAL_SECONDS]
 
 
-def phase_eval_variable(device, card):
+def phase_eval_variable(device):
     """18. Exact-length eval: 8 seeded clips of 3-10 s through
     ``bucket_pad_collate`` and ``eval_step(..., time_valid=...)`` on the
     card (K1 fp32), ``mn10_as`` and ``dymn10_as`` with seeded weights: each
@@ -2025,14 +1722,12 @@ def phase_eval_variable(device, card):
         batch1_gap = float((got - alone).abs().max())
         unmasked_gap = float((eval_step(model, cfg, wave.to(device), dft_precision="fp32",
                                         temperature=temperature).cpu() - alone).abs().max())
-        step_ms = median_ms(masked, iters=5)
         on_cpu = eval_step(model.cpu(), cfg, wave, temperature=temperature, time_valid=tv)
         cpu_gap = float((got - on_cpu).abs().max())
         phase("eval_variable", model=name, clips=len(clips), padded_to=tuple(wave.shape),
               time_valid=tv.tolist(), k1_launches=launches, vs_batch1=batch1_gap,
               bound_batch1=TOL_BATCH1, unmasked_vs_batch1=unmasked_gap,
-              vs_cpu=cpu_gap, bound_cpu=TOL_CARD_VS_CPU, step_ms=step_ms,
-              logits_std=float(got.std()), card=repr(card))
+              vs_cpu=cpu_gap, bound_cpu=TOL_CARD_VS_CPU, logits_std=float(got.std()))
         check(launches == 1, f"{name}: the masked eval launched K1 {launches} times")
         check(batch1_gap <= TOL_BATCH1, f"{name}: masked rows vs batch 1")
         check(unmasked_gap > TOL_BATCH1, f"{name}: the mask changed nothing")
@@ -2049,17 +1744,14 @@ MP_WORLD = 2                            # ranks: data 1 x model MP_WORLD
 MP_MEMBERS, MP_BATCH = 4, 32
 # rank 0's member-parallel mean logits against one process's sequential mean
 # of the same members on the same mel, both fp32 with TF32 off: the same
-# convs, run by vmap as one grouped conv over a rank's members, and the sum
-# in another order. The control, the same members under bf16 autocast, must
-# miss it
+# convs, and the sum in another order. The control, the same members under
+# bf16 autocast, must miss it
 TOL_MEMBER_PARALLEL = 1e-5
 
 
-def phase_complexity(card, model_ms):
+def phase_complexity():
     """19. ``tools.macs.count_macs`` and the module's parameter count of
-    ``mn10_as`` and ``dymn10_as`` at a 10 s clip, and the model FLOP rate
-    they imply at ``model_ms[name, batch]``, the model-alone times of phases
-    5 and 11: 2 x MACs x batch / ms, and its share of the fp32 peak."""
+    ``mn10_as`` and ``dymn10_as`` at a 10 s clip."""
     for name in ("mn10_as", DYMN):
         spec = get_model_config(name)
         mel = spec.mel_cfg
@@ -2067,22 +1759,13 @@ def phase_complexity(card, model_ms):
         phase("complexity", model=name, seconds=CLIP // SR, macs_a_clip=macs,
               params=count_module_params(name))
         check(macs > 0, f"{name} MACs")
-        for (timed, rows), ms in model_ms.items():
-            if timed == name:
-                rate = 2 * macs * rows / (ms * 1e-3)
-                phase("complexity_rate", model=name, batch=rows, model_ms=ms,
-                      model_flop_per_s=rate, fp32_peak_share=rate / PEAK_FP32,
-                      card=repr(card))
 
 
-def phase_profile(device, card):
+def phase_profile(card):
     """20. ``cli.main(["profile", ...])`` on ``mn10_as`` at its defaults,
     B=16 and 4 traced predicts: the trace file loads as JSON and holds one
     K1 kernel event a traced predict; K1's count rose by 5 (the warm-up
-    predict runs outside the trace). Beside it, the K1 events that a bare
-    ``torch.profiler.profile`` of the same predicts keeps (``trace``'s
-    warm-up step is what keeps all of them). Returns K1's launches on the
-    path."""
+    predict runs outside the trace). Returns K1's launches on the path."""
     log_dir = os.path.join(HERE, "build", "chip_smoke", "trace")
     shutil.rmtree(log_dir, ignore_errors=True)
     reset_k1_launches()
@@ -2099,28 +1782,12 @@ def phase_profile(device, card):
         events = json.load(f)["traceEvents"]
     kernels = [e for e in events if e.get("cat") == "kernel"]
     k1 = [e for e in kernels if "mel_kernel_wgmma" in e.get("name", "")]
-    # the same predicts under a bare torch.profiler.profile, without the
-    # trace's warm-up step: the K1 events it keeps, printed, not gated
-    tagger = Tagger("mn10_as", pretrained=False, device=device)
-    waves = train_waves(PROFILE_BATCH, seed=0)
-    tagger.predict(waves)
-    bare = os.path.join(log_dir, "bare.json")
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(PROFILE_ITERS):
-            tagger.predict(waves)
-    prof.export_chrome_trace(bare)
-    with open(bare) as f:
-        bare_k1 = sum(e.get("cat") == "kernel" and "mel_kernel_wgmma" in e.get("name", "")
-                      for e in json.load(f)["traceEvents"])
-    del tagger
     phase("profile", model="mn10_as", batch=PROFILE_BATCH, iters=PROFILE_ITERS,
           trace=os.path.relpath(path, HERE), trace_mb=os.path.getsize(path) / 2**20,
           events=len(events), kernel_events=len(kernels), k1_events=len(k1),
           k1_names=json.dumps(sorted({e["name"] for e in k1})),
           k1_event_ms=statistics.mean(e["dur"] for e in k1) / 1e3 if k1 else None,
-          k1_launches=launches, bare_profile_k1_events=bare_k1, seconds=seconds,
-          card=repr(card))
+          k1_launches=launches, seconds=seconds, card=repr(card))
     check(len(k1) == PROFILE_ITERS,
           f"the trace holds {len(k1)} K1 kernel events, not {PROFILE_ITERS}")
     check(launches == PROFILE_ITERS + 1,
@@ -2149,8 +1816,7 @@ def mp_mel(waves):
 def _mp_rank(rank, init, work, device):
     """One of MP_WORLD gloo ranks on ``device`` at data 1 x model MP_WORLD:
     its MP_MEMBERS / MP_WORLD members of the stack, the mel of its batch
-    from K1, the member-parallel mean; K1's launches in that call, then the
-    call's time with every rank calling in step."""
+    from K1, the member-parallel mean and K1's launches in that call."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.cuda.set_device(device)
@@ -2161,19 +1827,13 @@ def _mp_rank(rank, init, work, device):
         stacked = shard_member_params(stack_member_params(members), mesh)
         fn = make_member_parallel_ensemble(members[0], mesh, MP_MEMBERS)
         del members
-
-        def serve():
-            with torch.inference_mode():
-                return fn(stacked, mp_mel(waves))
-
         dist.barrier()
         reset_k1_launches()
-        out = serve()
+        with torch.inference_mode():
+            out = fn(stacked, mp_mel(waves))
         torch.cuda.synchronize()
         launches = k1_wgmma_launches()
-        dist.barrier()
-        ms = median_ms(serve)
-        torch.save({"out": out.cpu(), "launches": launches, "ms": ms,
+        torch.save({"out": out.cpu(), "launches": launches,
                     "members": next(iter(stacked.values())).shape[0],
                     "layout": (mesh.data_index, mesh.model_index)},
                    os.path.join(work, f"rank{rank}.pt"))
@@ -2181,7 +1841,7 @@ def _mp_rank(rank, init, work, device):
         dist.destroy_process_group()
 
 
-def phase_member_parallel(device, card):
+def phase_member_parallel(device):
     """21. Member-parallel serving: MP_WORLD gloo ranks on ``device`` (NCCL
     refuses two ranks on one card), started as phase 8 starts its ranks,
     MP_MEMBERS full-width mn10_as members stacked, MP_MEMBERS / MP_WORLD a
@@ -2216,23 +1876,10 @@ def phase_member_parallel(device, card):
         mel = mp_mel(waves)
         return sum(m(mel)[0] for m in members) / MP_MEMBERS
 
-    # a rank's share of the members in one process: the loop that
-    # make_member_parallel_ensemble runs, against torch.func.vmap over the
-    # member axis
-    share = MP_MEMBERS // MP_WORLD
-    pair = stack_member_params(members[:share])
-    loop = make_member_parallel_ensemble(members[0], make_mesh(1), share)
-    vmapped = vmap(lambda p, x: functional_call(members[0], p, (x,))[0],
-                   in_dims=(0, None))
     with torch.inference_mode():
         want = sequential().cpu()
         with torch.autocast("cuda", dtype=torch.bfloat16):
             control = sequential().float().cpu()
-        seq_ms = median_ms(sequential)
-        mel = mp_mel(waves)
-        loop_ms = median_ms(lambda: loop(pair, mel))
-        vmap_ms = median_ms(lambda: vmapped(pair, mel).sum(0) / share)
-        vmap_gap = float((vmapped(pair, mel).sum(0) / share - loop(pair, mel)).abs().max())
     got = ranks[0]["out"]
     gap = float((got - want).abs().max())
     control_gap = float((control - want).abs().max())
@@ -2243,11 +1890,6 @@ def phase_member_parallel(device, card):
           vs_sequential=gap, bound=TOL_MEMBER_PARALLEL, bf16_control=control_gap,
           ranks_equal=bool(torch.equal(got, ranks[1]["out"])),
           logits_std=float(want.std()), seconds=seconds)
-    phase("member_parallel_time", batch=MP_BATCH,
-          note="two ranks share one card, not a scaling figure",
-          call_ms_rank0=ranks[0]["ms"], call_ms_rank1=ranks[1]["ms"],
-          sequential_call_ms_one_process=seq_ms, rank_share_loop_ms=loop_ms,
-          rank_share_vmap_ms=vmap_ms, vmap_vs_loop=vmap_gap, card=repr(card))
     check(got.shape == (MP_BATCH, 527) and bool(torch.isfinite(got).all()),
           "member-parallel logits")
     check([r["layout"] for r in ranks] == [(0, r) for r in range(MP_WORLD)],
@@ -2259,7 +1901,7 @@ def phase_member_parallel(device, card):
     check(control_gap > TOL_MEMBER_PARALLEL,
           f"the bf16 control passes the member-parallel bound: {control_gap}")
     check(launches == [1] * MP_WORLD, f"K1 launches on the ranks {launches}")
-    del members, waves, pair, mel
+    del members, waves
     torch.cuda.empty_cache()
     return sum(launches)
 
@@ -2317,10 +1959,9 @@ def _mesh_layout(layout, device):
     """This rank's part in ``MESH_LAYOUTS[layout]``, in the process group of
     its ranks: for each case, ``Tagger(names, mesh=...)``, then one predict
     a codec with K1's launches counted from 0 and the rows each K1-dp call
-    got, then the predict's ms with every rank calling in step, and the
-    rank's allocated device memory. Rank 0 of ``MESH_K1DP_LAYOUT`` then
-    times K1-dp on its rows against the plain version, the other ranks
-    waiting."""
+    got, and the rank's allocated device memory. Rank 0 of
+    ``MESH_K1DP_LAYOUT`` then times K1-dp on its rows against the plain
+    version, the other ranks waiting."""
     world, model_axis, batch, codecs, cases = MESH_LAYOUTS[layout]
     mesh = make_mesh(world, model_axis=model_axis)
     coded = mesh_waves(batch, codecs)
@@ -2348,8 +1989,6 @@ def _mesh_layout(layout, device):
                         "members_here": (next(iter(tagger._stacked.values())).shape[0]
                                          if tagger._stacked is not None
                                          else len(tagger.members))}
-        dist.barrier()
-        result[case]["ms"] = median_ms(lambda: tagger.predict(coded["f32"]), iters=5)
         del tagger
         torch.cuda.empty_cache()
     mel_kernel.stft_log_mel_sharded = sharded
@@ -2432,10 +2071,9 @@ def phase_tag_mesh(device, card):
     seeded members (TOL_MEMBER_PARALLEL; for the 9 x mn40 ensemble the same
     Tagger under bf16 autocast must miss it), every rank's probs equal,
     K1-dp on each rank's rows of the padded batch (the fallback runs K1 on
-    the whole batch and no K1-dp), the ms a predict and the device memory a
-    rank beside the replicated Tagger's. Ranks that share one card:
-    correctness, not a scaling figure. Returns the K1-dp launches of every
-    rank and rank 0's K1-dp times."""
+    the whole batch and no K1-dp), the device memory a rank beside the
+    replicated Tagger's. Returns the K1-dp launches of every rank and rank
+    0's K1-dp times."""
     layouts, seconds = run_mesh_layouts(device)
     loader = port_convert.load_pretrained
     port_convert.load_pretrained = seeded_loader(cache={})
@@ -2451,7 +2089,6 @@ def phase_tag_mesh(device, card):
             tagger = Tagger(names, device=device)
             memory = torch.cuda.memory_allocated(device) - base
             want = {c: tagger.predict(w) for c, w in coded.items()}
-            ms = median_ms(lambda: tagger.predict(coded["f32"]), iters=5)
             control = None
             if layout == "mn40x9":
                 tagger.dtype = torch.bfloat16  # the members under bf16 autocast
@@ -2470,12 +2107,9 @@ def phase_tag_mesh(device, card):
                   k1_dp_rows=json.dumps([r["k1_dp_rows"] for r in res]),
                   vs_replicated=json.dumps(gaps), bound=TOL_MEMBER_PARALLEL,
                   bf16_control=control, ranks_equal=equal,
-                  probs_std=float(want["f32"].std()), spawn_seconds=seconds)
-            phase("tag_mesh_time", layout=f"data {n_data} x model {model_axis}",
-                  case=case, batch=batch, note="ranks share one card, not a scaling figure",
-                  predict_ms_a_rank=[r["ms"] for r in res], replicated_predict_ms=ms,
+                  probs_std=float(want["f32"].std()),
                   memory_gb_a_rank=[r["memory"] / 1e9 for r in res],
-                  replicated_memory_gb=memory / 1e9, card=repr(card))
+                  replicated_memory_gb=memory / 1e9, spawn_seconds=seconds)
             check(all(p.shape == (batch, 527) and bool(np.isfinite(p).all())
                       for r in res for p in r["probs"].values()), f"{case} probs")
             check(equal, f"{case}: the ranks' probs differ")
@@ -2556,18 +2190,16 @@ def bmm_out_dtype_check(device):
     check(got.dtype == torch.float32 and gap < 1e-5, f"bmm out_dtype: {got.dtype}, {gap}")
 
 
-def phase_dymn_options(device, card):
+def phase_dymn_options(device):
     """23. ``dyconv_compute="bfloat16"`` on full-width ``dymn10_as`` with
-    seeded weights: ``aten::bmm.dtype`` on the card; the model alone in
-    fp32 and with the mix at B=64 and 256 on K1's mel (in turns, then in
-    the other order) with its device time by kernel group; its logits and
-    the gradients of ``sum(logits * r)`` against the CPU's on the same mel
-    at B=2 (TOL_DYCONV_GRAD_L2, with the CPU's fp32 gradients as the control
-    that must miss it); then the KD train step at B=120 in fp32 with the
-    mix (time, split, peak memory, profile, K1 at every step; phase 12 has
-    the fp32 step), and one step's loss on the card against the CPU's at
-    the card's model input, its gradients finite. Returns K1's launches in
-    the step's timed steps."""
+    seeded weights: ``aten::bmm.dtype`` on the card; the logits in fp32 and
+    with the mix, and the gradients of ``sum(logits * r)`` with the mix,
+    against the CPU's on the same mel at B=2 (TOL_DYCONV_GRAD_L2, with the
+    CPU's fp32 gradients as the control that must miss it); then one KD
+    train step in fp32 with the mix: its loss on the card against the CPU's
+    at the card's model input, its gradients finite; then, untimed, the
+    mix's KD train step at B=120 of 10 s clips and the default DFT
+    precision. Returns K1's launches in that last step (K1 bf16x3, once)."""
     bmm_out_dtype_check(device)
     sd = seeded_weights(DYMN, seed=23)
     cfg0, t_max = get_model_config(DYMN).model_cfg, get_model_config(DYMN).model_cfg.t_max
@@ -2611,34 +2243,11 @@ def phase_dymn_options(device, card):
           grad_worst_tensor=name, fp32_control_worst=c_worst)
     check(l2 <= TOL_DYCONV_GRAD_L2, "the bf16 mix's gradients, card against CPU")
     check(c_l2 > TOL_DYCONV_GRAD_L2, f"the fp32 control passes the gradient bound: {c_l2}")
-    del card_grads, cpu_grads
-    # the model alone, each option in turns
-    for rows in (BATCH, DYMN_BIG_BATCH):
-        xb = torch.from_numpy(train_waves(rows, seed=23)).to(device)
-        with torch.inference_mode():
-            mel = mel_kernel.stft_log_mel(xb, banks, mel_cfg, "bf16x3")[:, None]
-            ms = {o: [] for o in models}
-            for order in (list(models), list(models)[::-1]):
-                for option in order:
-                    ms[option].append(median_ms(lambda: models[option](mel, t_max)))
-            for option, m in models.items():
-                phase("dymn_option_time", model=DYMN, option=option, batch=rows,
-                      model_ms=json.dumps(ms[option]),
-                      clips_per_s=rows / statistics.mean(ms[option]) * 1e3,
-                      card=repr(card))
-                phase("dymn_option_profile", model=DYMN, option=option, batch=rows,
-                      **device_profile(lambda: m(mel, t_max), groups=DYMN_KERNEL_GROUPS),
-                      card=repr(card))
-        del xb, mel
-    del models
+    del card_grads, cpu_grads, models
     torch.cuda.empty_cache()
 
-    # the KD train step in fp32 with the bf16 mix
+    # one KD train step in fp32 with the bf16 mix
     bf16_mix = DYMN_OPTIONS["dyconv_bf16"]
-    launches = phase_train_times(
-        device, card, DYMN, variants=((False, False),),
-        temperature=DYMN_TRAIN_TEMPERATURE, groups=DYMN_KERNEL_GROUPS,
-        tag="dymn_dyconv_train", changes=bf16_mix)
     sd, batch, draws = step_inputs(seed=24, name=DYMN)
     on_card = run_step(sd, batch, draws, device, dft_precision="fp32", name=DYMN,
                        temperature=DYMN_TRAIN_TEMPERATURE, changes=bf16_mix)
@@ -2655,7 +2264,23 @@ def phase_dymn_options(device, card):
     check(rel <= TOL_STEP_LOSS_REL, "the dyconv step's loss, card against CPU")
     check(all(g.dtype == torch.float32 and bool(torch.isfinite(g).all())
               for g in on_card["grads"].values()), "the dyconv step's gradients")
-    return launches[(False, False)]
+    del on_card, grads_cpu
+    # the step as training runs it: B=120 of 10 s clips, the default DFT
+    # precision (K1 bf16x3 once), untimed
+    sd, batch, draws = step_inputs(seed=24, name=DYMN, clips=TRAIN_BATCH, samples=CLIP)
+    full = run_step(sd, batch, draws, device, name=DYMN,
+                    temperature=DYMN_TRAIN_TEMPERATURE, changes=bf16_mix)
+    phase("dymn_dyconv_step", model=DYMN, clips=TRAIN_BATCH, seconds=CLIP // SR,
+          temperature=DYMN_TRAIN_TEMPERATURE, loss=full["loss"],
+          k1_launches=full["launches"])
+    check(full["launches"] == 1, "the B=120 dyconv step did not launch K1 bf16x3 once")
+    check(bool(np.isfinite(full["loss"])) and all(
+        bool(torch.isfinite(g).all()) for g in full["grads"].values()),
+        "the B=120 dyconv step's loss and gradients")
+    launches = full["launches"]
+    del full
+    torch.cuda.empty_cache()
+    return launches
 
 
 # ------------------------------------------------------- training-mode BN
@@ -3059,22 +2684,13 @@ def main():
                             cfg.effective_fmax, device=device)
     xb = torch.from_numpy(batch).to(device)
     call_times = phase_k1_call(device, card, cfg, xb, banks)
-    with torch.inference_mode():
-        mel = mel_kernel.stft_log_mel(xb, banks, cfg, "bf16x3")[:, None]
-        model_ms = median_ms(lambda: tagger.members[0](mel))
-    pipe_ms = median_ms(lambda: tagger.predict(batch), iters=5)
-    phase("slice_time", model="mn10_as", batch=BATCH, dft_precision="bf16x3",
-          model_ms=model_ms, pipeline_ms=pipe_ms,
-          clips_per_s=BATCH / pipe_ms * 1e3, card=repr(card))
-    phase("slice_profile", model="mn10_as", batch=BATCH, dft_precision="bf16x3",
-          **device_profile(lambda: tagger.predict(batch)), card=repr(card))
 
     k_ms, plain_ms, err = times["bf16x3", cfg.n_mels]
     kernels = [k1_row("bf16x3", "tag", BATCH, launches=launches, max_abs_err=err,
                       ms=k_ms, plain_ms=plain_ms)]
     call_rows = [call_row("mel_edges", "tag", tag_call["mel_edges"],
                           **call_times["mel_edges", BATCH])]
-    del tagger, pairs, xb, mel
+    del tagger, pairs, xb
     torch.cuda.empty_cache()
 
     lap("4-5 tag")
@@ -3083,7 +2699,6 @@ def main():
     k1_train = phase_train_k1(device, card)
     train_launches, step_fp32_launches, train_call = phase_train(device)
     dp = phase_train_dp(device)
-    phase_train_times(device, card)
     kernels.append(k1_row("bf16x3", "train", TRAIN_BATCH,
                           **{**k1_train["bf16x3"], "launches": train_launches}))
     call_rows.append(call_row("mel_edges", "train", train_call["mel_edges"],
@@ -3110,14 +2725,10 @@ def main():
     # 11-13. DyMN: serving, training in one process and on two ranks. K1's
     # calls there have the shapes of the MN paths' (the wave in, 128 mels
     # out), so its rows take phases 5 and 6's times, and K1-dp's phase 8's
-    dymn_tag_launches, dymn_model_ms = phase_dymn_slice(device, card, batch, coded)
+    dymn_tag_launches = phase_dymn_slice(device, batch, coded)
     dymn_train_launches, _, _ = phase_train(
         device, DYMN, flags=((), ("--bf16",), ("--bf16", "--remat")), tag="dymn_train",
         temperature=DYMN_TRAIN_TEMPERATURE)
-    phase_train_times(device, card, DYMN, variants=((False, False), (True, False),
-                                                    (True, True)),
-                      temperature=DYMN_TRAIN_TEMPERATURE, groups=DYMN_KERNEL_GROUPS,
-                      tag="dymn_train")
     dymn_dp_launches = phase_dymn_train_dp(device)
     kernels.append({**kernels[0], "path": "tag_dymn", "launches": dymn_tag_launches})
     kernels.append(k1_row("bf16x3", "train_dymn", TRAIN_BATCH,
@@ -3131,10 +2742,10 @@ def main():
     # pretrained head surgery and exact-length eval; K1's rows take times
     # measured here at each path's batch (tools.time_k1, 10 s clips)
     new_paths = {
-        "tag_windowed": (phase_windowed(device, card), 21, "bf16x3"),
-        "tag_ensemble2": (phase_ensemble2(device, card, batch), ENSEMBLE_BATCH, "bf16x3"),
-        "tag_bf16": (phase_tag_bf16(device, card, batch), DYMN_BIG_BATCH, "bf16x3"),
-        "eval_variable": (phase_eval_variable(device, card), len(EVAL_SECONDS), "fp32"),
+        "tag_windowed": (phase_windowed(device), 21, "bf16x3"),
+        "tag_ensemble2": (phase_ensemble2(device, batch), ENSEMBLE_BATCH, "bf16x3"),
+        "tag_bf16": (phase_tag_bf16(device, batch), DYMN_BIG_BATCH, "bf16x3"),
+        "eval_variable": (phase_eval_variable(device), len(EVAL_SECONDS), "fp32"),
     }
     k1_at = {}
 
@@ -3185,22 +2796,21 @@ def main():
 
     lap("14-18 serving and eval")
 
-    # 19-21. the complexity report at phases 5 and 11's model times, the
-    # profile subcommand, and member-parallel serving; K1's rows take times
-    # at each path's batch, as phases 14-18's
-    phase_complexity(card, {("mn10_as", BATCH): model_ms,
-                            **{(DYMN, rows): ms for rows, ms in dymn_model_ms.items()}})
+    # 19-21. the complexity report, the profile subcommand, and
+    # member-parallel serving; K1's rows take times at each path's batch, as
+    # phases 14-18's
+    phase_complexity()
     more_paths = {
-        "profile": (phase_profile(device, card), PROFILE_BATCH, "bf16x3"),
-        "tag_member_parallel": (phase_member_parallel(device, card), MP_BATCH, "bf16x3"),
+        "profile": (phase_profile(card), PROFILE_BATCH, "bf16x3"),
+        "tag_member_parallel": (phase_member_parallel(device), MP_BATCH, "bf16x3"),
     }
     add_k1_rows(more_paths)
 
     lap("19-21 tools and member-parallel")
 
     # 22-23. Tagger(mesh=...) on gloo ranks (K1-dp on every rank's rows,
-    # timed on rank 0 of data 2 x model 2) and DyMN's options (K1 training
-    # mode at every step of the dyconv step: phase 6's times at B=120)
+    # timed on rank 0 of data 2 x model 2) and DyMN's options (K1 bf16x3 in
+    # training mode in the B=120 dyconv step: phase 6's times at B=120)
     mesh_launches, k1_dp = phase_tag_mesh(device, card)
     kernels.append(k1_row("bf16x3", "tag_mesh", k1_dp["rows"], dp=True,
                           launches=sum(sum(n) for n in mesh_launches.values()),
@@ -3210,7 +2820,7 @@ def main():
     lap("22 tag_mesh")
     kernels.append(k1_row("bf16x3", "train_dymn_dyconv_bf16", TRAIN_BATCH,
                           **{**k1_train["bf16x3"],
-                             "launches": phase_dymn_options(device, card)}))
+                             "launches": phase_dymn_options(device)}))
     lap("23 dymn options")
     bn_rows = phase_batch_norm(device, card)
     lap("24 batch_norm")

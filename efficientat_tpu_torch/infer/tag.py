@@ -10,9 +10,8 @@ by ``log_mel_spectrogram_fused`` (K1 on CUDA; ``tag.mel``), run through
 every member (a DyMN at its ``cfg.t_max``, the final temperature of its
 training; ``tag.members``, and inside it ``tag.member.mn`` or
 ``tag.member.dymn`` around each member by its family, all timed on the device
-too), the members' logits
-are averaged in fp32 before the sigmoid (``tag.sigmoid``), and the probs
-are read back, where the host waits for the device (``tag.readback``). The whole
+too, and the members' logits averaged in fp32), the sigmoid is taken
+(``tag.sigmoid``), and the probs are read back, where the host waits for the device (``tag.readback``). The whole
 batch runs at once: the JAX Tagger's DyMN micro-batching is a TPU
 workaround.
 
@@ -226,8 +225,15 @@ class Tagger:
             self._ensemble = make_member_parallel_ensemble(
                 m0.to("meta"), mesh, len(members), _serving_args(m0))
             members = [m0]
+            # this rank's share of the padded batch, by (data axis, data
+            # index), whose probs predict puts together over the data
+            # group; the mel as K1-dp where there is more than one rank
+            self._data = (mesh.shape["data"], mesh.data_index)
+            self._sharded = mesh.world > 1
         else:
             members = [m.to(self.device) for m in members]
+            self._data = (1, 0)
+            self._sharded = False
         # the replicated path's members; the member-parallel path's base
         self.members = members
         self._pinned: Optional[torch.Tensor] = None  # last batch's host buffer
@@ -258,74 +264,61 @@ class Tagger:
         stage_rows(buf.numpy(), waves, landed)
         return x
 
+    def _mean_logits(self, mel: torch.Tensor) -> torch.Tensor:
+        """The members' mean logits in fp32: the stack's on the
+        member-parallel path, else every member in turn, one
+        ``tag.member.*`` span each."""
+        if self._stacked is not None:
+            return self._ensemble(self._stacked, mel)
+        logits = []
+        for model in self.members:
+            with span(_member_span(model), device=True):
+                logits.append(_member_logits(model, mel))
+        return sum(lg.float() for lg in logits) / len(self.members)
+
     def predict(self, waves: np.ndarray) -> np.ndarray:
         """waves (B, num_samples) at mel_cfg.sr, float32, int16 PCM or mu-law
         uint8 -> probs (B, classes) float32. Under a mesh every rank passes
-        the same whole batch and gets the same probs."""
-        with span("tag.predict"):
-            if self._stacked is not None:
-                return self._predict_member_parallel(waves)
-            with torch.inference_mode():
-                with span("tag.stage"):
-                    x = self._stage(_host_batch(waves))
-                with span("tag.decode"):
-                    x = decode(x)
-                with span("tag.mel"):
-                    mel = log_mel_spectrogram_fused(x, self.mel_cfg,
-                                                    dft_precision=self.dft_precision)
-                    mel = mel[:, None]  # (B, 1, n_mels, frames)
-                with span("tag.members", device=True), torch.autocast(
-                        self.device.type, dtype=self.dtype,
-                        enabled=self.dtype != torch.float32):
-                    logits = []
-                    for model in self.members:
-                        with span(_member_span(model), device=True):
-                            logits.append(_member_logits(model, mel))
-                with span("tag.sigmoid"):
-                    logits = sum(lg.float() for lg in logits)
-                    probs = torch.sigmoid(logits / len(self.members))
-                with span("tag.readback"):
-                    return probs.cpu().numpy()
-
-    def _predict_member_parallel(self, waves: np.ndarray) -> np.ndarray:
-        """The batch padded to a multiple of the data axis with the
+        the same whole batch and gets the same probs: on the member-parallel
+        path the batch is padded to a multiple of the data axis with the
         transport's silence (0, or 128 for mu-law), this rank's data index's
-        rows decoded and through the mel, its members' logits all-reduced
-        over the model group (``make_member_parallel_ensemble``), the
-        sigmoid, and the rows of every data index put together by an
-        all-reduce of a zero-filled (padded batch, classes) buffer over the
-        data group (gloo reduces CUDA tensors but gathers none); the pad is
-        sliced off. The spans of ``predict``, and ``tag.all_reduce``."""
-        mesh = self.mesh
-        with torch.inference_mode():
+        rows go through decode and the mel, its members' logits are
+        all-reduced over the model group (``make_member_parallel_ensemble``),
+        and the rows of every data index are put together by an all-reduce
+        of a zero-filled (padded batch, classes) buffer over the data group
+        (``tag.all_reduce``; gloo reduces CUDA tensors but gathers none);
+        the pad is sliced off."""
+        n_data, index = self._data
+        with span("tag.predict"), torch.inference_mode():
             with span("tag.stage"):
                 waves = _host_batch(waves)
-                n, n_data = waves.shape[0], mesh.shape["data"]
+                n = waves.shape[0]
                 pad = (-n) % n_data
                 if pad:
                     silence = 128 if waves.dtype == np.uint8 else 0
                     waves = np.concatenate(
                         [waves, np.full((pad,) + waves.shape[1:], silence, waves.dtype)])
                 rows = waves.shape[0] // n_data
-                start = mesh.data_index * rows
+                start = index * rows
                 x = self._stage(waves[start:start + rows])
             with span("tag.decode"):
                 x = decode(x)
             with span("tag.mel"):
                 mel = log_mel_spectrogram_fused(x, self.mel_cfg,
                                                 dft_precision=self.dft_precision,
-                                                sharded=mesh.world > 1)[:, None]
+                                                sharded=self._sharded)
+                mel = mel[:, None]  # (B, 1, n_mels, frames)
             with span("tag.members", device=True), torch.autocast(
                     self.device.type, dtype=self.dtype,
                     enabled=self.dtype != torch.float32):
-                logits = self._ensemble(self._stacked, mel)
+                logits = self._mean_logits(mel)
             with span("tag.sigmoid"):
                 probs = torch.sigmoid(logits)
             if n_data > 1:
                 with span("tag.all_reduce"):
                     every = probs.new_zeros((waves.shape[0], probs.shape[1]))
                     every[start:start + rows] = probs
-                    dist.all_reduce(every, group=mesh.data_group)
+                    dist.all_reduce(every, group=self.mesh.data_group)
                     probs = every
             with span("tag.readback"):
                 return probs[:n].cpu().numpy()

@@ -68,8 +68,8 @@ def make_member_parallel_ensemble(base_module: nn.Module, mesh: Mesh,
     Not ``torch.func.vmap`` over the member axis: it takes every layer, but
     turns each conv into one conv over batched weights, and cuDNN transposes
     those weights at every call, which made it several times slower than
-    this loop on an H100 (``chip_smoke.py``'s member-parallel phase times
-    both)."""
+    this loop on an H100 (86.64 against 27.28 ms for two ``mn10_as`` members
+    at B=32, as CHANGES.md records)."""
     _members_a_rank(n_members, mesh)
 
     def fn(stacked: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:

@@ -31,7 +31,6 @@ from __future__ import annotations
 import argparse
 import hashlib
 import json
-import statistics
 
 import numpy as np
 import torch
@@ -39,12 +38,11 @@ import torch
 from efficientat_tpu_torch.ops import mel_kernel, mel_probe
 from efficientat_tpu_torch.ops.filterbank import kaldi_mel_banks
 from efficientat_tpu_torch.ops.melspec import MelConfig, log_mel_spectrogram
-from efficientat_tpu_torch.utils.profiling import counter
+from efficientat_tpu_torch.utils.profiling import counter, median_ms
 
 SR = 32000
 CLIP_SECONDS = 10
 BATCH = 64
-ITERS = 10
 
 
 def _variant(name, fn, counter, **kwargs):
@@ -95,23 +93,6 @@ def variants(group: str):
     if group not in groups:
         raise ValueError(f"group must be fold, dma, e or all, got {group!r}")
     return groups[group]
-
-
-def median_ms(fn, iters: int = ITERS, warmup: int = 2) -> float:
-    """Median device time of ``fn`` in ms, from CUDA events after a warm-up."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def inputs(device, batch: int = BATCH, seconds: float = CLIP_SECONDS):

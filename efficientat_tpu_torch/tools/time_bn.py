@@ -21,8 +21,8 @@ and last the card's name and power limit as ``nvidia-smi`` gives them.
 off, K1's DFT bf16x3, after two warm-up steps) and prints each
 BatchNorm kernel of the step in launch order with its device time, grid and
 block, one JSON line a kernel, then their sums by kernel name. It needs only
-``train_step`` and the profiler, so a copy of this file runs it in a
-checkout that predates the port's kernels (cuDNN's BatchNorm).
+``train_step`` and ``utils/profiling.trace``, so a copy of this file runs it
+in a checkout that predates the port's kernels (cuDNN's BatchNorm).
 """
 
 from __future__ import annotations
@@ -30,7 +30,6 @@ from __future__ import annotations
 import argparse
 import collections
 import json
-import os
 import subprocess
 import tempfile
 
@@ -39,7 +38,7 @@ import torch
 from torch import nn
 
 from efficientat_tpu_torch.models.registry import build_model
-from efficientat_tpu_torch.utils.profiling import PRIMER_KERNELS
+from efficientat_tpu_torch.utils.profiling import device_rows, trace
 
 MOMENTUM, EPS = 0.01, 1e-3
 CLIP_FRAMES, N_MELS = 1000, 128
@@ -61,42 +60,14 @@ def layer_shapes(name: str, batch: int, device: str = "cuda") -> list:
     return shapes
 
 
-def device_ms(fn, iters: int, warmup: int = 3, tries: int = 3) -> float:
+def device_ms(fn, iters: int, warmup: int = 3) -> float:
     """The device time of one call of ``fn``: its kernels' and memsets'
     durations in ``torch.profiler``, summed over ``iters`` calls back to
-    back, over ``iters``. (CUDA events around one call would add the host's
-    enqueue to the small layers' microseconds.) Each profile starts with a
-    warm-up step of ``PRIMER_KERNELS`` small kernels whose records it
-    discards: in a process profiled many times before, the card's first
-    records after the profiler turns them on can go missing
-    (``utils/profiling.trace``). A profile that still holds no device row is
-    taken again, up to ``tries`` times."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, schedule
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    primer = torch.zeros(1, device="cuda")
-    for _ in range(tries):
-        events = []
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1),
-                     on_trace_ready=lambda prof: events.extend(
-                         e for e in prof.events() if e.device_type == DeviceType.CUDA)) as prof:
-            for _ in range(PRIMER_KERNELS):
-                primer.fill_(0.0)
-            torch.cuda.synchronize()
-            prof.step()
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-            prof.step()
-        us = sum(e.time_range.end - e.time_range.start for e in events
-                 if not e.name.startswith("ProfilerStep"))
-        if us > 0:
-            return us / 1e3 / iters
-    raise RuntimeError(f"the profiler recorded no device time in {tries} profiles")
+    back, over ``iters`` (``utils/profiling.device_rows``). (CUDA events
+    around one call would add the host's enqueue to the small layers'
+    microseconds.)"""
+    rows = device_rows(fn, calls=iters, warmup=warmup)[0]
+    return sum(ms for _, ms in rows) / iters
 
 
 def shape_inputs(shape, dtype, seed: int = 0):
@@ -194,13 +165,10 @@ def trace_step(name: str, batch: int) -> None:
     for _ in range(2):
         step()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        step()
-        torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
+        with trace(tmp) as path:
+            step()
+            torch.cuda.synchronize()
         with open(path) as f:
             events = json.load(f)["traceEvents"]
     rows = sorted((e for e in events if e.get("cat") == "kernel"

@@ -25,8 +25,9 @@ version, ``_patch_edges``, their device times and their largest gaps to
 each other and to the float64 value of their function (``edge_oracle``).
 First a line with K1's ptxas registers
 and spills, when this process built it, and last the card's name and power
-limit as ``nvidia-smi`` gives them. It uses only K1's public entry points,
-so one copy of it times two checkouts of the package in one run; in a
+limit as ``nvidia-smi`` gives them. It uses only K1's public entry points
+and ``utils/profiling``'s ``device_rows`` and ``median_ms``, so one copy of it
+times two checkouts of the package that have them in one run; in a
 checkout whose route for a bank takes no tiled banks (the ``tc_*`` routes
 of the package before the kernel held 256 mels), ``serving_ms`` times the
 call as it is.
@@ -41,10 +42,8 @@ from __future__ import annotations
 import argparse
 import collections
 import dataclasses
-import functools
 import hashlib
 import json
-import operator
 import shutil
 import statistics
 import subprocess
@@ -54,8 +53,8 @@ import torch
 from efficientat_tpu_torch.ops import _build, mel_kernel
 from efficientat_tpu_torch.ops.filterbank import kaldi_mel_banks
 from efficientat_tpu_torch.ops.melspec import _dft_basis, device_const, edge_frames
-from efficientat_tpu_torch.tools.probe_mel_kernel import inputs, median_ms
-from efficientat_tpu_torch.utils.profiling import PRIMER_KERNELS
+from efficientat_tpu_torch.tools.probe_mel_kernel import inputs
+from efficientat_tpu_torch.utils.profiling import device_rows, median_ms
 
 
 def time_k1(batch: int, n_mels: int, precision: str, turns: int) -> dict:
@@ -94,50 +93,15 @@ CALL_KERNEL_NAMES = ("mel_kernel_wgmma", "mel_edges", "tile_banks")
 
 
 def _call_events(fn, repeats: int):
-    """The device events of one call of ``fn`` in ``repeats`` profiles that
-    hold all of them: a list a profile of (kernel, ms), each event named by
-    the first of ``CALL_KERNEL_NAMES`` its name holds, else ``"other:"``
-    and its name (a copy, a fill, a PyTorch kernel; the profiler's own step
-    range is left out). Each profile starts with a warm-up step of
-    PRIMER_KERNELS small kernels, whose records it discards
-    (``utils/profiling.trace``). A profile can still drop some of the
-    call's records (on one H100, two of three profiles of a K1 call have
-    lacked its ``mel_edges`` event), so profiles are taken until
-    ``repeats`` of them hold, of each name, the most events any profile
-    saw, or until ``4 * repeats`` were taken; those that hold them all are
-    returned."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, schedule
-
-    fn()
-    torch.cuda.synchronize()
-    primer = torch.zeros(1, device="cuda")
-    runs = []
-
-    def whole():
-        counts = [collections.Counter(name for name, _ in run) for run in runs]
-        most = functools.reduce(operator.or_, counts, collections.Counter())
-        return [run for run, count in zip(runs, counts) if count == most]
-
-    while len(runs) < 4 * repeats and len(whole()) < repeats:
-        events = []
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1),
-                     on_trace_ready=lambda prof: events.extend(
-                         e for e in prof.events() if e.device_type == DeviceType.CUDA)) as prof:
-            for _ in range(PRIMER_KERNELS):
-                primer.fill_(0.0)
-            torch.cuda.synchronize()
-            prof.step()
-            fn()
-            torch.cuda.synchronize()
-            prof.step()
-        runs.append([(next((k for k in CALL_KERNEL_NAMES if k in e.name), "other:" + e.name[:60]),
-                      (e.time_range.end - e.time_range.start) / 1e3)
-                     for e in events if not e.name.startswith("ProfilerStep")])
-    if not whole():
-        raise RuntimeError(f"no profile of {4 * repeats} held every device event of the call")
-    return whole()
+    """The device rows of one call of ``fn`` in ``repeats`` profiles that
+    hold all of them (``utils/profiling.device_rows``; on one H100, two of
+    three profiles of a K1 call have lacked its ``mel_edges`` row): a list a
+    profile of (kernel, ms), each row named by the first of
+    ``CALL_KERNEL_NAMES`` its name holds, else ``"other:"`` and its name (a
+    copy, a fill, a PyTorch kernel)."""
+    return [[(next((k for k in CALL_KERNEL_NAMES if k in name), "other:" + name[:60]), ms)
+             for name, ms in rows]
+            for rows in device_rows(fn, repeats=repeats)]
 
 
 def call_kernels(fn, repeats: int = 3) -> dict:
@@ -205,24 +169,15 @@ def time_edges(batch: int, n_mels: int) -> dict:
 
 def kernel_alone_ms(fn, calls: int = 5):
     """The device time of K1's kernels a call of ``fn``: the mean of their
-    ``torch.profiler`` events (``mel_kernel*``) times the launches a call,
-    over ``calls`` calls after a warm-up; None where the profiler kept no
-    event. The mean, since a process profiled before can lose its first
-    device records (``utils/profiling.trace``)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
+    rows (``mel_kernel*``) in a profile of ``calls`` calls
+    (``utils/profiling.device_rows``) times K1's launches a call; None where
+    the profile kept no such row. The mean, since a profile can drop some
+    of a call's device records."""
     before = mel_kernel.k1_launches()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
+    fn()
     launches = mel_kernel.k1_launches() - before
-    events = [e.time_range.end - e.time_range.start for e in prof.events()
-              if e.device_type == DeviceType.CUDA and "mel_kernel" in e.name]
-    return sum(events) / len(events) / 1e3 * launches / calls if events else None
+    ms = [t for name, t in device_rows(fn, calls=calls)[0] if "mel_kernel" in name]
+    return statistics.mean(ms) * launches if ms else None
 
 
 def use_variant(replacements) -> str:

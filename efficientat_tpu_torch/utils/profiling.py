@@ -7,8 +7,11 @@ efficientat_tpu/utils/profiling.py).
 
 writes a Chrome/Perfetto trace of the host's PyTorch ops and, where PyTorch
 was built with CUDA, the card's kernels and copies (``torch.profiler``, the
-counterpart of ``jax.profiler``). ``time_fn`` times a call and
-``device_memory_stats`` reads the allocator's statistics of each card.
+counterpart of ``jax.profiler``). ``device_rows`` returns the card's rows
+of a call from profiles that hold all of them; ``time_fn`` (a mean) and
+``median_ms`` time a call with CUDA events; ``device_memory_stats`` reads the
+allocator's statistics of each card. Every profile and every CUDA timing
+event of the port is made here.
 
 Spans mark the port's layer boundaries (``Tagger.predict``'s staging, copy,
 mel, members and read-back, and inside ``tag.members`` one
@@ -45,16 +48,19 @@ from __future__ import annotations
 import bisect
 import collections
 import contextlib
+import functools
 import json
+import operator
 import os
 import socket
+import statistics
 import time
 from typing import Callable
 
 import torch
 
 
-# kernels launched in the profiler's warm-up step; see ``trace``
+# kernels launched in the profiler's warm-up step; see ``_prime``
 PRIMER_KERNELS = 64
 
 
@@ -194,6 +200,20 @@ def take_spans() -> list:
     return out
 
 
+def _prime() -> None:
+    """The profiler's warm-up step on the current card: PRIMER_KERNELS small
+    kernels, waited for. In a process that has been profiled many times
+    before, the card's first records after the profiler turns them on can
+    go missing (on an H100 with torch 2.11, a predict's first copies and
+    kernels, K1 among them, and late in a full ``chip_smoke.py`` run every
+    row of a short profile; PERF.md's Findings), and the primer's records,
+    which the profiler discards with its warm-up step, take their place."""
+    primer = torch.zeros(1, device=torch.cuda.current_device())
+    for _ in range(PRIMER_KERNELS):
+        primer.fill_(0.0)
+    torch.cuda.synchronize()
+
+
 @contextlib.contextmanager
 def trace(log_dir: str):
     """Profile the block and write its trace into ``log_dir`` as
@@ -202,15 +222,9 @@ def trace(log_dir: str):
     every activity this build of PyTorch supports: the CPU's ops, and on a
     CUDA build the card's kernels and copies.
 
-    The profiler starts with one warm-up step, whose records it discards.
-    Once CUDA is in use, that step launches PRIMER_KERNELS small kernels and
-    waits for them: in a process that has been profiled many times before,
-    the card's first records after the profiler turns them on can go
-    missing (on an H100 with torch 2.11, a predict's first copies and
-    kernels, K1 among them; ``chip_smoke.py`` phase 20 counts K1's events in
-    a bare ``torch.profiler.profile`` beside this trace), and the primer's
-    records take their place. Yields the trace's path, written when the
-    block ends."""
+    The profiler starts with one warm-up step, whose records it discards;
+    once CUDA is in use, that step runs ``_prime``. Yields the trace's path,
+    written when the block ends."""
     from torch.profiler import profile, schedule, supported_activities
 
     os.makedirs(log_dir, exist_ok=True)
@@ -220,12 +234,56 @@ def trace(log_dir: str):
                  schedule=schedule(wait=0, warmup=1, active=1),
                  on_trace_ready=lambda prof: prof.export_chrome_trace(path)) as prof:
         if torch.cuda.is_initialized():
-            primer = torch.zeros(1, device=torch.cuda.current_device())
-            for _ in range(PRIMER_KERNELS):
-                primer.fill_(0.0)
-            torch.cuda.synchronize()
+            _prime()
         prof.step()
         yield path
+
+
+def complete_profiles(profiles: list) -> list:
+    """The profiles of ``profiles`` (each a list of rows whose first item is
+    the row's name) that hold at least one row and, of each name, as many
+    rows as the profile that holds the most of it: a profile can drop some
+    of its device records, never add one."""
+    counts = [collections.Counter(row[0] for row in rows) for rows in profiles]
+    most = functools.reduce(operator.or_, counts, collections.Counter())
+    return [rows for rows, n in zip(profiles, counts) if most and n == most]
+
+
+def device_rows(fn: Callable, calls: int = 1, repeats: int = 1, warmup: int = 1) -> list:
+    """The card's rows of ``calls`` back-to-back calls of ``fn``, after
+    ``warmup`` calls: each a (name, ms) of a kernel, copy or memset in
+    ``torch.profiler``, the profiler's own step rows left out. Each profile
+    opens with a warm-up step that runs ``_prime``. Profiles are taken
+    until ``repeats`` of them are complete (``complete_profiles``), at most
+    ``4 * repeats``; returns each complete profile's rows, and raises where
+    fewer than ``repeats`` are."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    profiles = []
+    while len(profiles) < 4 * repeats and len(complete_profiles(profiles)) < repeats:
+        rows = []
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda prof: rows.extend(
+                         (e.name, (e.time_range.end - e.time_range.start) / 1e3)
+                         for e in prof.events() if e.device_type == DeviceType.CUDA
+                         and not e.name.startswith("ProfilerStep"))) as prof:
+            _prime()
+            prof.step()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+        profiles.append(rows)
+    complete = complete_profiles(profiles)
+    if len(complete) < repeats:
+        raise RuntimeError(f"{len(complete)} of {len(profiles)} profiles held every "
+                           f"device row of the call, not {repeats}")
+    return complete
 
 
 # the device's rows in a trace file: kernels, copies and memsets
@@ -306,6 +364,23 @@ def time_fn(fn: Callable, *args, iters: int = 10, warmup: int = 1) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / 1e3 / iters
+
+
+def median_ms(fn: Callable, iters: int = 10, warmup: int = 2) -> float:
+    """Median device time of ``fn`` in ms, from CUDA events after a warm-up."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
 
 
 def device_memory_stats() -> dict:

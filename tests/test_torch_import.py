@@ -54,7 +54,6 @@ SLICE_MODULES = [
     "efficientat_tpu_torch.tools.probe_mel_kernel",
     "efficientat_tpu_torch.tools.receptive_field",
     "efficientat_tpu_torch.tools.time_k1",
-    "efficientat_tpu_torch.tools.time_paths",
     "efficientat_tpu_torch.train",
     "efficientat_tpu_torch.train.augment",
     "efficientat_tpu_torch.train.cli",

@@ -20,6 +20,7 @@ from collections import Counter
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 from efficientat_tpu_torch.ops import mel_kernel
 from efficientat_tpu_torch.ops.filterbank import kaldi_mel_banks

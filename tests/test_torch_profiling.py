@@ -1,11 +1,15 @@
 """The port's ``utils/profiling.py`` and the ``profile`` subcommand: the trace
-file loads as JSON and holds events; on the card, one K1 kernel event a
+file loads as JSON and holds events; the device-row reader keeps the
+profiles that hold every row and refuses when none does, and no other module
+makes a profile or a timing event; on the card, one K1 kernel event a
 traced predict, every device row of a predict inside its ``tag.predict``
 span on the trace's clock, and the staging buffer allocated once a shape, and the chunked staging's probs bit
 for bit those of the serial staging's."""
 
+import ast
 import json
 import math
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -16,10 +20,15 @@ from efficientat_tpu_torch import cli
 from efficientat_tpu_torch.infer import tag
 from efficientat_tpu_torch.infer.tag import Tagger, _stage_pool
 from efficientat_tpu_torch.ops import mel_kernel
+from efficientat_tpu_torch.ops.filterbank import kaldi_mel_banks
+from efficientat_tpu_torch.ops.melspec import MelConfig
+from efficientat_tpu_torch.utils import profiling
 from efficientat_tpu_torch.utils.profiling import (
     DEVICE_CATEGORIES,
+    complete_profiles,
     counter,
     device_memory_stats,
+    device_rows,
     set_spans,
     take_spans,
     time_fn,
@@ -64,6 +73,62 @@ def test_time_fn_is_positive():
     calls = []
     seconds = time_fn(lambda x: calls.append(x.sum()), torch.ones(64), iters=3, warmup=2)
     assert seconds > 0 and len(calls) == 5
+
+
+@pytest.mark.parametrize("profiles,complete", [
+    # every profile holds every row: all of them
+    ([[("a", 1.0), ("b", 2.0)], [("b", 2.5), ("a", 1.5)]], [0, 1]),
+    # the second dropped its "b"
+    ([[("a", 1.0), ("b", 2.0)], [("a", 1.5)]], [0]),
+    # each dropped another name: none holds the most of both
+    ([[("a", 1.0)], [("b", 2.0)]], []),
+    # a name's count: two "a" rows a call, one profile dropped one
+    ([[("a", 1.0), ("a", 1.0)], [("a", 1.0)], [("a", 0.9), ("a", 1.1)]], [0, 2]),
+    # no row at all
+    ([[], []], []),
+    ([], []),
+])
+def test_complete_profiles_hold_the_most_rows_of_every_name(profiles, complete):
+    assert complete_profiles(profiles) == [profiles[i] for i in complete]
+
+
+def test_device_rows_refuse_where_no_profile_is_complete(monkeypatch):
+    # no profile of a CPU call holds a device row: the reader takes
+    # 4 x repeats profiles of ``calls`` calls each after the warm-up, then
+    # raises
+    monkeypatch.setattr(profiling, "_prime", lambda: None)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    calls = []
+    with pytest.raises(RuntimeError, match="0 of 8 profiles"):
+        device_rows(lambda: calls.append(torch.ones(4).sum()), calls=3, repeats=2)
+    assert len(calls) == 1 + 8 * 3
+
+
+def _makes_profiles_or_events(source):
+    """Whether ``source`` calls anything named ``profile`` or ``Event``
+    (``torch.profiler.profile``, ``torch.cuda.Event``, in whatever form)
+    or imports from a profiler module."""
+    for node in ast.walk(ast.parse(source)):
+        if isinstance(node, ast.Call):
+            f = node.func
+            if (f.attr if isinstance(f, ast.Attribute) else getattr(f, "id", None)) in (
+                    "profile", "Event"):
+                return True
+        if isinstance(node, ast.ImportFrom) and "profiler" in (node.module or ""):
+            return True
+    return False
+
+
+def test_profiles_and_timing_events_are_made_in_profiling_alone():
+    root = Path(__file__).resolve().parents[1]
+    files = sorted((root / "efficientat_tpu_torch").rglob("*.py")) + [root / "chip_smoke.py"]
+    made = [str(p.relative_to(root)) for p in files
+            if _makes_profiles_or_events(p.read_text())]
+    assert made == ["efficientat_tpu_torch/utils/profiling.py"]
+    for form in ("torch.profiler.profile(schedule=s, activities=a)",
+                 "from torch.profiler import profile",
+                 "torch.cuda.Event(True)", "p = profiler.profile()"):
+        assert _makes_profiles_or_events(form), form
 
 
 def test_device_memory_stats():
@@ -186,3 +251,33 @@ def test_back_to_back_predicts_each_answer_their_own_batch(monkeypatch):
     assert counter("tag.pin_alloc") - pins == 1
     assert all(np.abs(pooled[i] - pooled[j]).max() > 0
                for i in range(4) for j in range(i))
+
+
+@pytest.mark.cuda
+def test_device_rows_hold_every_fill_of_the_calls():
+    x = torch.zeros(4096, device="cuda")
+
+    def fills():
+        for _ in range(5):
+            x.fill_(1.0)
+
+    profiles = device_rows(fills, calls=2, repeats=3)
+    assert len(profiles) == 3
+    for rows in profiles:
+        assert len(rows) == 10 and all("fill" in name.lower() for name, _ in rows), rows
+        assert all(ms > 0 for _, ms in rows)
+
+
+@pytest.mark.cuda
+def test_kernel_alone_ms_in_a_process_profiled_many_times():
+    from efficientat_tpu_torch.tools.time_k1 import kernel_alone_ms
+
+    x = torch.zeros(8, device="cuda")
+    for _ in range(50):
+        device_rows(lambda: x.fill_(0.0))
+    cfg = MelConfig()
+    wave = torch.from_numpy(_clips(8, seed=5)).cuda()
+    banks = kaldi_mel_banks(cfg.n_mels, cfg.n_fft, cfg.sr, cfg.fmin, cfg.effective_fmax,
+                            device="cuda")
+    ms = kernel_alone_ms(lambda: mel_kernel.stft_log_mel(wave, banks, cfg, "bf16x3"))
+    assert ms is not None and 0 < ms < 10

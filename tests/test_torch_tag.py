@@ -70,6 +70,23 @@ def test_ensemble_averages_logits(ckpt_dir):
     np.testing.assert_allclose(two.predict(waves), one.predict(waves), rtol=0, atol=1e-6)
 
 
+def test_predict_runs_each_member_through_the_module_function(ckpt_dir, monkeypatch):
+    # the replicated path reaches each member through the module's
+    # _member_logits, where a caller can plant another (the benchmark's faults)
+    from efficientat_tpu_torch.infer import tag
+
+    tagger = Tagger([NAME, NAME], model_dir=ckpt_dir, device="cpu")
+    waves = np.random.default_rng(1).normal(size=(2, 32000)).astype(np.float32) * 0.1
+    want = tagger.predict(waves)
+    seen = []
+    produce = tag._member_logits
+    monkeypatch.setattr(tag, "_member_logits",
+                        lambda model, mel: seen.append(model) or produce(model, mel) * 0)
+    got = tagger.predict(waves)
+    assert seen == tagger.members
+    np.testing.assert_array_equal(got, np.full_like(want, 0.5))
+
+
 def test_random_weights_are_seeded():
     waves = np.random.default_rng(2).normal(size=(1, 16000)).astype(np.float32) * 0.1
     with pytest.warns(UserWarning, match="random weights"):
