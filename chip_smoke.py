@@ -143,8 +143,16 @@ and member-parallel serving through the Tagger, and DyMN's options:
     kernels on the same input (``TOL_BN``, which the bf16 kernels miss
     against fp32's), timed beside the plain version, cuDNN and the byte
     bound; one ``train_step`` at B=120, fp32 and bf16 autocast, launches
-    them once a layer each way (46 and 46), a ``Tagger.predict`` not at
-    all.
+    them once a layer each way (46 and 46) and the eval kernel not at all,
+    a ``Tagger.predict`` of ``mn10_as``, ``dymn10_as`` and the ensemble
+    ``mn40_as_ext`` + ``dymn20_as`` the eval kernel once a BatchNorm (46,
+    61, 107) and the training kernels not at all; eval-mode BatchNorm and
+    its chain (``batch_norm_eval``) at each BatchNorm call (shape and
+    chain) of the three serving paths, ``mn10_as`` at B=64, ``dymn10_as``
+    at B=256 and the ensemble at B=32, fp32 and bf16, against the chain it
+    replaced (cuDNN's ``bn_fw_inf`` and ATen's ops,
+    ``batch_norm_eval_plain``) within ``TOL_BN``, timed beside it and the
+    byte bound with the L2 flushed before each call.
 
 Then one JSON line on the kernels, per path (tag, train, train_dp,
 tag_fp32, train_fp32, tag_dymn, train_dymn, train_dp_dymn, tag_windowed,
@@ -153,7 +161,8 @@ profile, tag_member_parallel, tag_mesh, train_dymn_dyconv_bf16, probe),
 each K1 row naming the kernel its route launched, then the rows of
 ``mel_edges`` (tag, train) and ``tile_banks`` (train), the BatchNorm
 kernels' rows (``train_bn``: forward and backward, fp32 and bf16, summed
-over the 46 layers), the card's
+over the 46 layers; ``serve_bn``: the eval kernel, fp32 and bf16, summed
+over the calls of each serving path's forward, 46 / 61 / 107), the card's
 ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 nothing falls back to the CPU.
@@ -2195,7 +2204,9 @@ def phase_dymn_options(device):
     seeded weights: ``aten::bmm.dtype`` on the card; the logits in fp32 and
     with the mix, and the gradients of ``sum(logits * r)`` with the mix,
     against the CPU's on the same mel at B=2 (TOL_DYCONV_GRAD_L2, with the
-    CPU's fp32 gradients as the control that must miss it); then one KD
+    CPU's fp32 gradients as the control that must miss it), each BatchNorm
+    of that recorded eval-mode forward on the eval kernel and its backward
+    on the port's kernels (``BatchNormEval``, counted); then one KD
     train step in fp32 with the mix: its loss on the card against the CPU's
     at the card's model input, its gradients finite; then, untimed, the
     mix's KD train step at B=120 of 10 s clips and the default DFT
@@ -2218,7 +2229,12 @@ def phase_dymn_options(device):
         size=(2, cfg0.num_classes)).astype(np.float32))
     with torch.inference_mode():
         card_logits = {o: m(mel2, t_max)[0].cpu() for o, m in models.items()}
+    profiling.reset_counters("bn.")
     card_grads = grads_of_logits(models["dyconv_bf16"], mel2, t_max, r.to(device))
+    recorded = [profiling.counter("bn.launch." + d) for d in ("eval", "backward")]
+    n_bn = sum(isinstance(mod, nn.BatchNorm2d) for mod in models["dyconv_bf16"].modules())
+    check(recorded == [n_bn, n_bn], "a recorded eval-mode forward did not run the eval BN "
+          f"kernel and its backward once a BatchNorm ({n_bn}): {recorded}")
     cpu_grads = {}
     for option, changes in DYMN_OPTIONS.items():
         cpu = build_model(dataclasses.replace(cfg0, **changes))
@@ -2240,7 +2256,7 @@ def phase_dymn_options(device):
         grad_gaps(cpu_grads["fp32"], cpu_grads["dyconv_bf16"]))
     phase("dymn_dyconv_grads_vs_cpu", model=DYMN, clips=2, mode="eval", grad_l2=l2,
           bound_l2=TOL_DYCONV_GRAD_L2, fp32_control_l2=c_l2, grad_worst=worst,
-          grad_worst_tensor=name, fp32_control_worst=c_worst)
+          grad_worst_tensor=name, fp32_control_worst=c_worst, bn_eval_backward=recorded)
     check(l2 <= TOL_DYCONV_GRAD_L2, "the bf16 mix's gradients, card against CPU")
     check(c_l2 > TOL_DYCONV_GRAD_L2, f"the fp32 control passes the gradient bound: {c_l2}")
     del card_grads, cpu_grads, models
@@ -2299,7 +2315,7 @@ BN_TIME_ITERS = 5
 TOL_BN = {torch.float32: 2e-5, torch.bfloat16: 2.0 ** -6}
 BN_OUTPUTS = ("y", "dx", "dgamma", "dbeta", "running_mean", "running_var")
 BN_KERNELS = {"forward": "bn_forward_stats + bn_forward_apply",
-              "backward": "bn_backward_reduce + bn_backward_apply"}
+              "backward": "bn_backward_reduce + bn_backward_apply", "eval": "bn_eval"}
 
 
 def bn_kernel_gap(got, want):
@@ -2341,7 +2357,65 @@ def bn_step_launches(device, bf16):
     metrics = train_step(model, opt, None, mel_cfg, loss_cfg, batch, draws, bf16=bf16)
     torch.cuda.synchronize()
     check(bool(np.isfinite(float(metrics["train_loss"]))), "BN step: non-finite loss")
+    check(profiling.counter("bn.launch.eval") == 0, "a train step launched the eval BN kernel")
     return profiling.counter("bn.launch.forward"), profiling.counter("bn.launch.backward")
+
+
+# the serving paths whose BatchNorm calls phase 24 checks the eval kernel
+# at (``time_bn.EVAL_CELLS``: members, then the batch) and the calls of
+# each, one a BatchNorm of each member
+BN_EVAL_CALLS = dict(zip(time_bn.EVAL_CELLS, (46, 61, 107)))
+
+
+def bn_eval_rows(card):
+    """Eval-mode BatchNorm and its chain (``bn_ops.batch_norm_eval``) at
+    each BatchNorm call of each serving path of ``BN_EVAL_CALLS`` (shape
+    and chain, ``time_bn.cell_calls``), fp32 and bf16, against the chain
+    it replaced (``batch_norm_eval_plain``: cuDNN's ``bn_fw_inf`` and
+    ATen's ops) on the same input within ``TOL_BN``, timed beside it and
+    the byte bound (``time_bn.time_eval_call``, the L2 flushed before each
+    call). Returns the kernels line's rows, one a path and precision,
+    summed over the path's calls."""
+    rows = []
+    for cell, n_calls in BN_EVAL_CALLS.items():
+        names, batch = cell.split(":")
+        calls = collections.Counter(time_bn.cell_calls(cell))
+        check(sum(calls.values()) == n_calls, f"{cell} makes {sum(calls.values())} BN calls")
+        sums = {dt: collections.defaultdict(float) for dt in BN_DTYPES}
+        worst = dict.fromkeys(BN_DTYPES, 0.0)
+        for call in calls:
+            shape, kind, m = call
+            for dtype in BN_DTYPES:
+                x, params, chain = time_bn.chain_inputs(shape, kind, m, dtype, seed=sum(shape))
+                with torch.inference_mode():
+                    got = bn_ops.batch_norm_eval(x, *params, time_bn.EPS, **chain)
+                    want = bn_ops.batch_norm_eval_plain(x, *params, time_bn.EPS, **chain)
+                gap = bn_kernel_gap(got, want)
+                check(got.dtype == want.dtype, f"BN eval at {call}: {got.dtype}, not {want.dtype}")
+                check(gap <= TOL_BN[dtype],
+                      f"BN eval at {call} {dtype}: {gap} against {TOL_BN[dtype]}")
+                worst[dtype] = max(worst[dtype], gap)
+                del x, params, chain, got, want
+                rec = time_bn.time_eval_call(shape, kind, m, dtype, BN_TIME_ITERS)
+                phase("bn_eval_call", cell=cell, shape=json.dumps(list(shape)), chain=kind,
+                      m=m, calls=calls[call], dtype=str(dtype)[6:], gap=gap,
+                      bound=TOL_BN[dtype], plan=json.dumps(rec["plan"]),
+                      kernel_ms=rec["kernel_ms"], library_ms=rec["library_ms"],
+                      bound_ms=rec["bound_ms"])
+                for k in ("kernel_ms", "library_ms", "bound_ms"):
+                    sums[dtype][k] += calls[call] * rec[k]
+                torch.cuda.empty_cache()
+        # the plain version is the chain the library ran: one call, one time
+        rows += [{"name": "batch_norm_eval", "path": "serve_bn", "route": "cuda",
+                  "source": "efficientat_tpu_torch/csrc/batch_norm.cu",
+                  "entry": "efficientat_tpu_torch/csrc/batch_norm.cu::eat_bn_eval",
+                  "kernel": BN_KERNELS["eval"], "replaces": None, "models": names,
+                  "precision": str(dt)[6:], "batch": int(batch), "layers": n_calls,
+                  "launches": n_calls, "ms": t["kernel_ms"], "plain_ms": t["library_ms"],
+                  "library_ms": t["library_ms"], "bound_ms": t["bound_ms"],
+                  "bound_by": "bytes", "share_pct": 100 * t["bound_ms"] / t["kernel_ms"],
+                  "max_gap": worst[dt], "card": card} for dt, t in sums.items()]
+    return rows
 
 
 def phase_batch_norm(device, card):
@@ -2352,9 +2426,11 @@ def phase_batch_norm(device, card):
     bf16 kernels against fp32's must miss the fp32 bound); the kernels',
     the plain version's and cuDNN's device time beside the byte bound
     (``time_bn.time_shape``); the launches of one ``train_step`` (fp32 and
-    bf16 autocast), one a layer each way, and of a ``Tagger.predict``,
-    none. Returns the kernels line's rows, one a precision and direction,
-    summed over the model's layers."""
+    bf16 autocast), one a layer each way, and of a ``Tagger.predict`` of
+    each path of ``BN_EVAL_CALLS``, none of them and one eval-mode launch a
+    BatchNorm (46, 61, 107); then ``bn_eval_rows``.
+    Returns the kernels line's rows, one a precision and direction, summed
+    over the model's layers, then the eval kernel's."""
     shapes = time_bn.layer_shapes(BN_MODEL, TRAIN_BATCH)
     layers = collections.Counter(shapes)
     check(len(shapes) == BN_LAYERS, f"{BN_MODEL} has {len(shapes)} BatchNorm layers")
@@ -2389,18 +2465,22 @@ def phase_batch_norm(device, card):
     phase("bn_control", what="bf16 kernels' y and dx against fp32's plain version",
           least=min(control), bound=TOL_BN[torch.float32])
     launches = {dt: bn_step_launches(device, bf16=dt == torch.bfloat16) for dt in BN_DTYPES}
-    tagger = Tagger(BN_MODEL, pretrained=False, device=device, seed=0)
-    profiling.reset_counters("bn.")
-    tagger.predict(train_waves(4, seed=7))
-    predict = (profiling.counter("bn.launch.forward"), profiling.counter("bn.launch.backward"))
+    predicts = {}
+    for cell in BN_EVAL_CALLS:
+        tagger = Tagger(cell.split(":")[0].split("+"), pretrained=False, device=device, seed=0)
+        profiling.reset_counters("bn.")
+        tagger.predict(train_waves(4, seed=7))
+        predicts[cell] = [profiling.counter("bn.launch." + d)
+                          for d in ("forward", "backward", "eval")]
+        del tagger
+        torch.cuda.empty_cache()
     phase("bn_launches", model=BN_MODEL, batch=TRAIN_BATCH,
           train_step=json.dumps({str(dt)[6:]: n for dt, n in launches.items()}),
-          predict=json.dumps(predict))
+          predict=json.dumps(predicts))
     check(all(n == (BN_LAYERS, BN_LAYERS) for n in launches.values()),
           f"a train step did not launch the BN kernels once a layer each way: {launches}")
-    check(predict == (0, 0), f"a predict launched the training BN kernels: {predict}")
-    del tagger
-    torch.cuda.empty_cache()
+    check(all(n == [0, 0, BN_EVAL_CALLS[cell]] for cell, n in predicts.items()),
+          f"a predict did not launch the eval BN kernel alone, once a BatchNorm: {predicts}")
     rows = []
     for (dtype, d), t in sums.items():
         rows.append({"name": "batch_norm_" + d, "path": "train_bn", "route": "cuda",
@@ -2413,7 +2493,7 @@ def phase_batch_norm(device, card):
                      "library_ms": t["library_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": "bytes", "share_pct": 100 * t["bound_ms"] / t["kernel_ms"],
                      "max_gap": json.dumps(worst[dtype]), "card": card})
-    return rows
+    return rows + bn_eval_rows(card)
 
 
 def main():

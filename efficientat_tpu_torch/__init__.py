@@ -17,7 +17,7 @@ its module layout and names, so every counterpart sits at the same path:
   tagging (``tag_audio_window``, ``EATagger``), and ``cli`` around them;
 - ``train``, ``parallel``: the train step, its tasks and data parallelism;
 - ``tools``: the probe of the fused log-mel variants, and timers of K1
-  (``time_k1``) and of the training-mode BatchNorm kernels (``time_bn``).
+  (``time_k1``) and of the BatchNorm kernels, training and eval mode (``time_bn``).
 
 This package imports ``torch`` and never ``jax``, ``flax`` or anything of
 the JAX package: the numpy host code it needs (``utils.common``,

@@ -1,7 +1,10 @@
-// Training-mode BatchNorm2d, forward and backward, CUDA C++ for Hopper
-// (sm_90a). ops/batch_norm.py binds it (ctypes) and wraps it in a
+// BatchNorm2d, CUDA C++ for Hopper (sm_90a): training mode, forward and
+// backward, and eval mode with the elementwise chain behind it (below).
+// ops/batch_norm.py binds it (ctypes) and wraps training mode in a
 // torch.autograd.Function; models/layers.py::BatchNorm2d calls it for a
-// CUDA input in training mode.
+// CUDA input, in training mode and in eval mode (where autograd records,
+// the eval kernel without a chain, whose backward is the eval kernel on dy
+// and the training backward's sums: ops/batch_norm.py::BatchNormEval).
 //
 // It replaces no TPU kernel: on the TPU, XLA fused the JAX package's
 // BatchNorm into the surrounding ops. It was added because cuDNN's NCHW
@@ -48,6 +51,32 @@
 // triple in fp32, merging each pack's own mean and M2 into it; the
 // backward sums each batch of loads in fp32 and the batches in fp64. The
 // merges across threads and blocks are fp64.
+//
+// Eval mode (bn_eval, eat_bn_eval): BatchNorm with the running statistics
+// is an affine map a channel, and what follows it up to the next conv in
+// MN and DyMN is elementwise: ReLU or Hardswish; the block's input added
+// back; DyMN's DyReLU-B (max over m of y a_m[n,c] + b_m[n,c]) and its
+// coordinate attention (y sigmoid(g_f[n,c,f]) sigmoid(g_t[n,c,t])). One
+// kernel reads x once, applies the map and the chain (a compile-time
+// epilogue, EPI_*), and writes the result once; the residual is the only
+// other full-size read. Eager PyTorch ran each step as a pass of its own
+// through device memory (cuDNN's bn_fw_inf, then up to seven ATen passes
+// in a DyMN block). Bound: the bytes, 2 passes over x (3 with the
+// residual) at 3.35 TB/s. Design: a block takes a run of whole NCHW
+// (n, c) planes (`planes` of them, several where a plane is small, so
+// that the grid holds a few blocks an SM; ops/batch_norm.py::eval_plan);
+// its first threads build each plane's coefficients in shared memory:
+// scale and shift from gamma, beta, the running statistics and eps (in
+// fp64, as the module's parameters may change between calls, nothing is
+// cached), DyReLU's a_m and b_m from coef_net's raw output (2 sigmoid - 1,
+// its lambdas and init), and the sigmoid of each gate of the plane's F
+// rows and T columns. Then each thread streams 16-byte packs of the run
+// (one value at a time where H x W or a base pointer does not allow it),
+// UNROLL in flight. The chain keeps the order of operations the models ran
+// op by op, (y sigmoid(g_f)) sigmoid(g_t), in fp32, and rounds once to T.
+// (Loading a thread's first packs before the coefficient build was slower:
+// 9.12 against 8.90 ms over dymn10_as's 61 calls at B = 256, fp32, on one
+// H100 80GB HBM3 at 700 W.)
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -412,6 +441,146 @@ bool valid(int N, int C, int HW, int vec, int bytes, int chunk, int chunks, Shap
          (long long)chunk * (chunks - 1) < sh->groups && (long long)chunk * chunks >= sh->groups;
 }
 
+// ------------------------------------------------------------ eval mode
+
+// the epilogue after y = x scale[c] + shift[c] (ops/batch_norm.py::EPILOGUES)
+enum : int {
+  EPI_NONE,
+  EPI_RELU,
+  EPI_HARDSWISH,
+  EPI_RESIDUAL,
+  EPI_DYRELU,
+  EPI_DYRELU_CA,
+  EPI_RELU_CA,
+  EPI_HARDSWISH_CA,
+  EPI_COUNT
+};
+constexpr int MAX_M = 4;        // DyReLU's pieces
+constexpr int MAX_PLANES = 64;  // planes a block
+constexpr int COEFS = 2 + 2 * MAX_M;
+
+template <int E>
+struct Epi {
+  static constexpr int act = (E == EPI_RELU || E == EPI_RELU_CA)           ? 1
+                             : (E == EPI_HARDSWISH || E == EPI_HARDSWISH_CA) ? 2
+                                                                             : 0;
+  static constexpr bool dyrelu = E == EPI_DYRELU || E == EPI_DYRELU_CA;
+  static constexpr bool ca = E == EPI_DYRELU_CA || E == EPI_RELU_CA || E == EPI_HARDSWISH_CA;
+  static constexpr bool residual = E == EPI_RESIDUAL;
+};
+
+struct Eval {
+  const void* x;
+  void* y;
+  const void* residual;  // (N, C, H, W) as x, or null
+  const float *weight, *bias, *mean, *var;
+  double eps;
+  const void* coef;            // (N, C, 2M) coef_net's output, or null
+  const void *gate_f, *gate_t;  // (N, C, H) and (N, C, W) before the sigmoid, or null
+  int C, H, W, HW, planes_total, M, planes;
+};
+
+// torch's float sigmoid and hardswish, in the same order of operations
+__device__ __forceinline__ float sigmoid(float v) { return 1.f / (1.f + expf(-v)); }
+__device__ __forceinline__ float hardswish(float v) {
+  return v * fminf(fmaxf(v + 3.f, 0.f), 6.f) / 6.f;
+}
+
+// planes blockIdx.x * planes .. of the (N * C) planes of x
+template <typename T, int VEC, int E>
+__global__ void __launch_bounds__(THREADS) bn_eval(Eval a) {
+  using P = Epi<E>;
+  extern __shared__ float sig[];  // (planes, H + W): sigmoid of each plane's gates
+  __shared__ float coef[MAX_PLANES][COEFS];  // scale, shift, a_0.., b_0..
+  const int p0 = blockIdx.x * a.planes, np = min(a.planes, a.planes_total - p0);
+  for (int lp = threadIdx.x; lp < np; lp += THREADS) {
+    const int p = p0 + lp, c = p % a.C;
+    const double s = (double)a.weight[c] / sqrt((double)a.var[c] + a.eps);
+    coef[lp][0] = (float)s;
+    coef[lp][1] = (float)((double)a.bias[c] - (double)a.mean[c] * s);
+    if (P::dyrelu) {
+      // theta = 2 sigmoid - 1; a = theta + (1, 0, ..), b = theta / 2
+      const T* k = static_cast<const T*>(a.coef) + (size_t)p * 2 * a.M;
+      for (int m = 0; m < a.M; ++m) {
+        const float ta = 2.f * sigmoid(to_f(k[m])) - 1.f;
+        coef[lp][2 + m] = m == 0 ? ta + 1.f : ta;
+        coef[lp][2 + MAX_M + m] = 0.5f * (2.f * sigmoid(to_f(k[a.M + m])) - 1.f);
+      }
+    }
+  }
+  const int rc = a.H + a.W;
+  if (P::ca)
+    for (int i = threadIdx.x; i < np * rc; i += THREADS) {
+      const int lp = i / rc, j = i - lp * rc;
+      const size_t p = p0 + lp;
+      sig[i] = sigmoid(j < a.H ? to_f(static_cast<const T*>(a.gate_f)[p * a.H + j])
+                               : to_f(static_cast<const T*>(a.gate_t)[p * a.W + (j - a.H)]));
+    }
+  __syncthreads();
+  const size_t base = (size_t)p0 * a.HW;
+  const int groups = np * a.HW / VEC;
+  for (int g = threadIdx.x; g < groups; g += THREADS * UNROLL) {
+    Pack<T, VEC> px[UNROLL], pr[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u)
+      if (g + u * THREADS < groups) {
+        const size_t off = base + (size_t)(g + u * THREADS) * VEC;
+        px[u] = load<T, VEC>(a.x, off);
+        if (P::residual) pr[u] = load<T, VEC>(a.residual, off);
+      }
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u)
+      if (g + u * THREADS < groups) {
+        const int e = (g + u * THREADS) * VEC, lp = e / a.HW, j0 = e - lp * a.HW;
+        const float* k = coef[lp];
+        Pack<T, VEC> q;
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) {
+          float v = fmaf(to_f(px[u].v[i]), k[0], k[1]);
+          if (P::act == 1) v = v < 0.f ? 0.f : v;
+          if (P::act == 2) v = hardswish(v);
+          if (P::dyrelu) {
+            float o = fmaf(v, k[2], k[2 + MAX_M]);
+#pragma unroll
+            for (int m = 1; m < MAX_M; ++m)
+              if (m < a.M) o = fmaxf(o, fmaf(v, k[2 + m], k[2 + MAX_M + m]));
+            v = o;
+          }
+          if (P::ca) {
+            const int j = j0 + i, f = j / a.W;
+            const float* s = sig + lp * rc;
+            v = v * s[f] * s[a.H + (j - f * a.W)];
+          }
+          if (P::residual) v += to_f(pr[u].v[i]);
+          q.v[i] = from_f<T>(v);
+        }
+        store<T, VEC>(a.y, base + (size_t)(g + u * THREADS) * VEC, q);
+      }
+  }
+}
+
+template <typename T, int VEC, int E>
+cudaError_t eval_launch(const Eval& a, cudaStream_t stream) {
+  const int blocks = (a.planes_total + a.planes - 1) / a.planes;
+  const size_t smem = Epi<E>::ca ? sizeof(float) * a.planes * (a.H + a.W) : 0;
+  bn_eval<T, VEC, E><<<blocks, THREADS, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T, int VEC>
+cudaError_t eval_epilogue(int epilogue, const Eval& a, cudaStream_t s) {
+  switch (epilogue) {
+    case EPI_NONE: return eval_launch<T, VEC, EPI_NONE>(a, s);
+    case EPI_RELU: return eval_launch<T, VEC, EPI_RELU>(a, s);
+    case EPI_HARDSWISH: return eval_launch<T, VEC, EPI_HARDSWISH>(a, s);
+    case EPI_RESIDUAL: return eval_launch<T, VEC, EPI_RESIDUAL>(a, s);
+    case EPI_DYRELU: return eval_launch<T, VEC, EPI_DYRELU>(a, s);
+    case EPI_DYRELU_CA: return eval_launch<T, VEC, EPI_DYRELU_CA>(a, s);
+    case EPI_RELU_CA: return eval_launch<T, VEC, EPI_RELU_CA>(a, s);
+    default: return eval_launch<T, VEC, EPI_HARDSWISH_CA>(a, s);
+  }
+}
+
 }  // namespace
 
 // Training-mode forward of x (N, C, H, W), contiguous, dtype 0 (fp32) or 1
@@ -464,6 +633,46 @@ extern "C" int eat_bn_backward(const void* x, const void* dy, int dtype, int N, 
                           : backward<float, 4>(sh, a, chunks, s));
   return (int)(vec == 1 ? backward<__nv_bfloat16, 1>(sh, a, chunks, s)
                         : backward<__nv_bfloat16, 8>(sh, a, chunks, s));
+}
+
+// Eval-mode BatchNorm of x (N, C, H, W), contiguous, dtype 0 (fp32) or 1
+// (bf16), with the running statistics, then `epilogue` (EPI_*): y (x's
+// shape and dtype) = chain(x scale[c] + shift[c]), scale = weight /
+// sqrt(var + eps), shift = bias - mean scale. residual (EPI_RESIDUAL), coef
+// (EPI_DYRELU*: (N, C, 2 m) raw, 1 <= m <= 4) and gate_f, gate_t (the *_CA
+// epilogues: (N, C, H) and (N, C, W) before the sigmoid) are contiguous
+// and of x's dtype; the others may be null. vec: values a load (1, or 16
+// bytes' worth where H * W is a multiple and x, y and residual are 16-byte
+// aligned); planes: (n, c) planes a block, 1..64, with planes * H * W
+// under 2**31 and, for the *_CA epilogues, planes * (H + W) floats of
+// shared memory within 48 KB. Returns the launch's cudaError_t
+// (cudaErrorInvalidValue for arguments it does not take).
+extern "C" int eat_bn_eval(const void* x, int dtype, int N, int C, int H, int W, int vec,
+                           int planes, int epilogue, const float* weight, const float* bias,
+                           const float* mean, const float* var, double eps, const void* residual,
+                           const void* coef, int m, const void* gate_f, const void* gate_t,
+                           void* y, void* stream) {
+  const long long hw = (long long)H * W, total = (long long)N * C;
+  const int bytes = dtype == 0 ? 4 : 2;
+  const bool ca = epilogue == EPI_DYRELU_CA || epilogue == EPI_RELU_CA ||
+                  epilogue == EPI_HARDSWISH_CA;
+  const bool dyrelu = epilogue == EPI_DYRELU || epilogue == EPI_DYRELU_CA;
+  if ((dtype != 0 && dtype != 1) || epilogue < 0 || epilogue >= EPI_COUNT || N < 1 || C < 1 ||
+      H < 1 || W < 1 || total > 0x7fffffffLL || planes < 1 || planes > MAX_PLANES ||
+      planes * hw > 0x7fffffffLL || (vec != 1 && vec * bytes != 16) || hw % vec != 0 ||
+      (epilogue == EPI_RESIDUAL && residual == nullptr) ||
+      (dyrelu && (coef == nullptr || m < 1 || m > MAX_M)) ||
+      (ca && (gate_f == nullptr || gate_t == nullptr ||
+              (long long)planes * (H + W) * sizeof(float) > 48 * 1024)))
+    return (int)cudaErrorInvalidValue;
+  const Eval a{x,   y,     residual, weight, bias, mean, var,       eps,         coef,
+               gate_f, gate_t, C,    H,      W,    (int)hw, (int)total, dyrelu ? m : 0, planes};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return (int)(vec == 1 ? eval_epilogue<float, 1>(epilogue, a, s)
+                          : eval_epilogue<float, 4>(epilogue, a, s));
+  return (int)(vec == 1 ? eval_epilogue<__nv_bfloat16, 1>(epilogue, a, s)
+                        : eval_epilogue<__nv_bfloat16, 8>(epilogue, a, s));
 }
 
 extern "C" const char* eat_bn_error_string(int err) {

@@ -55,6 +55,7 @@ from torch import nn
 
 from efficientat_tpu_torch.models import mn
 from efficientat_tpu_torch.models.layers import (
+    ACT_NAMES,
     ACTIVATIONS,
     BN_EPS,
     BN_MOMENTUM,
@@ -66,6 +67,7 @@ from efficientat_tpu_torch.models.layers import (
     MlpHead,
     conv_out_count,
     masked_time_mean,
+    norm_chain,
     remat_call,
     time_mask,
 )
@@ -230,7 +232,8 @@ class ContextGen(nn.Module):
             x = time_mask(x, time_valid)
             cf = x.sum(dim=3, keepdim=True) / time_valid.to(x.dtype)[:, None, None, None]
         ct = x.mean(dim=2, keepdim=True).transpose(2, 3)     # (B, C, T, 1)
-        g = self.joint_act(self.joint_norm(self.joint_conv(torch.cat([cf, ct], dim=2))))
+        g = norm_chain(self.joint_norm, self.joint_conv(torch.cat([cf, ct], dim=2)),
+                       act=ACT_NAMES[type(self.joint_act)])
         if time_valid is None:
             h_c = g.mean(dim=(2, 3))
         else:
@@ -251,29 +254,13 @@ class ContextGen(nn.Module):
 class DyReLUB(nn.Module):
     """Dynamic ReLU B (dy_block.py:142-188): theta = 2 sigmoid(W h_c) - 1
     as (B, C, 2M); coefs = theta * [1]*M+[0.5]*M + [1, 0, ...];
-    out = max over m of x * a_m + b_m."""
+    out = max over m of x * a_m + b_m. The module holds W (``coef_net``);
+    ``DYBlock`` hands its raw output to the depthwise BatchNorm, whose
+    chain applies the rest (``ops/batch_norm.py::dyrelu``)."""
 
     def __init__(self, channels: int, context_dim: int, m: int = 2):
         super().__init__()
-        self.channels, self.m = channels, m
         self.coef_net = nn.Sequential(nn.Linear(context_dim, 2 * m * channels))
-
-    def forward(self, x: torch.Tensor, h_c: torch.Tensor) -> torch.Tensor:
-        m = self.m
-        theta = 2.0 * torch.sigmoid(self.coef_net(h_c)) - 1.0
-        theta = theta.reshape(-1, self.channels, 1, 1, 2 * m)  # (B, C, 1, 1, 2M)
-        # theta * lambdas + init_v, term by term (no constant tensors to copy
-        # to the device): the slopes a_m, then the intercepts b_m
-        a = torch.cat([theta[..., :1] + 1.0, theta[..., 1:m]], dim=-1)
-        b = 0.5 * theta[..., m:]
-        if m == 2:  # two FMAs and a maximum, as upstream specialises
-            return torch.maximum(x * a[..., 0] + b[..., 0], x * a[..., 1] + b[..., 1])
-        return (x[..., None] * a + b).amax(dim=-1)
-
-
-def coord_att(x: torch.Tensor, g_cf: torch.Tensor, g_ct: torch.Tensor) -> torch.Tensor:
-    """Coordinate attention: x * sigmoid(g_cf) * sigmoid(g_ct) (dy_block.py:191-201)."""
-    return x * torch.sigmoid(g_cf) * torch.sigmoid(g_ct)
 
 
 # Which of the 15 blocks are dynamic for use_dy_blocks="replace_se"
@@ -397,15 +384,18 @@ class DYBlock(nn.Module):
         inp = x
         h_c, g_cf, g_ct = self.context_gen(x, time_valid)
         if self.expand:
-            x = self.exp_act(self.exp_norm(self.exp_conv(x, h_c, temperature)))
+            x = norm_chain(self.exp_norm, self.exp_conv(x, h_c, temperature),
+                           act=ACT_NAMES[type(self.exp_act)])
         if time_valid is not None:
             x = time_mask(x, time_valid)
-        x = self.depth_norm(self.depth_conv(x, h_c, temperature))
-        x = self.depth_act(x, h_c) if self.dyrelu else self.depth_act(x)
-        if self.ca:
-            x = coord_att(x, g_cf, g_ct)
-        x = self.proj_norm(self.proj_conv(x, h_c, temperature))
-        return x + inp if self.use_res else x
+        # the depthwise BatchNorm with DyReLU-B (or the block's activation)
+        # and coordinate attention behind it
+        x = norm_chain(self.depth_norm, self.depth_conv(x, h_c, temperature),
+                       act=None if self.dyrelu else ACT_NAMES[type(self.depth_act)],
+                       coef=self.depth_act.coef_net(h_c) if self.dyrelu else None,
+                       gates=(g_cf, g_ct) if self.ca else None)
+        return norm_chain(self.proj_norm, self.proj_conv(x, h_c, temperature),
+                          residual=inp if self.use_res else None)
 
 
 class DyMN(nn.Module):

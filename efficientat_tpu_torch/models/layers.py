@@ -9,9 +9,15 @@ BN; ``InvertedResidual.block``; ``ConcurrentSEBlock.conc_se_layers.k.fc1/fc2``;
 BatchNorm: eps 1e-3, momentum 0.01 in the backbone (upstream
 models/mn/model.py:114-115); the fully-convolutional head keeps torch's
 defaults, eps 1e-5 and momentum 0.1 (models/mn/model.py:183). Every
-BatchNorm of MN and DyMN is ``BatchNorm2d`` below: in training mode on a
-CUDA input it runs the port's kernels (``ops/batch_norm.py``), elsewhere
-``nn.BatchNorm2d``.
+BatchNorm of MN and DyMN is ``BatchNorm2d`` below, called through
+``norm_chain`` with the elementwise chain that consumes it (the block's
+activation, its input added back, DyMN's DyReLU-B and coordinate
+attention): in training mode on a CUDA input it runs the port's kernels
+(``ops/batch_norm.py``) and then the chain; in eval mode on a CUDA input,
+where autograd records nothing, BatchNorm and the chain are one kernel,
+and where it records, the eval kernel (its backward the port's kernels
+too) and then the chain; on the CPU ``nn.BatchNorm2d`` and the chain op
+by op.
 
 Exact-length evaluation of a bucket-padded batch (``time_valid``, the
 number of valid time frames of each row): the padded frames are zeroed
@@ -38,6 +44,8 @@ BN_EPS = 1e-3
 BN_MOMENTUM = 0.01
 
 ACTIVATIONS = {"RE": nn.ReLU, "HS": nn.Hardswish}
+# an activation module's name in ``ops/batch_norm.py``'s eval chains
+ACT_NAMES = {nn.ReLU: "relu", nn.Hardswish: "hardswish"}
 
 # axis of (B, C, F, T) each SE dimension letter gates
 _SE_AXES = {"c": 1, "f": 2, "t": 3}
@@ -67,36 +75,73 @@ def masked_time_mean(x: torch.Tensor, time_valid: torch.Tensor) -> torch.Tensor:
 
 class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` with the same parameters, buffers and
-    ``state_dict`` keys, whose training-mode forward on a CUDA input runs
-    the port's kernels (``ops/batch_norm.py``; their backward too). A CPU
-    input, and eval mode (inference BatchNorm), take ``nn.BatchNorm2d``'s
-    own path. Its parameters are checked for the kernels once, and again
-    only when one of them is replaced (another address). The running
-    statistics are updated in place on the same tensors, so
-    ``_buffers_kept`` restores them."""
+    ``state_dict`` keys, whose forward on a CUDA input runs the port's
+    kernels (``ops/batch_norm.py``): in training mode BatchNorm's (their
+    backward too), then the chain; in eval mode, where autograd records
+    nothing, BatchNorm and the chain as one kernel, and where it records,
+    ``BatchNormEval`` (the eval kernel; its backward the port's kernels),
+    then the chain. The chain is the forward's keyword arguments
+    (``ops/batch_norm.py::epilogue``): ``act`` ("relu", "hardswish" or
+    None), ``residual``, ``coef`` (DyReLU-B's raw coefficients) and
+    ``gates`` (coordinate attention's, before the sigmoid). A CPU input
+    takes ``nn.BatchNorm2d``'s own path and the chain op by op. Its
+    parameters are checked for the kernels once, and again only when one
+    of them is replaced (another address). The running statistics are
+    updated in place on the same tensors, so ``_buffers_kept`` restores
+    them."""
 
     _checked = None  # the parameters' addresses and x's channels and card, checked
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not (self.training and x.is_cuda):
-            return super().forward(x)
-        self._check_input_dim(x)
-        batch_norm.check_input(x)
+    def _check_parameters(self, x: torch.Tensor) -> tuple:
         params = (self.weight, self.bias, self.running_mean, self.running_var)
         key = (x.shape[1], x.get_device(),
                *(None if t is None else t.data_ptr() for t in params))
         if key != self._checked:
             batch_norm.check_parameters(x, *params)
             self._checked = key
-        factor = self.momentum
-        self.num_batches_tracked.add_(1)
-        if self.momentum is None:  # cumulative moving average
-            factor = 1.0 / float(self.num_batches_tracked)
-        return batch_norm.BatchNormTrain.apply(x, *params, factor, self.eps)
+        return params
+
+    def forward(self, x: torch.Tensor, *, act: Optional[str] = None,
+                residual: Optional[torch.Tensor] = None,
+                coef: Optional[torch.Tensor] = None,
+                gates: Optional[tuple] = None) -> torch.Tensor:
+        if not x.is_cuda:
+            y = super().forward(x)
+        elif not self.training:
+            batch_norm.check_eval_input(x)
+            params = self._check_parameters(x)
+            if not (torch.is_grad_enabled() and any(
+                    t is not None and t.requires_grad
+                    for t in (x, self.weight, self.bias, residual, coef, *(gates or ())))):
+                return batch_norm.eval_kernel(x, *params, self.eps, act, residual, coef, gates)
+            y = batch_norm.BatchNormEval.apply(x, *params, self.eps)
+        else:
+            self._check_input_dim(x)
+            batch_norm.check_input(x)
+            params = self._check_parameters(x)
+            factor = self.momentum
+            self.num_batches_tracked.add_(1)
+            if self.momentum is None:  # cumulative moving average
+                factor = 1.0 / float(self.num_batches_tracked)
+            y = batch_norm.BatchNormTrain.apply(x, *params, factor, self.eps)
+        return batch_norm.epilogue(y, act, residual, coef, gates)
+
+
+def norm_chain(norm: nn.Module, x: torch.Tensor, **chain) -> torch.Tensor:
+    """``norm(x)`` and the elementwise chain behind it (``act``,
+    ``residual``, ``coef``, ``gates``: ``BatchNorm2d.forward``'s keywords).
+    The port's ``BatchNorm2d`` takes the chain itself (one kernel in eval
+    mode on the card); another BatchNorm module, such as a plain
+    ``nn.BatchNorm2d``, runs it after its own forward, op by op."""
+    if isinstance(norm, BatchNorm2d):
+        return norm(x, **chain)
+    return batch_norm.epilogue(norm(x), **chain)
 
 
 class ConvNormAct(nn.Sequential):
-    """Conv2d (no bias, torch-style symmetric padding) -> BatchNorm -> activation."""
+    """Conv2d (no bias, torch-style symmetric padding) -> BatchNorm -> activation.
+    ``forward(x, residual)`` adds ``residual`` after the BatchNorm of a
+    ConvNormAct without an activation (a block's projection)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel: int = 3,
                  stride: int = 1, dilation: int = 1, groups: int = 1,
@@ -110,6 +155,11 @@ class ConvNormAct(nn.Sequential):
         if act is not None:
             layers.append(act())
         super().__init__(*layers)
+
+    def forward(self, x: torch.Tensor,
+                residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+        act = ACT_NAMES[type(self[2])] if len(self) > 2 else None
+        return norm_chain(self[1], self[0](x), act=act, residual=residual)
 
 
 class SqueezeExcitation(nn.Module):
@@ -240,18 +290,21 @@ class InvertedResidual(nn.Module):
     def forward(self, x: torch.Tensor,
                 time_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``time_valid`` (B,): valid input frames. The depthwise conv's
-        input and output are masked and the SE squeezes the valid frames."""
+        input and output are masked and the SE squeezes the valid frames.
+        The projection's BatchNorm adds the residual."""
+        *body, project = self.block
         if time_valid is None:
-            out = self.block(x)
+            out = x
+            for layer in body:
+                out = layer(out)
         else:
-            layers = iter(self.block)
+            layers = iter(body)
             out = next(layers)(x) if self.expand else x
             tv_out = self.cnf.time_count(time_valid)
             out = time_mask(next(layers)(time_mask(out, time_valid)), tv_out)
             if self.se:
                 out = next(layers)(out, tv_out)
-            out = next(layers)(out)
-        return out + x if self.use_res else out
+        return project(out, x if self.use_res else None)
 
 
 @contextlib.contextmanager

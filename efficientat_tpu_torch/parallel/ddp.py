@@ -30,6 +30,7 @@ import torch.distributed as dist
 from torch import nn
 
 from efficientat_tpu_torch.models.layers import BatchNorm2d
+from efficientat_tpu_torch.ops import batch_norm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,11 +139,12 @@ class GlobalBatchNorm2d(BatchNorm2d):
     biased variance normalise the rows. The running variance takes the unbiased estimate, as
     ``nn.BatchNorm2d``. Otherwise it is the port's ``models.layers.BatchNorm2d``
     (its kernels in training on a CUDA input, at world size 1 too). Same
-    ``state_dict`` keys."""
+    ``state_dict`` keys. The chain behind it (``chain``: ``BatchNorm2d``'s
+    keywords) follows op by op where the statistics are global."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, **chain) -> torch.Tensor:
         if not (self.training and world_size() > 1):
-            return super().forward(x)
+            return super().forward(x, **chain)
         c = x.shape[1]
         xf = x.float()
         # two passes, as ATen's batch norm: the mean first, then the squared
@@ -164,7 +166,7 @@ class GlobalBatchNorm2d(BatchNorm2d):
         y = centred * torch.rsqrt(var + self.eps).reshape(shape)
         if self.affine:
             y = y * self.weight.reshape(shape) + self.bias.reshape(shape)
-        return y.to(x.dtype)
+        return batch_norm.epilogue(y.to(x.dtype), **chain)
 
 
 def convert_global_bn(module: nn.Module) -> nn.Module:

@@ -2,7 +2,7 @@
 (layer plan, MACs, parameters, peak memory, receptive field, the complexity
 report), and the port's own scripts: the probe of the fused log-mel variants
 (``probe_mel_kernel``) and the timers of K1 (``time_k1``) and of the
-training-mode BatchNorm kernels (``time_bn``)."""
+BatchNorm kernels, training and eval mode (``time_bn``)."""
 
 from efficientat_tpu_torch.tools.layer_plan import LayerInfo, layer_plan
 from efficientat_tpu_torch.tools.macs import count_macs, count_params

@@ -1,8 +1,9 @@
-"""Time the training-mode BatchNorm kernels on the card at a model's shapes.
+"""Time the BatchNorm kernels on the card at a model's shapes.
 
     python -m efficientat_tpu_torch.tools.time_bn [--model_name mn10_as]
         [--batch 120] [--dtype float32 bfloat16] [--iters 20]
     python -m efficientat_tpu_torch.tools.time_bn --trace_step [--batch 120]
+    python -m efficientat_tpu_torch.tools.time_bn --eval [--dtype float32] [--iters 20]
 
 The shapes are every BatchNorm input of ``--model_name`` on ``--batch``
 10 s clips (128 mels, 1000 frames), in the model's order. For each shape
@@ -16,6 +17,18 @@ library's (``library_ms``: the kernels ``F.batch_norm`` picks in training,
 which the port never calls: cuDNN's for fp32, ATen's for a bf16 input with
 fp32 gamma, which cuDNN refuses). Then the sums over the model's layers,
 and last the card's name and power limit as ``nvidia-smi`` gives them.
+
+``--eval`` times the eval-mode kernel (``ops/batch_norm.py::eval_kernel``)
+at each BatchNorm call of each serving cell (``EVAL_CELLS``: members
+joined by ``+``, then ``:`` and the batch), by its shape and chain
+(``cell_calls``): one JSON line each with the calls of that shape and
+chain, the plan (``eval_plan``), the kernel's device time a call with the
+L2 flushed before each call, the byte bound (x read and written, the
+residual read: ``eval_bound_bytes``) and the kernel's share of it, and
+``library_ms``: the chain as the port ran it before the kernel and no
+longer does, eval-mode ``F.batch_norm`` (cuDNN's ``bn_fw_inf``) and
+ATen's elementwise ops (``batch_norm_eval_plain``), from the same flushed
+L2. Then each cell's sums.
 
 ``--trace_step`` profiles one ``train_step`` of ``--model_name`` (fp32 with TF32
 off, K1's DFT bf16x3, after two warm-up steps) and prints each
@@ -43,21 +56,113 @@ from efficientat_tpu_torch.utils.profiling import device_rows, trace
 MOMENTUM, EPS = 0.01, 1e-3
 CLIP_FRAMES, N_MELS = 1000, 128
 BN_KERNELS = ("bn_", "batch_norm", "batchnorm")
+# the serving cells' members and batch
+EVAL_CELLS = ("mn10_as:64", "dymn10_as:256", "mn40_as_ext+dymn20_as:32")
+# what a flush writes before each timed eval call: five times an H100's
+# 50 MB L2
+L2_FLUSH_BYTES = 256 << 20
 
 
 def layer_shapes(name: str, batch: int, device: str = "cuda") -> list:
     """(N, C, H, W) of each BatchNorm input of ``name`` at ``batch`` clips,
     in the model's order (one eval-mode forward of one clip on ``device``)."""
+    return [shape for shape, _, _ in eval_calls(name, batch, device)]
+
+
+def eval_calls(name: str, batch: int, device: str = "cpu") -> list:
+    """(shape (N, C, H, W), chain, M) of each BatchNorm call of ``name`` in
+    an eval-mode forward of ``batch`` clips, in the model's order: the
+    chain's name (``ops/batch_norm.py::eval_epilogue``) from the keywords
+    the model passes its ``BatchNorm2d``, M DyReLU-B's pieces (0 without).
+    One forward of one clip on ``device``."""
+    from efficientat_tpu_torch.ops.batch_norm import eval_epilogue
+
     model = build_model(name).to(device).eval()
-    shapes = []
-    hooks = [m.register_forward_hook(lambda m, inp, out: shapes.append(
-        (batch,) + tuple(inp[0].shape[1:]))) for m in model.modules()
-        if isinstance(m, nn.BatchNorm2d)]
+    calls = []
+
+    def hook(module, args, kwargs, out):
+        x, coef = args[0], kwargs.get("coef")
+        calls.append(((batch,) + tuple(x.shape[1:]), eval_epilogue(**kwargs),
+                      0 if coef is None else coef.shape[-1] // (2 * x.shape[1])))
+
+    hooks = [m.register_forward_hook(hook, with_kwargs=True) for m in model.modules()
+             if isinstance(m, nn.BatchNorm2d)]
     with torch.no_grad():
         model(torch.zeros(1, 1, N_MELS, CLIP_FRAMES, device=device))
     for h in hooks:
         h.remove()
-    return shapes
+    return calls
+
+
+def cell_calls(cell: str) -> list:
+    """``eval_calls`` of each member of ``cell`` ("a+b:batch"), in turn."""
+    names, batch = cell.split(":")
+    return [c for name in names.split("+") for c in eval_calls(name, int(batch))]
+
+
+def chain_inputs(shape, kind: str, m: int, dtype, device: str = "cuda", seed: int = 0):
+    """Seeded inputs of an eval-mode BatchNorm call with chain ``kind``: x
+    (with an offset and a spread), gamma, beta, the running mean and
+    variance, and the chain's keywords (``act``, ``residual``, ``coef``
+    with ``m`` pieces, ``gates``), the operands in x's dtype."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    n, c, h, w = shape
+
+    def draw(*size, scale=1.0):
+        return (torch.randn(size, device=device, generator=gen) * scale).to(dtype)
+
+    x = (torch.randn(shape, device=device, generator=gen) * 2 + 0.5).to(dtype)
+    params = (torch.rand(c, device=device, generator=gen) + 0.5,
+              torch.randn(c, device=device, generator=gen),
+              torch.randn(c, device=device, generator=gen) * 0.5,
+              torch.rand(c, device=device, generator=gen) + 0.5)
+    act = next((a for a in ("relu", "hardswish") if kind.startswith(a)), None)
+    chain = {"act": act}
+    if kind == "residual":
+        chain["residual"] = draw(*shape)
+    if kind.startswith("dyrelu"):
+        chain["coef"] = draw(n, 2 * m * c)
+    if kind.endswith("_ca"):
+        chain["gates"] = (draw(n, c, h, 1, scale=2.0), draw(n, c, 1, w, scale=2.0))
+    return x, params, chain
+
+
+def time_eval_call(shape, kind: str, m: int, dtype, iters: int) -> dict:
+    """One record: the eval kernel and the chain it replaced at ``shape``."""
+    from efficientat_tpu_torch.ops import batch_norm as bn
+
+    x, params, chain = chain_inputs(shape, kind, m, dtype)
+    itemsize = x.element_size()
+    launch = bn.eval_plan(tuple(shape), itemsize,
+                          torch.cuda.get_device_properties(x.device).multi_processor_count,
+                          True, "gates" in chain)
+    ms = cold_device_ms(lambda: bn.eval_kernel(x, *params, EPS, **chain), iters)
+    bound = bn.eval_bound_bytes(shape, itemsize, kind == "residual") / bn.HBM_BYTES_PER_S * 1e3
+    return {"shape": list(shape), "chain": kind, "m": m,
+            "dtype": str(dtype).replace("torch.", ""),
+            "plan": {"vec": launch.vec, "planes": launch.planes, "blocks": launch.blocks},
+            "kernel_ms": ms, "bound_ms": bound, "share_pct": 100 * bound / ms,
+            "library_ms": cold_device_ms(
+                lambda: bn.batch_norm_eval_plain(x, *params, EPS, **chain), iters)}
+
+
+def time_eval(cells, dtypes, iters: int) -> None:
+    for cell in cells:
+        calls = cell_calls(cell)
+        counts = collections.Counter(calls)
+        for dtype in dtypes:
+            sums = collections.defaultdict(float)
+            for call in counts:
+                rec = time_eval_call(*call, dtype, iters)
+                rec["calls"] = counts[call]
+                print(json.dumps(rec), flush=True)
+                for k in ("kernel_ms", "bound_ms", "library_ms"):
+                    sums[k] += counts[call] * rec[k]
+                torch.cuda.empty_cache()
+            print(json.dumps({"cell": cell, "calls": len(calls),
+                              "dtype": str(dtype).replace("torch.", ""), "sums_ms": dict(sums),
+                              "share_pct": 100 * sums["bound_ms"] / sums["kernel_ms"]}),
+                  flush=True)
 
 
 def device_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -68,6 +173,33 @@ def device_ms(fn, iters: int, warmup: int = 3) -> float:
     microseconds.)"""
     rows = device_rows(fn, calls=iters, warmup=warmup)[0]
     return sum(ms for _, ms in rows) / iters
+
+
+def cold_device_ms(fn, iters: int, warmup: int = 3, tries: int = 6) -> float:
+    """``device_ms`` of ``fn`` with the L2 flushed before each call: a
+    ``bitwise_not`` over ``L2_FLUSH_BYTES``, whose rows are left out (the
+    timed calls launch no such kernel). A long process's profiles can drop
+    a row now and then (one flush of five, on an H100 with torch 2.11), and
+    ATen picks a kernel by each allocation's alignment, so a call's kernel
+    names can vary: the time is the mean of the first two profiles that
+    hold every flush and the most rows of any profile taken."""
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+
+    def call():
+        flush.bitwise_not_()
+        fn()
+
+    profiles = []  # (rows, ms a call) of each profile that holds every flush
+    for _ in range(tries):
+        rows = device_rows(call, calls=iters, warmup=warmup)[0]
+        kept = [ms for name, ms in rows if "bitwise_not" not in name]
+        if len(rows) - len(kept) == iters:
+            profiles.append((len(kept), sum(kept) / iters))
+        most = max((n for n, _ in profiles), default=0)
+        whole = [ms for n, ms in profiles if n == most]
+        if len(whole) >= 2:
+            return (whole[0] + whole[1]) / 2
+    raise RuntimeError(f"{tries} profiles of {iters} calls gave fewer than two whole ones")
 
 
 def shape_inputs(shape, dtype, seed: int = 0):
@@ -194,11 +326,14 @@ def main(argv=None):
     p.add_argument("--dtype", nargs="+", choices=("float32", "bfloat16"), default=["float32"])
     p.add_argument("--iters", type=int, default=20)
     p.add_argument("--trace_step", action="store_true")
+    p.add_argument("--eval", action="store_true")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("time_bn needs a CUDA device; none is visible")
     if args.trace_step:
         trace_step(args.model_name, args.batch)
+    elif args.eval:
+        time_eval(EVAL_CELLS, [getattr(torch, d) for d in args.dtype], args.iters)
     else:
         time_model(args.model_name, args.batch,
                    [getattr(torch, d) for d in args.dtype], args.iters)

@@ -35,7 +35,9 @@ Counters (``count``) are always on: one increment of a plain dict,
 ``COUNTERS``. Their names: ``k1.launch.<route>``, ``k1.launch.mel_edges``
 and ``k1.launch.tile_banks`` (K1's launches), ``bn.launch.forward`` and
 ``bn.launch.backward`` (a training-mode BatchNorm layer's kernels on the
-card, ``ops/batch_norm.py``, in each direction), ``probe.launch.p1``-``p3``,
+card, ``ops/batch_norm.py``, in each direction), ``bn.launch.eval`` (an
+eval-mode BatchNorm layer and its chain as one kernel on the card: 46 a
+``mn10_as`` forward, 61 a ``dymn10_as`` one), ``probe.launch.p1``-``p3``,
 ``k1.const_miss`` (a device constant built and uploaded), ``tag.pin_alloc``
 (a pinned staging buffer allocated), ``tag.stage.chunks`` (row chunks
 staged on the staging pool) and ``tag.stage.serial`` (batches staged on the

@@ -309,12 +309,21 @@ def test_module_counts_batches_and_runs_the_kernels():
     assert (counter("bn.launch.forward"), counter("bn.launch.backward")) == (3, 3)
     for got, want in ((mod.running_mean, ref.running_mean), (mod.running_var, ref.running_var)):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
-    # eval mode is nn.BatchNorm2d's inference path, on the same buffers
+    # eval mode is the eval kernel on the same buffers, recorded by autograd
+    # or not (the same bits), against float64 within twice the gap of
+    # nn.BatchNorm2d's inference path (cuDNN)
     ref.load_state_dict(mod.state_dict())
     mod.eval()
     reset_counters("bn.")
-    torch.testing.assert_close(mod(x), ref.eval()(x), rtol=0, atol=0)
-    assert counter("bn.launch.forward") == 0
+    recorded = mod(x)
+    with torch.no_grad():
+        plain = mod(x)
+    lib = ref.eval()(x)
+    want = F.batch_norm(x.double(), mod.running_mean.double(), mod.running_var.double(),
+                        mod.weight.double(), mod.bias.double(), False, 0.0, mod.eps)
+    assert torch.equal(recorded, plain)
+    assert _gap(recorded, want) <= max(2 * _gap(lib, want), 2.0 ** -23)
+    assert (counter("bn.launch.forward"), counter("bn.launch.eval")) == (0, 2)
 
 
 @pytest.mark.cuda
