@@ -93,15 +93,19 @@ def _add_complexity(sub):
     p.add_argument("--bits", type=int, default=16)
     p.add_argument("--clip_seconds", type=float, default=10.0)
     # transformer mode: static PaSST/ViT-style MACs, no model needed
-    # (reference helpers/flop_count.py:72-162 counts its KD teacher)
+    # (reference helpers/flop_count.py:72-162 counts its KD teacher); the
+    # defaults are the registry's PaSST-S
+    from efficientat_tpu_torch.tools.macs import TransformerSpec
+
+    passt = TransformerSpec()
     p.add_argument("--transformer", action="store_true")
-    p.add_argument("--embed_dim", type=int, default=768)
-    p.add_argument("--depth", type=int, default=12)
-    p.add_argument("--patch_size", type=int, default=16)
-    p.add_argument("--stride", type=int, default=10)
-    p.add_argument("--input_f", type=int, default=128)
-    p.add_argument("--input_t", type=int, default=998)
-    p.add_argument("--num_classes", type=int, default=527)
+    p.add_argument("--embed_dim", type=int, default=passt.embed_dim)
+    p.add_argument("--depth", type=int, default=passt.depth)
+    p.add_argument("--patch_size", type=int, default=passt.patch_size)
+    p.add_argument("--stride", type=int, default=passt.stride_t)
+    p.add_argument("--input_f", type=int, default=passt.input_f)
+    p.add_argument("--input_t", type=int, default=passt.input_t)
+    p.add_argument("--num_classes", type=int, default=passt.num_classes)
     p.set_defaults(fn=_run_complexity)
 
 

@@ -8,9 +8,12 @@ where it is large (``stage_rows``), and each chunk's copy to the device
 landed; it is decoded there (``tag.decode``) (f32 / int16 / mu-law uint8), turned into log-mels
 by ``log_mel_spectrogram_fused`` (K1 on CUDA; ``tag.mel``), run through
 every member (a DyMN at its ``cfg.t_max``, the final temperature of its
-training; ``tag.members``, and inside it ``tag.member.mn`` or
-``tag.member.dymn`` around each member by its family, all timed on the device
-too, and the members' logits averaged in fp32), the sigmoid is taken
+training; ``tag.members``, and inside it ``tag.member.mn``,
+``tag.member.dymn`` or ``tag.member.passt`` around each member by its
+family, all timed on the device too, and the members' logits averaged in
+fp32; inside a PaSST member its blocks' ``passt.attn`` and ``passt.mlp``
+spans and the counters ``passt.launch.attn`` and ``passt.tokens``,
+``models/passt.py``), the sigmoid is taken
 (``tag.sigmoid``), and the probs are read back, where the host waits for the device (``tag.readback``). The whole
 batch runs at once: the JAX Tagger's DyMN micro-batching is a TPU
 workaround.
@@ -21,12 +24,15 @@ keeps its front end out of autocast (models/preprocess.py:56-57). Autocast
 rounds the convs' and Linears' operands to bf16 and keeps BatchNorm in fp32,
 where the JAX Tagger's flax ``dtype`` computes BatchNorm in bf16 too.
 
+MN, DyMN and PaSST members mix freely: their mel configs are equal, so
+one log-mel feeds them all.
+
 ``mesh`` (a ``parallel/mesh.py::Mesh``) serves a same-architecture ensemble
-member-parallel, as the JAX Tagger does over its ``("data", "model")``
-mesh: each rank holds its share of the stacked members, computes the mel of
-its data index's rows (K1-dp where there is more than one rank), and the
-ranks meet in one all-reduce of logits over the model group and one of
-probs over the data group.
+member-parallel (of MN, DyMN or PaSST members alike), as the JAX Tagger
+does over its ``("data", "model")`` mesh: each rank holds its share of the
+stacked members, computes the mel of its data index's rows (K1-dp where
+there is more than one rank), and the ranks meet in one all-reduce of
+logits over the model group and one of probs over the data group.
 """
 
 from __future__ import annotations
@@ -44,6 +50,8 @@ from torch import nn
 
 from efficientat_tpu_torch.data.wavecodec import decode
 from efficientat_tpu_torch.models.dymn import DyMN
+from efficientat_tpu_torch.models.mn import MN
+from efficientat_tpu_torch.models.passt import PaSST
 from efficientat_tpu_torch.models.registry import build_model, get_model_config
 from efficientat_tpu_torch.ops.mel_kernel import log_mel_spectrogram_fused
 from efficientat_tpu_torch.parallel.ensemble import (
@@ -56,10 +64,19 @@ from efficientat_tpu_torch.utils.labels import AUDIOSET_LABELS
 from efficientat_tpu_torch.utils.profiling import count, span
 
 
+# by family: the span of a served member's forward inside ``tag.members``,
+# and the forward's arguments after the mel (a DyMN runs at its
+# ``cfg.t_max``, the final temperature of its training)
+_FAMILIES = {
+    MN: ("tag.member.mn", lambda model: ()),
+    DyMN: ("tag.member.dymn", lambda model: (model.cfg.t_max,)),
+    PaSST: ("tag.member.passt", lambda model: ()),
+}
+
+
 def _serving_args(model: nn.Module) -> tuple:
-    """A served member's forward arguments after the mel: a DyMN runs at its
-    ``cfg.t_max``, the final temperature of its training."""
-    return (model.cfg.t_max,) if isinstance(model, DyMN) else ()
+    """A served member's forward arguments after the mel, by family."""
+    return _FAMILIES[type(model)][1](model)
 
 
 def _host_batch(waves) -> np.ndarray:
@@ -145,13 +162,15 @@ def _member_logits(model: nn.Module, mel: torch.Tensor) -> torch.Tensor:
 
 def _member_span(model: nn.Module) -> str:
     """The span of a member's forward inside ``tag.members``, by family."""
-    return "tag.member.dymn" if isinstance(model, DyMN) else "tag.member.mn"
+    return _FAMILIES[type(model)][0]
 
 
 class Tagger:
-    """Audio tagger over one MN or DyMN model or an averaged ensemble of them.
+    """Audio tagger over one MN, DyMN or PaSST model or an averaged ensemble
+    of them.
 
-    names: registry name(s), e.g. ``"mn10_as"`` or ``"dymn10_as"``.
+    names: registry name(s), e.g. ``"mn10_as"``, ``"dymn10_as"`` or
+        ``"passt_s_swa_p16_128_ap476"``.
     pretrained: load ``<model_dir>/<release file>`` for every member; with
         ``False`` member ``i`` gets upstream's init drawn from
         ``torch.Generator`` seeded ``seed + i`` on the CPU.

@@ -1,6 +1,7 @@
 from efficientat_tpu_torch.models.dymn import DyMN, DyMNConfig, dyconv_temperature
 from efficientat_tpu_torch.models.ensemble import Ensemble
 from efficientat_tpu_torch.models.mn import MN, MNConfig, init_weights, mn_block_table
+from efficientat_tpu_torch.models.passt import PaSST, PaSSTConfig
 from efficientat_tpu_torch.models.registry import (
     REGISTRY,
     ModelSpec,
@@ -15,6 +16,8 @@ __all__ = [
     "MN",
     "MNConfig",
     "ModelSpec",
+    "PaSST",
+    "PaSSTConfig",
     "REGISTRY",
     "build_model",
     "dyconv_temperature",

@@ -1,7 +1,9 @@
 """Checkpoint loading (port of efficientat_tpu/models/convert.py).
 
-- ``load_pretrained`` reads a release ``.pt`` (upstream key names) from a
-  directory and loads it with ``load_state_dict(strict=True)``. It downloads
+- ``load_pretrained`` reads a release ``.pt`` (upstream key names: an MN,
+  a DyMN, or PaSST's own for PaSST-S) from a directory and loads it with
+  ``load_state_dict(strict=True)`` into the module ``build_model`` makes
+  for the name's config. It downloads
   nothing: a missing file raises ``FileNotFoundError``. Where the directory
   holds a ``checkpoints.sha256`` manifest that lists the file, the file's
   digest must match it (``check_digest``).
@@ -189,6 +191,8 @@ HEAD_KEYS = {
     "fully_convolutional": ("classifier.0.", "classifier.1."),
     "multihead_attention_pooling": ("classifier.subspace_proj.",
                                     "classifier.head_weight"),
+    # PaSST's default_cfgs: classifier=('head.1', 'head_dist')
+    "passt": ("head.1.", "head_dist."),
 }
 
 
@@ -200,6 +204,8 @@ def checkpoint_classes(sd: Mapping[str, Any], head_type: str) -> int:
         return sd["classifier.5.bias"].shape[0]
     if head_type == "fully_convolutional" and "classifier.1.bias" in sd:
         return sd["classifier.1.bias"].shape[0]
+    if head_type == "passt" and "head.1.bias" in sd:
+        return sd["head.1.bias"].shape[0]
     if (head_type == "multihead_attention_pooling"
             and "classifier.head_weight" in sd
             and "classifier.subspace_proj.weight" in sd):
@@ -247,7 +253,8 @@ def load_pretrained(name: str, model_dir: str = MODEL_DIR,
     With another ``num_classes``, the head's class-sized layers
     (``HEAD_KEYS``: an mlp head's ``classifier.5``, the fully-convolutional
     head's conv and BatchNorm with its statistics, an attention-pooling
-    head's projection and head weight) are dropped from the file and keep
+    head's projection and head weight, PaSST's ``head.1`` and
+    ``head_dist``) are dropped from the file and keep
     upstream's init drawn from ``torch.Generator().manual_seed(seed)``;
     every other tensor must load. The file is held against the directory's
     digest manifest first (``check_digest``)."""

@@ -1,7 +1,11 @@
-"""Checkpoint hub: name -> (MN or DyMN config, mel config, release file)
-(port of efficientat_tpu/models/registry.py).
+"""Checkpoint hub: name -> (MN, DyMN or PaSST config, mel config, release
+file) (port of efficientat_tpu/models/registry.py).
 
-Every name of the JAX registry is here with its own ``MelConfig``.
+Every name of the JAX registry is here with its own ``MelConfig``, and
+beside them PaSST-S, the transformer whose ensemble taught the zoo by
+distillation (github.com/kkoutini/PaSST; its release file is on PaSST's
+own release page, ``PASST_RELEASE_URL``). Its mel front end is EfficientAT's
+default, which was taken from PaSST.
 """
 
 from __future__ import annotations
@@ -14,10 +18,13 @@ from torch import nn
 
 from efficientat_tpu_torch.models.dymn import DyMN, DyMNConfig, init_weights
 from efficientat_tpu_torch.models.mn import MN, MNConfig
+from efficientat_tpu_torch.models.passt import PaSST, PaSSTConfig
+from efficientat_tpu_torch.models.passt import init_weights as init_passt
 from efficientat_tpu_torch.ops.melspec import MelConfig
 from efficientat_tpu_torch.utils.common import NAME_TO_WIDTH
 
 RELEASE_URL = "https://github.com/fschmid56/EfficientAT/releases/download/v0.0.1/"
+PASST_RELEASE_URL = "https://github.com/kkoutini/PaSST/releases/download/v0.0.1-audioset/"
 MODEL_DIR = "resources"
 
 
@@ -25,12 +32,13 @@ MODEL_DIR = "resources"
 class ModelSpec:
     name: str
     file: str  # filename on the release page
-    model_cfg: Union[MNConfig, DyMNConfig]
+    model_cfg: Union[MNConfig, DyMNConfig, PaSSTConfig]
     mel_cfg: MelConfig = MelConfig()
+    release_url: str = RELEASE_URL
 
     @property
     def url(self) -> str:
-        return RELEASE_URL + self.file
+        return self.release_url + self.file
 
 
 def _mn(name, file, *, head="mlp", strides=(2, 2, 2, 2), mel=None):
@@ -104,6 +112,9 @@ _SPECS = [
     _dymn("dymn20_as(3)", "dymn20_as_mAP_490.pt"),
     _dymn("dymn04_replace_se_as", "dymn04_replace_se_as.pt", use_dy_blocks="replace_se"),
     _dymn("dymn10_replace_se_as", "dymn10_replace_se_as.pt", use_dy_blocks="replace_se"),
+    # PaSST-S, AudioSet mAP .476 (PaSST's models/passt.py default_cfgs)
+    ModelSpec("passt_s_swa_p16_128_ap476", "passt-s-f128-p16-s10-ap.476-swa.pt",
+              PaSSTConfig(), release_url=PASST_RELEASE_URL),
 ]
 
 REGISTRY = {s.name: s for s in _SPECS}
@@ -117,15 +128,19 @@ def get_model_config(name: str) -> ModelSpec:
 
 def build_model(name_or_cfg, num_classes: Optional[int] = None,
                 generator: Optional[torch.Generator] = None) -> nn.Module:
-    """An MN or DyMN module on the CPU for a registry name or a config;
-    ``num_classes`` overrides the config's class count. With ``generator``
-    the weights are upstream's init drawn from it (``dymn.init_weights``,
-    which is ``mn.init_weights`` plus DyMN's banks), else torch's default."""
+    """An MN, DyMN or PaSST module on the CPU for a registry name or a
+    config; ``num_classes`` overrides the config's class count. With
+    ``generator`` the weights are upstream's init drawn from it
+    (``dymn.init_weights``, which is ``mn.init_weights`` plus DyMN's banks;
+    ``passt.init_weights``), else torch's default."""
     cfg = (get_model_config(name_or_cfg).model_cfg
            if isinstance(name_or_cfg, str) else name_or_cfg)
     if num_classes is not None and num_classes != cfg.num_classes:
         cfg = dataclasses.replace(cfg, num_classes=num_classes)
-    model = DyMN(cfg) if isinstance(cfg, DyMNConfig) else MN(cfg)
+    if isinstance(cfg, PaSSTConfig):
+        model, init = PaSST(cfg), init_passt
+    else:
+        model, init = (DyMN(cfg) if isinstance(cfg, DyMNConfig) else MN(cfg)), init_weights
     if generator is not None:
-        init_weights(model, generator)
+        init(model, generator)
     return model

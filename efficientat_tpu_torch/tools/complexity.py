@@ -6,8 +6,9 @@ from __future__ import annotations
 import torch
 
 from efficientat_tpu_torch.models.mn import MNConfig
+from efficientat_tpu_torch.models.passt import PaSSTConfig
 from efficientat_tpu_torch.models.registry import build_model, get_model_config
-from efficientat_tpu_torch.tools.macs import count_macs
+from efficientat_tpu_torch.tools.macs import TransformerSpec, count_macs, count_macs_transformer
 from efficientat_tpu_torch.tools.peak_memory import peak_memory_cnn, peak_memory_mnv3
 
 
@@ -30,12 +31,20 @@ def report_complexity(model_name: str, measure: str = "macs", bits: int = 16,
     input_t = mel.num_frames(int(clip_seconds * mel.sr))
 
     if measure == "macs":
-        total = count_macs(cfg, input_f, input_t, verbose=True)
+        if isinstance(cfg, PaSSTConfig):
+            # a longer input is cut to the time embedding's patches
+            spec_t = TransformerSpec.from_config(cfg, min(input_t, cfg.input_tdim))
+            total = count_macs_transformer(spec_t, verbose=True)
+        else:
+            total = count_macs(cfg, input_f, input_t, verbose=True)
         n_params = count_module_params(model_name)
         print(f"Model '{model_name}' has {n_params / 1e6:.2f} million parameters "
               f"and inference of a single {clip_seconds:.0f}-seconds audio clip "
               f"requires {total / 1e9:.2f} billion multiply-accumulate operations.")
         return total
+    if measure == "memory" and isinstance(cfg, PaSSTConfig):
+        raise ValueError(f"{model_name}: the analytic peak memory covers MN and DyMN, "
+                         "not the PaSST family")
     if measure == "memory":
         if memory_efficient and isinstance(cfg, MNConfig):
             peak = peak_memory_mnv3(cfg, input_f, input_t, bits, verbose=True)

@@ -9,10 +9,11 @@ from __future__ import annotations
 
 import dataclasses
 
-from typing import Union
+from typing import Optional, Union
 
 from efficientat_tpu_torch.models.dymn import DyMNConfig
 from efficientat_tpu_torch.models.mn import MNConfig
+from efficientat_tpu_torch.models.passt import PaSSTConfig
 from efficientat_tpu_torch.tools.layer_plan import layer_plan
 
 
@@ -44,6 +45,9 @@ def count_params(cfg: Union[MNConfig, DyMNConfig]) -> int:
 
 # ---------------------------------------------------------------- transformer
 
+_PASST = PaSSTConfig()
+
+
 @dataclasses.dataclass(frozen=True)
 class TransformerSpec:
     """Static description of a PaSST/ViT-style audio transformer.
@@ -52,22 +56,36 @@ class TransformerSpec:
     its PaSST teacher (helpers/flop_count.py:72-162): one patch-embedding
     conv, ``depth`` blocks of (qkv linear, attention, proj linear, 2-layer
     MLP), and a pooled classification head. Defaults are PaSST-S on a 10 s
-    AudioSet mel (patch 16, stride 10, embed 768, depth 12).
+    AudioSet mel (patch 16, stride 10, embed 768, depth 12), taken from the
+    registry's model, ``PaSSTConfig()``, so the count and the served model
+    cannot drift apart (``from_config`` reads any config).
     """
 
-    input_f: int = 128
-    input_t: int = 998
-    in_channels: int = 1
-    embed_dim: int = 768
-    depth: int = 12
-    num_heads: int = 12
-    patch_size: int = 16
-    stride_f: int = 10
-    stride_t: int = 10
-    mlp_ratio: float = 4.0
-    num_classes: int = 527
-    extra_tokens: int = 2  # cls + distillation token (PaSST/DeiT)
-    bias: bool = True
+    input_f: int = _PASST.input_fdim
+    input_t: int = _PASST.input_tdim
+    in_channels: int = _PASST.in_chans
+    embed_dim: int = _PASST.embed_dim
+    depth: int = _PASST.depth
+    num_heads: int = _PASST.num_heads
+    patch_size: int = _PASST.patch_size
+    stride_f: int = _PASST.stride[0]
+    stride_t: int = _PASST.stride[1]
+    mlp_ratio: float = _PASST.mlp_ratio
+    num_classes: int = _PASST.num_classes
+    extra_tokens: int = _PASST.extra_tokens  # cls + distillation token (PaSST/DeiT)
+    bias: bool = _PASST.qkv_bias
+
+    @classmethod
+    def from_config(cls, cfg: PaSSTConfig, input_t: Optional[int] = None) -> "TransformerSpec":
+        """The spec of a ``PaSSTConfig`` on ``input_t`` frames (its
+        ``input_tdim`` by default)."""
+        return cls(input_f=cfg.input_fdim,
+                   input_t=cfg.input_tdim if input_t is None else input_t,
+                   in_channels=cfg.in_chans, embed_dim=cfg.embed_dim, depth=cfg.depth,
+                   num_heads=cfg.num_heads, patch_size=cfg.patch_size,
+                   stride_f=cfg.stride[0], stride_t=cfg.stride[1],
+                   mlp_ratio=cfg.mlp_ratio, num_classes=cfg.num_classes,
+                   extra_tokens=cfg.extra_tokens, bias=cfg.qkv_bias)
 
     @property
     def seq_len(self) -> int:

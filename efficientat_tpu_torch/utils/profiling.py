@@ -15,8 +15,11 @@ event of the port is made here.
 
 Spans mark the port's layer boundaries (``Tagger.predict``'s staging, copy,
 mel, members and read-back, and inside ``tag.members`` one
-``tag.member.mn`` or ``tag.member.dymn`` a member, on the device's clock
-too; ``train_step``'s forward, backward and optimizer):
+``tag.member.mn``, ``tag.member.dymn`` or ``tag.member.passt`` a member, on
+the device's clock too; inside a PaSST forward, ``models/passt.py``,
+``passt.attn`` around each block's attention call and ``passt.mlp`` around
+its MLP, both on the device's clock; ``train_step``'s forward, backward and
+optimizer):
 
     with span("tag.members", device=True):
         ...
@@ -37,7 +40,9 @@ and ``k1.launch.tile_banks`` (K1's launches), ``bn.launch.forward`` and
 ``bn.launch.backward`` (a training-mode BatchNorm layer's kernels on the
 card, ``ops/batch_norm.py``, in each direction), ``bn.launch.eval`` (an
 eval-mode BatchNorm layer and its chain as one kernel on the card: 46 a
-``mn10_as`` forward, 61 a ``dymn10_as`` one), ``probe.launch.p1``-``p3``,
+``mn10_as`` forward, 61 a ``dymn10_as`` one), ``passt.launch.attn`` (a
+PaSST block's attention call: 12 a PaSST-S forward) and ``passt.tokens``
+(the tokens of a PaSST forward: B x 1,190 at 10 s), ``probe.launch.p1``-``p3``,
 ``k1.const_miss`` (a device constant built and uploaded), ``tag.pin_alloc``
 (a pinned staging buffer allocated), ``tag.stage.chunks`` (row chunks
 staged on the staging pool) and ``tag.stage.serial`` (batches staged on the
