@@ -152,7 +152,17 @@ and member-parallel serving through the Tagger, and DyMN's options:
     at B=256 and the ensemble at B=32, fp32 and bf16, against the chain it
     replaced (cuDNN's ``bn_fw_inf`` and ATen's ops,
     ``batch_norm_eval_plain``) within ``TOL_BN``, timed beside it and the
-    byte bound with the L2 flushed before each call.
+    byte bound with the L2 flushed before each call;
+25. PaSST's attention kernel (``ops/attention.py``,
+    ``csrc/attention.cu``) at the PaSST cell's shape, B=32 clips of 1,190
+    tokens and 12 heads of 64, on the ``qkv`` product's strided views:
+    ptxas's registers and spills where this process built the library (none
+    may spill), the kernel against its plain version on the card within
+    ``TOL_ATTN`` (a one-pass bf16 control must miss it), its time (CUDA
+    events, and its kernels' device rows) beside the count's bound once and
+    three times (bf16x3) and SDPA's fp32 call (``library_ms``, its yardstick
+    only), and the kernel's launches in one ``Tagger.predict`` of PaSST-S on
+    32 clips of 10 s, the PaSST cell's path (12, one an attention call).
 
 Then one JSON line on the kernels, per path (tag, train, train_dp,
 tag_fp32, train_fp32, tag_dymn, train_dymn, train_dp_dymn, tag_windowed,
@@ -162,8 +172,9 @@ each K1 row naming the kernel its route launched, then the rows of
 ``mel_edges`` (tag, train) and ``tile_banks`` (train), the BatchNorm
 kernels' rows (``train_bn``: forward and backward, fp32 and bf16, summed
 over the 46 layers; ``serve_bn``: the eval kernel, fp32 and bf16, summed
-over the calls of each serving path's forward, 46 / 61 / 107), the card's
-``nvidia-smi`` line and, last,
+over the calls of each serving path's forward, 46 / 61 / 107), the
+attention kernel's row (``serve_passt_attn``, a B=32 call of one block),
+the card's ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 nothing falls back to the CPU.
 """
@@ -204,6 +215,7 @@ from efficientat_tpu_torch.models.registry import (  # noqa: E402
     get_model_config,
 )
 from efficientat_tpu_torch.ops import _build, mel_kernel, mel_probe  # noqa: E402
+from efficientat_tpu_torch.ops import attention as attn_ops  # noqa: E402
 from efficientat_tpu_torch.ops import batch_norm as bn_ops  # noqa: E402
 from efficientat_tpu_torch.ops.mel_kernel import log_mel_spectrogram_fused  # noqa: E402
 from efficientat_tpu_torch.ops.filterbank import kaldi_mel_banks  # noqa: E402
@@ -2496,6 +2508,103 @@ def phase_batch_norm(device, card):
     return rows + bn_eval_rows(card)
 
 
+# phase 25: the PaSST cell's attention, one block's call (B clips of N
+# tokens, H heads of 64)
+ATTN_BATCH, ATTN_TOKENS, ATTN_HEADS = 32, 1190, 12
+PASST = "passt_s_swa_p16_128_ap476"
+ATTN_TIME_ITERS = 20
+# the kernel against its plain version (fp32 products, the softmax in
+# fp32) on q, k, v of unit scale: bf16x3 products round at 2^-16 of a
+# product, some 3e-5 of outputs of order 1 (the emulation's gap to float64,
+# tests/test_torch_attention.py); a one-pass bf16 control reads ~1e-2
+TOL_ATTN = 2e-4
+
+
+def ptxas_kernels(library):
+    """{kernel: [spill line, registers line]} of a library's ptxas log."""
+    out, name = {}, None
+    for ln in _build.BUILD_LOG.get(library, "").splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            name = m.group(1)
+        elif name and "spill" in ln:
+            out[name] = [ln.strip()]
+        elif name and "registers" in ln:
+            out[name] = out.get(name, []) + [ln.strip()]
+    return out
+
+
+def attn_inputs(device, seed=25):
+    """q, k and v of the cell's shape as PaSST makes them: (B, H, N, 64)
+    views of one (B, N, 3, H, 64) product."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    qkv = torch.randn(ATTN_BATCH, ATTN_TOKENS, 3, ATTN_HEADS, attn_ops.HEAD_DIM, generator=g,
+                      device=device)
+    return qkv.permute(2, 0, 3, 1, 4).unbind(0)
+
+
+def phase_passt_attn(device, card):
+    """25. PaSST's attention kernel at the PaSST cell's shape (docstring
+    item 25). Returns the kernels line's row."""
+    _build.load_libraries(["attention"])
+    ptxas = ptxas_kernels("attention")
+    # where this process built the library, both kernels and no spill
+    check("attention" not in _build.BUILD_LOG or (
+        len(ptxas) == 2 and all("0 bytes spill stores, 0 bytes spill loads" in lines[0]
+                                for lines in ptxas.values())),
+          f"the attention library's kernels or spills: {ptxas}")
+    if "attention" not in _build.BUILD_LOG:
+        ptxas = "none: another process built the library"
+    q, k, v = attn_inputs(device)
+    check(not q.is_contiguous(), "the attention inputs are the qkv product's views")
+    with torch.inference_mode():
+        got = attn_ops.attention(q, k, v)
+        plain = attn_ops.attention_plain(q, k, v)
+        gap = (got - plain).abs().max().item()
+        control = (attn_ops.attention_one_pass_bf16(q, k, v) - plain).abs().max().item()
+        del got
+        check(gap < TOL_ATTN, f"attention kernel against plain: {gap} against {TOL_ATTN}")
+        check(control > TOL_ATTN, f"the one-pass bf16 control meets {TOL_ATTN}: {control}")
+        call = lambda: attn_ops.attention(q, k, v)  # noqa: E731
+        ms = median_ms(call, iters=ATTN_TIME_ITERS)
+        rows = profiling.device_rows(call, repeats=2)
+        alone = statistics.median(sum(t for n, t in r if "attention_kernel" in n) for r in rows)
+        split = statistics.median(sum(t for n, t in r if "split_kv_kernel" in n) for r in rows)
+        plain_ms = median_ms(lambda: attn_ops.attention_plain(q, k, v), iters=5)
+        library_ms = median_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v), iters=5)
+    del q, k, v, plain
+    torch.cuda.empty_cache()
+    # the PaSST cell's path: Tagger.predict of 32 clips of 10 s
+    tagger = Tagger(PASST, pretrained=False, device=device)
+    waves = train_waves(ATTN_BATCH, seed=25)
+    profiling.reset_counters("attn.")
+    profiling.reset_counters("passt.")
+    probs = tagger.predict(waves)
+    launches = profiling.counter("attn.launch.kernel")
+    check(launches == profiling.counter("passt.launch.attn") == 12,
+          f"a PaSST-S predict launched the attention kernel {launches} times, not 12")
+    check(probs.shape == (ATTN_BATCH, 527) and bool(np.isfinite(probs).all()), "PaSST probs")
+    del tagger
+    torch.cuda.empty_cache()
+    bound = attn_ops.bound_ms(ATTN_BATCH, ATTN_HEADS, ATTN_TOKENS)
+    bound3 = attn_ops.bound_ms(ATTN_BATCH, ATTN_HEADS, ATTN_TOKENS, products=3)
+    phase("passt_attn", batch=ATTN_BATCH, tokens=ATTN_TOKENS, heads=ATTN_HEADS,
+          max_gap=gap, bound=TOL_ATTN, one_pass_bf16_gap=control, ms=ms, alone_ms=alone,
+          split_ms=split, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound,
+          bound_x3_ms=bound3, ptxas=json.dumps(ptxas), launches_a_predict=launches,
+          card=repr(card))
+    return {"name": "attention", "path": "serve_passt_attn", "route": "cuda",
+            "source": "efficientat_tpu_torch/csrc/attention.cu",
+            "entry": "efficientat_tpu_torch/csrc/attention.cu::eat_attention",
+            "kernel": "split_kv_kernel + attention_kernel", "replaces": None,
+            "precision": "bf16x3", "batch": ATTN_BATCH, "tokens": ATTN_TOKENS,
+            "launches": launches, "ms": ms, "alone_ms": alone, "split_ms": split,
+            "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound,
+            "bound_x3_ms": bound3, "bound_by": "flops", "share_pct": 100 * bound / ms,
+            "max_gap": gap, "ptxas": ptxas, "card": card}
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -2904,6 +3013,8 @@ def main():
     lap("23 dymn options")
     bn_rows = phase_batch_norm(device, card)
     lap("24 batch_norm")
+    attn_row = phase_passt_attn(device, card)
+    lap("25 passt_attn")
 
     # each K1 row's bound (its mel product priced as its route computes it)
     # and cuBLAS yardstick, at the clips a launch and the precision of its
@@ -2940,6 +3051,7 @@ def main():
     kernels.extend(call_rows)
     kernels.extend(probe_rows)
     kernels.extend(bn_rows)
+    kernels.append(attn_row)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

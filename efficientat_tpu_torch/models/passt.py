@@ -8,10 +8,13 @@ embedding added on its (F', T') patch grid, is flattened to F' x T' tokens,
 and gets the class and distillation tokens (each with its own positional
 embedding) in front. Then ``depth`` pre-LN blocks, ``x + attn(norm1(x))``
 and ``x + mlp(norm2(x))``: multi-head attention from one ``qkv`` product,
-``torch.nn.functional.scaled_dot_product_attention`` at upstream's scale
-``head_dim ** -0.5``, then ``proj``; an MLP of ``fc1``, exact (erf) GELU,
-``fc2``. A final LayerNorm, and the head, LayerNorm then Linear, on the mean
-of the class and distillation tokens. ``forward`` returns ``(logits,
+``ops/attention.py::attention`` at upstream's scale ``head_dim ** -0.5`` (on
+the card the hand-written flash kernel of ``csrc/attention.cu``, bf16x3
+``wgmma`` products around an fp32 softmax, reading q, k and v in place and
+writing the (B, N, embed_dim) rows ``proj`` reads; on the CPU its plain
+version, product, softmax, product), then ``proj``; an MLP of ``fc1``, exact
+(erf) GELU, ``fc2``. A final LayerNorm, and the head, LayerNorm then Linear,
+on the mean of the class and distillation tokens. ``forward`` returns ``(logits,
 features)`` as MN and DyMN do. The state dict's keys are upstream's
 (``head_dist`` is kept, and unused, as upstream's serving path leaves it).
 
@@ -24,14 +27,16 @@ real cut warns.
 Serving only: dropout, drop-path and patchout are training devices, and
 this module has none of them. In training mode it computes what it
 computes in eval mode (no patchout, no random time offset); training PaSST
-is out of scope.
+is out of scope, and on the card the attention kernel, which has no
+backward, raises on a forward that autograd would record.
 
 Spans (``utils/profiling.py``, off by default): ``passt.attn``
 (``device=True``) around each block's attention call alone, q, k and v in
 and o out; ``passt.mlp`` (``device=True``) around ``fc1``, GELU and
 ``fc2``. Counters: ``passt.launch.attn``, one an attention call (``depth``
-a forward); ``passt.tokens``, the tokens of a forward (B x 1,190 for a
-10 s clip at the published widths).
+a forward; on the card ``attn.launch.kernel`` counts the same calls in the
+kernel, ``ops/attention.py``); ``passt.tokens``, the tokens of a forward (B
+x 1,190 for a 10 s clip at the published widths).
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from efficientat_tpu_torch.ops.attention import attention
 from efficientat_tpu_torch.utils.profiling import count, span
 
 
@@ -108,14 +114,14 @@ class Attention(nn.Module):
         self.proj = nn.Linear(cfg.embed_dim, cfg.embed_dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b, n, c = x.shape
-        # (3, B, heads, N, head_dim) views of the one product
+        # (3, B, heads, N, head_dim) views of the one product; the kernel
+        # reads them in place and writes (B, N, heads x head_dim)
         q, k, v = self.qkv(x).unflatten(-1, (3, self.num_heads, -1)).permute(
             2, 0, 3, 1, 4).unbind(0)
         count("passt.launch.attn")
         with span("passt.attn", device=True):
-            o = F.scaled_dot_product_attention(q, k, v)
-        return self.proj(o.transpose(1, 2).reshape(b, n, c))
+            o = attention(q, k, v)
+        return self.proj(o)
 
 
 class Mlp(nn.Module):

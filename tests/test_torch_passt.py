@@ -5,8 +5,8 @@ longer than the time embedding; strict loading under upstream's key names;
 the registry and ``build_model``; ``Tagger.predict`` with PaSST alone,
 beside ``mn10_as`` on one log-mel, member-parallel and in windows; the
 counters and spans of a forward; one count of its MACs. On the card
-(``-m cuda``): the served path against the reference, and the attention
-kernel the library picks in float32."""
+(``-m cuda``): the served path against the reference, on the hand-written
+attention kernel alone."""
 
 import dataclasses
 import warnings
@@ -24,8 +24,10 @@ from efficientat_tpu_torch.infer.tag import Tagger
 from efficientat_tpu_torch.infer.windowed import tag_audio_window, window_signal
 from efficientat_tpu_torch.models import registry
 from efficientat_tpu_torch.models.convert import load_pretrained
+from efficientat_tpu_torch.models import passt as passt_module
 from efficientat_tpu_torch.models.passt import PaSST, PaSSTConfig
 from efficientat_tpu_torch.models.registry import ModelSpec, build_model, get_model_config
+from efficientat_tpu_torch.ops import attention
 from efficientat_tpu_torch.ops.mel_kernel import log_mel_spectrogram_fused
 from efficientat_tpu_torch.ops.melspec import MelConfig
 from efficientat_tpu_torch.parallel.mesh import Mesh
@@ -47,9 +49,9 @@ SEED = 2 ** 31 + 25
 SMALL = PaSSTConfig(embed_dim=96, depth=2, num_heads=4, input_tdim=200)
 SMALL_NAME = "passt_small_test"
 # the port in float32 against the reference in float32 on one log-mel: the
-# same products in another order (SDPA's fused softmax against the written
-# out one), 1e-6 of logits of order 1; a wrong layer moves them by 1e-3 or
-# more
+# same products, the attention written out in both (the port's CPU path is
+# ``ops/attention.py::attention_plain``), 1e-6 of logits of order 1; a wrong
+# layer moves them by 1e-3 or more
 LOGIT_TOLERANCE = 1e-5
 # a served prob against the reference's: the port's CPU log-mel is float32,
 # 3e-5 from the reference's float64 near the floor, which moves a prob by
@@ -141,6 +143,20 @@ def test_published_widths_tagger_matches_the_reference(published):
     ref = rpasst.serve_probs(CFG, published["weights"], wave).numpy()
     assert np.abs(got - ref).max() < PROB_TOLERANCE
     assert ref.std() > 1e-2  # the seeded weights give probs that differ
+
+
+@pytest.mark.parametrize("arithmetic, meets", [(attention.attention_bf16x3, True),
+                                               (attention.attention_one_pass_bf16, False)],
+                         ids=["bf16x3", "one_pass_bf16"])
+def test_kernel_arithmetic_keeps_the_served_probs(published, monkeypatch, arithmetic, meets):
+    """The card kernel's arithmetic (``attention_bf16x3``) in place of the
+    plain attention keeps the served probs within ``PROB_TOLERANCE`` of the
+    reference at the published widths; one bf16 pass a product misses it."""
+    monkeypatch.setattr(passt_module, "attention", arithmetic)
+    wave = published["wave"]
+    got = published["tagger"].predict(wave.numpy())
+    ref = rpasst.serve_probs(CFG, published["weights"], wave).numpy()
+    assert (np.abs(got - ref).max() < PROB_TOLERANCE) == meets
 
 
 def test_reference_keys_load_strictly_under_upstream_names(small_in_registry, tmp_path):
@@ -271,7 +287,9 @@ def test_one_count_of_the_transformer(capsys):
 def test_passt_on_the_card_matches_the_reference():
     """At the published widths, B=2 of 10 s through ``Tagger.predict`` on
     the card (K1 bf16x3, fp32 with TF32 off) against the reference on the
-    card, and the attention kernel that SDPA picks in float32."""
+    card; every attention call on the hand-written kernel
+    (``csrc/attention.cu``: ``attention_kernel`` and ``split_kv_kernel``,
+    12 launches a forward) and no SDPA kernel."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from torch.autograd import DeviceType
@@ -288,8 +306,10 @@ def test_passt_on_the_card_matches_the_reference():
             tagger = Tagger(NAME, pretrained=False, device="cuda", dft_precision="bf16x3")
         tagger.members[0].load_state_dict(sd, strict=True)
         reset_counters("passt.")
+        reset_counters("attn.")
         got = tagger.predict(wave.cpu().numpy())
         assert counter("passt.launch.attn") == 12 and counter("passt.tokens") == 2 * 1190
+        assert counter("attn.launch.kernel") == 12
         ref = rpasst.serve_probs(CFG, sd, wave).cpu().numpy()
         print(f"card prob gap {np.abs(got - ref).max():.3e}")
         assert np.abs(got - ref).max() < PROB_TOLERANCE
@@ -297,8 +317,11 @@ def test_passt_on_the_card_matches_the_reference():
             tagger.predict(wave.cpu().numpy())
             torch.cuda.synchronize()
         kernels = {e.name for e in prof.events() if e.device_type == DeviceType.CUDA}
-        attention = sorted(k for k in kernels if "fmha" in k or "attention" in k.lower())
+        attention = sorted(k for k in kernels if "fmha" in k or "attention" in k.lower()
+                           or "split_kv" in k)
         print("attention kernels:", attention)
-        assert attention
+        assert any("attention_kernel" in k for k in attention)
+        assert any("split_kv_kernel" in k for k in attention)
+        assert not any("fmha" in k or "Attention" in k for k in attention)
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
