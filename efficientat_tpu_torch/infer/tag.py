@@ -6,17 +6,22 @@ pinned host buffer (``tag.stage``), in row chunks on a pool of host threads
 where it is large (``stage_rows``), and each chunk's copy to the device
 (``tag.h2d``, inside ``tag.stage``) is issued as soon as its rows have
 landed; it is decoded there (``tag.decode``) (f32 / int16 / mu-law uint8), turned into log-mels
-by ``log_mel_spectrogram_fused`` (K1 on CUDA; ``tag.mel``), run through
+by ``log_mel_spectrogram_fused`` with the front end of the members' registry
+spec (K1 on CUDA for EfficientAT's ``MelConfig``; the plain path for
+HTS-AT's ``LibrosaMelConfig``, whose log-mel comes time before mels;
+``tag.mel``), run through
 every member (a DyMN at its ``cfg.t_max``, the final temperature of its
 training; ``tag.members``, and inside it ``tag.member.mn``,
-``tag.member.dymn`` or ``tag.member.passt`` around each member by its
+``tag.member.dymn``, ``tag.member.passt`` or ``tag.member.htsat`` around
+each member by its
 family, all timed on the device too, and the members' logits averaged in
 fp32; inside a PaSST member its blocks' ``passt.attn`` and ``passt.mlp``
 spans and the counters ``passt.launch.attn`` and ``passt.tokens``,
-``models/passt.py``), the sigmoid is taken
+``models/passt.py``; inside an HTS-AT member its blocks' ``htsat.attn`` and
+``htsat.window`` spans and its counters, ``models/htsat.py``), the sigmoid is taken
 (``tag.sigmoid``), and the probs are read back, where the host waits for the device (``tag.readback``). The whole
-batch runs at once: the JAX Tagger's DyMN micro-batching is a TPU
-workaround.
+batch runs at once, but where its members run as CUDA graphs (below): the
+JAX Tagger's DyMN micro-batching is a TPU workaround.
 
 ``dtype=torch.bfloat16`` runs the members under ``torch.autocast``; the mel
 stays fp32 (K1 at ``dft_precision``, outside the autocast), as upstream
@@ -24,8 +29,18 @@ keeps its front end out of autocast (models/preprocess.py:56-57). Autocast
 rounds the convs' and Linears' operands to bf16 and keeps BatchNorm in fp32,
 where the JAX Tagger's flax ``dtype`` computes BatchNorm in bf16 too.
 
+On CUDA, while spans are off, HTS-AT members' forwards are captured as CUDA
+graphs at the part's mel shape and replayed (``_Graphed``;
+``tag.graph.capture`` counts the captures), and the batch is served in
+``GRAPH_PARTS`` parts (``_parts``): the first part is staged and launched,
+then the next is staged while the card works on it, and so on. Only the
+first part's staging then delays a call, and a host that stalls later no
+longer idles the card. With spans on the whole batch runs eagerly, so that
+the blocks' spans time them.
+
 MN, DyMN and PaSST members mix freely: their mel configs are equal, so
-one log-mel feeds them all.
+one log-mel feeds them all. HTS-AT's front end is its own, so it is served
+alone or beside other HTS-AT members.
 
 ``mesh`` (a ``parallel/mesh.py::Mesh``) serves a same-architecture ensemble
 member-parallel (of MN, DyMN or PaSST members alike), as the JAX Tagger
@@ -50,6 +65,7 @@ from torch import nn
 
 from efficientat_tpu_torch.data.wavecodec import decode
 from efficientat_tpu_torch.models.dymn import DyMN
+from efficientat_tpu_torch.models.htsat import HTSAT
 from efficientat_tpu_torch.models.mn import MN
 from efficientat_tpu_torch.models.passt import PaSST
 from efficientat_tpu_torch.models.registry import build_model, get_model_config
@@ -61,7 +77,7 @@ from efficientat_tpu_torch.parallel.ensemble import (
 )
 from efficientat_tpu_torch.parallel.mesh import Mesh
 from efficientat_tpu_torch.utils.labels import AUDIOSET_LABELS
-from efficientat_tpu_torch.utils.profiling import count, span
+from efficientat_tpu_torch.utils.profiling import COUNTERS, count, span, spans_on
 
 
 # by family: the span of a served member's forward inside ``tag.members``,
@@ -71,6 +87,7 @@ _FAMILIES = {
     MN: ("tag.member.mn", lambda model: ()),
     DyMN: ("tag.member.dymn", lambda model: (model.cfg.t_max,)),
     PaSST: ("tag.member.passt", lambda model: ()),
+    HTSAT: ("tag.member.htsat", lambda model: ()),
 }
 
 
@@ -104,6 +121,15 @@ STAGE_THREADS = 8
 # row chunks a staging thread: the copy to the device of the last chunk, the
 # one part not hidden behind the staging, is small
 CHUNKS_A_THREAD = 2
+
+# Where the members run as CUDA graphs (HTS-AT on the card), a batch is
+# served in up to this many parts of at least PART_MIN_ROWS rows: the
+# staging of every part but the first overlaps the device's work on the
+# parts before it, so that only the first part's staging delays a call
+GRAPH_PARTS = 2
+PART_MIN_ROWS = 16
+# graphs kept by a Tagger (member, mel shape): the last used
+GRAPHS_KEPT = 4
 
 _pool: Optional[Tuple[ThreadPoolExecutor, int]] = None
 _pool_lock = threading.Lock()
@@ -160,17 +186,55 @@ def _member_logits(model: nn.Module, mel: torch.Tensor) -> torch.Tensor:
     return model(mel, *_serving_args(model))[0]
 
 
+class _Graphed:
+    """A member's serving forward at one mel shape, captured once as a CUDA
+    graph and replayed: the call's hundreds of launches become one, so the
+    host's pace no longer reaches the device time once the batch is
+    staged. The mel is copied into the graph's input, and the logits are
+    copied out of its output, which the next replay overwrites. The
+    weights are read where they lie, so a ``load_state_dict`` after the
+    capture is seen. The counters a forward adds are counted once a replay,
+    and neither the warm-up nor the capture counts."""
+
+    def __init__(self, model: nn.Module, mel: torch.Tensor):
+        counts = dict(COUNTERS)
+        self.mel = mel.clone()
+        try:
+            # warm up on a side stream before the capture, as CUDA graphs ask
+            side = torch.cuda.Stream(mel.device)
+            side.wait_stream(torch.cuda.current_stream(mel.device))
+            with torch.cuda.stream(side):
+                _member_logits(model, self.mel)
+            torch.cuda.current_stream(mel.device).wait_stream(side)
+            COUNTERS.clear()
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph):
+                self.logits = _member_logits(model, self.mel)
+            self.counts = dict(COUNTERS)
+        finally:
+            COUNTERS.clear()
+            COUNTERS.update(counts)
+        count("tag.graph.capture")
+
+    def __call__(self, mel: torch.Tensor) -> torch.Tensor:
+        self.mel.copy_(mel)
+        self.graph.replay()
+        for name, n in self.counts.items():
+            count(name, n)
+        return self.logits.clone()
+
+
 def _member_span(model: nn.Module) -> str:
     """The span of a member's forward inside ``tag.members``, by family."""
     return _FAMILIES[type(model)][0]
 
 
 class Tagger:
-    """Audio tagger over one MN, DyMN or PaSST model or an averaged ensemble
-    of them.
+    """Audio tagger over one MN, DyMN, PaSST or HTS-AT model or an averaged
+    ensemble of them.
 
-    names: registry name(s), e.g. ``"mn10_as"``, ``"dymn10_as"`` or
-        ``"passt_s_swa_p16_128_ap476"``.
+    names: registry name(s), e.g. ``"mn10_as"``, ``"dymn10_as"``,
+        ``"passt_s_swa_p16_128_ap476"`` or ``"htsat_tiny_as"``.
     pretrained: load ``<model_dir>/<release file>`` for every member; with
         ``False`` member ``i`` gets upstream's init drawn from
         ``torch.Generator`` seeded ``seed + i`` on the CPU.
@@ -256,15 +320,47 @@ class Tagger:
         # the replicated path's members; the member-parallel path's base
         self.members = members
         self._pinned: Optional[torch.Tensor] = None  # last batch's host buffer
+        # the members' graphs by (member, mel shape, dtype, autocast), the
+        # last used last
+        self._graphs: dict = {}
 
-    def _stage(self, waves: np.ndarray) -> torch.Tensor:
-        """The rows ``waves`` on the device, in their transport dtype. On CUDA
-        they land in the pinned buffer (``stage_rows``), allocated anew
-        (``tag.pin_alloc``) only when the rows' shape or dtype changes, and
-        each range of rows is copied on to the device (``tag.h2d``) on the
-        current stream as soon as it has landed."""
+    def _graphed(self) -> bool:
+        """Whether the members run as CUDA graphs (``_Graphed``): HTS-AT
+        members on CUDA on the replicated path, while spans are off. With
+        spans on they run eagerly, so that their blocks' spans time them."""
+        return (self.device.type == "cuda" and self._stacked is None and not spans_on()
+                and all(isinstance(m, HTSAT) for m in self.members))
+
+    def _graph(self, i: int, model: nn.Module, mel: torch.Tensor) -> _Graphed:
+        """Member ``i``'s graph for ``mel``, captured (``tag.graph.capture``)
+        the first time the mel's shape, dtype or autocast comes; the
+        ``GRAPHS_KEPT`` last used are kept."""
+        key = (i, tuple(mel.shape), mel.dtype, torch.is_autocast_enabled())
+        graph = self._graphs.pop(key, None) or _Graphed(model, mel)
+        self._graphs[key] = graph
+        while len(self._graphs) > GRAPHS_KEPT:
+            del self._graphs[next(iter(self._graphs))]
+        return graph
+
+    def _parts(self, rows: int) -> List[Tuple[int, int]]:
+        """The row ranges a batch of ``rows`` is served in, one after the
+        other: ``GRAPH_PARTS`` where the members run as graphs and every part
+        holds ``PART_MIN_ROWS`` or more, else the whole batch at once."""
+        parts = max(1, min(GRAPH_PARTS, rows // PART_MIN_ROWS)) if self._graphed() else 1
+        bounds = [rows * i // parts for i in range(parts + 1)]
+        return list(zip(bounds, bounds[1:]))
+
+    def _stage(self, waves: np.ndarray, rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+        """The rows ``waves`` on the device, in their transport dtype; only
+        the range ``rows`` of them where it is given. On CUDA they land in
+        the batch's pinned buffer, in the same rows (``stage_rows``),
+        allocated anew (``tag.pin_alloc``) only when the batch's shape or
+        dtype changes, and each range of rows is copied on to the device
+        (``tag.h2d``) on the current stream as soon as it has landed."""
+        start, stop = rows or (0, len(waves))
         if self.device.type != "cuda":
-            host = torch.from_numpy(np.ascontiguousarray(waves, _transport_dtype(waves)))
+            host = torch.from_numpy(np.ascontiguousarray(waves[start:stop],
+                                                         _transport_dtype(waves)))
             with span("tag.h2d"):
                 return host.to(self.device)
         dtype = _TORCH_DTYPES[_transport_dtype(waves)]
@@ -272,16 +368,33 @@ class Tagger:
         if buf is None or buf.shape != waves.shape or buf.dtype != dtype:
             count("tag.pin_alloc")
             buf = self._pinned = torch.empty(waves.shape, dtype=dtype, pin_memory=True)
-        x = torch.empty(buf.shape, dtype=dtype, device=self.device)
+        x = torch.empty((stop - start,) + buf.shape[1:], dtype=dtype, device=self.device)
 
-        def landed(start: int, stop: int) -> None:
+        def landed(a: int, b: int) -> None:
             with span("tag.h2d"):
-                x[start:stop].copy_(buf[start:stop], non_blocking=True)
+                x[a:b].copy_(buf[start + a:start + b], non_blocking=True)
 
-        # the previous copies out of this buffer finished: predict ends by
-        # reading its result back, which waits for the device
-        stage_rows(buf.numpy(), waves, landed)
+        # the previous copies out of these rows finished: predict ends by
+        # reading its result back, which waits for the device, and the
+        # parts of one batch take rows of their own
+        stage_rows(buf.numpy()[start:stop], waves[start:stop], landed)
         return x
+
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        """Staged rows ``x`` -> the members' mean logits: decode, the log-mel
+        and the members, each in its span."""
+        with span("tag.decode"):
+            x = decode(x)
+        with span("tag.mel"):
+            mel = log_mel_spectrogram_fused(x, self.mel_cfg,
+                                            dft_precision=self.dft_precision,
+                                            sharded=self._sharded)
+            # (B, 1, n_mels, frames); HTS-AT's (B, 1, frames, n_mels)
+            mel = mel[:, None]
+        with span("tag.members", device=True), torch.autocast(
+                self.device.type, dtype=self.dtype,
+                enabled=self.dtype != torch.float32):
+            return self._mean_logits(mel)
 
     def _mean_logits(self, mel: torch.Tensor) -> torch.Tensor:
         """The members' mean logits in fp32: the stack's on the
@@ -289,10 +402,12 @@ class Tagger:
         ``tag.member.*`` span each."""
         if self._stacked is not None:
             return self._ensemble(self._stacked, mel)
+        graphed = self._graphed()
         logits = []
-        for model in self.members:
+        for i, model in enumerate(self.members):
             with span(_member_span(model), device=True):
-                logits.append(_member_logits(model, mel))
+                logits.append(self._graph(i, model, mel)(mel) if graphed
+                              else _member_logits(model, mel))
         return sum(lg.float() for lg in logits) / len(self.members)
 
     def predict(self, waves: np.ndarray) -> np.ndarray:
@@ -319,18 +434,16 @@ class Tagger:
                         [waves, np.full((pad,) + waves.shape[1:], silence, waves.dtype)])
                 rows = waves.shape[0] // n_data
                 start = index * rows
-                x = self._stage(waves[start:start + rows])
-            with span("tag.decode"):
-                x = decode(x)
-            with span("tag.mel"):
-                mel = log_mel_spectrogram_fused(x, self.mel_cfg,
-                                                dft_precision=self.dft_precision,
-                                                sharded=self._sharded)
-                mel = mel[:, None]  # (B, 1, n_mels, frames)
-            with span("tag.members", device=True), torch.autocast(
-                    self.device.type, dtype=self.dtype,
-                    enabled=self.dtype != torch.float32):
-                logits = self._mean_logits(mel)
+                batch = waves[start:start + rows]
+                parts = self._parts(rows)
+                if len(parts) == 1:
+                    x = self._stage(batch)
+            if len(parts) == 1:
+                logits = self._logits(x)
+            else:
+                # each part launched before the next is staged: the host's
+                # staging of a part overlaps the device's work on the last
+                logits = torch.cat([self._logits(self._stage(batch, part)) for part in parts])
             with span("tag.sigmoid"):
                 probs = torch.sigmoid(logits)
             if n_data > 1:

@@ -1,5 +1,6 @@
 from efficientat_tpu_torch.models.dymn import DyMN, DyMNConfig, dyconv_temperature
 from efficientat_tpu_torch.models.ensemble import Ensemble
+from efficientat_tpu_torch.models.htsat import HTSAT, HTSATConfig
 from efficientat_tpu_torch.models.mn import MN, MNConfig, init_weights, mn_block_table
 from efficientat_tpu_torch.models.passt import PaSST, PaSSTConfig
 from efficientat_tpu_torch.models.registry import (
@@ -13,6 +14,8 @@ __all__ = [
     "DyMN",
     "DyMNConfig",
     "Ensemble",
+    "HTSAT",
+    "HTSATConfig",
     "MN",
     "MNConfig",
     "ModelSpec",

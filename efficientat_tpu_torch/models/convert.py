@@ -1,7 +1,10 @@
 """Checkpoint loading (port of efficientat_tpu/models/convert.py).
 
 - ``load_pretrained`` reads a release ``.pt`` (upstream key names: an MN,
-  a DyMN, or PaSST's own for PaSST-S) from a directory and loads it with
+  a DyMN, or PaSST's own for PaSST-S; for HTS-AT its training wrapper's
+  checkpoint, whose ``state_dict`` keys drop their ``sed_model.`` prefix
+  and whose torchlibrosa tensors are left out, ``model_state_dict``) from
+  a directory and loads it with
   ``load_state_dict(strict=True)`` into the module ``build_model`` makes
   for the name's config. It downloads
   nothing: a missing file raises ``FileNotFoundError``. Where the directory
@@ -193,7 +196,29 @@ HEAD_KEYS = {
                                     "classifier.head_weight"),
     # PaSST's default_cfgs: classifier=('head.1', 'head_dist')
     "passt": ("head.1.", "head_dist."),
+    # HTS-AT's token-semantic conv and the classes-to-classes Linear beside it
+    "htsat": ("tscam_conv.", "head."),
 }
+
+# HTS-AT's checkpoint: the prefix of the model's keys in its training
+# wrapper (``SEDWrapper.sed_model``), and the front end's fixed tensors
+# (torchlibrosa's STFT bases and mel bank), which the port builds
+# (``ops/melspec.py::LibrosaMelConfig``) and does not load
+HTSAT_PREFIX = "sed_model."
+HTSAT_BUILT = ("spectrogram_extractor.", "logmel_extractor.")
+
+
+def model_state_dict(sd: Mapping[str, Any], head_type: str) -> Mapping[str, Any]:
+    """The model's own state dict in a release file: the file's as it is,
+    but for HTS-AT, whose file is its training wrapper's checkpoint: its
+    ``state_dict`` (or the file, where it is a bare state dict), the
+    ``sed_model.`` prefix dropped, without the torchlibrosa tensors."""
+    if head_type != "htsat":
+        return sd
+    sd = sd.get("state_dict", sd)
+    sd = {k[len(HTSAT_PREFIX):] if k.startswith(HTSAT_PREFIX) else k: v
+          for k, v in sd.items()}
+    return {k: v for k, v in sd.items() if not k.startswith(HTSAT_BUILT)}
 
 
 def checkpoint_classes(sd: Mapping[str, Any], head_type: str) -> int:
@@ -206,6 +231,8 @@ def checkpoint_classes(sd: Mapping[str, Any], head_type: str) -> int:
         return sd["classifier.1.bias"].shape[0]
     if head_type == "passt" and "head.1.bias" in sd:
         return sd["head.1.bias"].shape[0]
+    if head_type == "htsat" and "tscam_conv.bias" in sd:
+        return sd["tscam_conv.bias"].shape[0]
     if (head_type == "multihead_attention_pooling"
             and "classifier.head_weight" in sd
             and "classifier.subspace_proj.weight" in sd):
@@ -254,7 +281,8 @@ def load_pretrained(name: str, model_dir: str = MODEL_DIR,
     (``HEAD_KEYS``: an mlp head's ``classifier.5``, the fully-convolutional
     head's conv and BatchNorm with its statistics, an attention-pooling
     head's projection and head weight, PaSST's ``head.1`` and
-    ``head_dist``) are dropped from the file and keep
+    ``head_dist``, HTS-AT's ``tscam_conv`` and ``head``) are dropped from
+    the file and keep
     upstream's init drawn from ``torch.Generator().manual_seed(seed)``;
     every other tensor must load. The file is held against the directory's
     digest manifest first (``check_digest``)."""
@@ -265,8 +293,9 @@ def load_pretrained(name: str, model_dir: str = MODEL_DIR,
             f"checkpoint {path} not found: place the release file "
             f"{spec.url} there (nothing is downloaded)")
     check_digest(path, model_dir, spec.url)
-    sd = torch.load(path, map_location="cpu", weights_only=True)
     cfg = spec.model_cfg
+    sd = model_state_dict(torch.load(path, map_location="cpu", weights_only=True),
+                          cfg.head_type)
     classes = cfg.num_classes if num_classes is None else num_classes
     if checkpoint_classes(sd, cfg.head_type) == classes:
         model = build_model(name, num_classes=classes)

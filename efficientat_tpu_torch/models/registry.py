@@ -1,11 +1,16 @@
-"""Checkpoint hub: name -> (MN, DyMN or PaSST config, mel config, release
-file) (port of efficientat_tpu/models/registry.py).
+"""Checkpoint hub: name -> (MN, DyMN, PaSST or HTS-AT config, mel config,
+release file) (port of efficientat_tpu/models/registry.py).
 
 Every name of the JAX registry is here with its own ``MelConfig``, and
-beside them PaSST-S, the transformer whose ensemble taught the zoo by
-distillation (github.com/kkoutini/PaSST; its release file is on PaSST's
-own release page, ``PASST_RELEASE_URL``). Its mel front end is EfficientAT's
-default, which was taken from PaSST.
+beside them two transformers that the JAX package has not: PaSST-S, whose
+ensemble taught the zoo by distillation (github.com/kkoutini/PaSST; its
+release file is on PaSST's own release page, ``PASST_RELEASE_URL``; its mel
+front end is EfficientAT's default, which was taken from PaSST), and HTS-AT,
+LAION-CLAP's audio tower (github.com/RetroCirce/HTS-Audio-Transformer), on
+its own front end, torchlibrosa's (``LibrosaMelConfig``). HTS-AT's
+checkpoints are in a folder that the repository's README links, not on a
+release page: ``HTSAT_RELEASE_URL`` is the repository, and the file name is
+the README's AudioSet checkpoint.
 """
 
 from __future__ import annotations
@@ -17,14 +22,17 @@ import torch
 from torch import nn
 
 from efficientat_tpu_torch.models.dymn import DyMN, DyMNConfig, init_weights
+from efficientat_tpu_torch.models.htsat import HTSAT, HTSATConfig
+from efficientat_tpu_torch.models.htsat import init_weights as init_htsat
 from efficientat_tpu_torch.models.mn import MN, MNConfig
 from efficientat_tpu_torch.models.passt import PaSST, PaSSTConfig
 from efficientat_tpu_torch.models.passt import init_weights as init_passt
-from efficientat_tpu_torch.ops.melspec import MelConfig
+from efficientat_tpu_torch.ops.melspec import LibrosaMelConfig, MelConfig
 from efficientat_tpu_torch.utils.common import NAME_TO_WIDTH
 
 RELEASE_URL = "https://github.com/fschmid56/EfficientAT/releases/download/v0.0.1/"
 PASST_RELEASE_URL = "https://github.com/kkoutini/PaSST/releases/download/v0.0.1-audioset/"
+HTSAT_RELEASE_URL = "https://github.com/RetroCirce/HTS-Audio-Transformer#"
 MODEL_DIR = "resources"
 
 
@@ -32,8 +40,8 @@ MODEL_DIR = "resources"
 class ModelSpec:
     name: str
     file: str  # filename on the release page
-    model_cfg: Union[MNConfig, DyMNConfig, PaSSTConfig]
-    mel_cfg: MelConfig = MelConfig()
+    model_cfg: Union[MNConfig, DyMNConfig, PaSSTConfig, HTSATConfig]
+    mel_cfg: Union[MelConfig, LibrosaMelConfig] = MelConfig()
     release_url: str = RELEASE_URL
 
     @property
@@ -115,6 +123,9 @@ _SPECS = [
     # PaSST-S, AudioSet mAP .476 (PaSST's models/passt.py default_cfgs)
     ModelSpec("passt_s_swa_p16_128_ap476", "passt-s-f128-p16-s10-ap.476-swa.pt",
               PaSSTConfig(), release_url=PASST_RELEASE_URL),
+    # HTS-AT, AudioSet mAP .471 (HTS-AT's config.py; the README's checkpoint)
+    ModelSpec("htsat_tiny_as", "HTSAT_AudioSet_Saved_1.ckpt", HTSATConfig(),
+              LibrosaMelConfig(), release_url=HTSAT_RELEASE_URL),
 ]
 
 REGISTRY = {s.name: s for s in _SPECS}
@@ -128,17 +139,19 @@ def get_model_config(name: str) -> ModelSpec:
 
 def build_model(name_or_cfg, num_classes: Optional[int] = None,
                 generator: Optional[torch.Generator] = None) -> nn.Module:
-    """An MN, DyMN or PaSST module on the CPU for a registry name or a
-    config; ``num_classes`` overrides the config's class count. With
+    """An MN, DyMN, PaSST or HTS-AT module on the CPU for a registry name or
+    a config; ``num_classes`` overrides the config's class count. With
     ``generator`` the weights are upstream's init drawn from it
     (``dymn.init_weights``, which is ``mn.init_weights`` plus DyMN's banks;
-    ``passt.init_weights``), else torch's default."""
+    ``passt.init_weights``; ``htsat.init_weights``), else torch's default."""
     cfg = (get_model_config(name_or_cfg).model_cfg
            if isinstance(name_or_cfg, str) else name_or_cfg)
     if num_classes is not None and num_classes != cfg.num_classes:
         cfg = dataclasses.replace(cfg, num_classes=num_classes)
     if isinstance(cfg, PaSSTConfig):
         model, init = PaSST(cfg), init_passt
+    elif isinstance(cfg, HTSATConfig):
+        model, init = HTSAT(cfg), init_htsat
     else:
         model, init = (DyMN(cfg) if isinstance(cfg, DyMNConfig) else MN(cfg)), init_weights
     if generator is not None:

@@ -7,6 +7,7 @@ from efficientat_tpu_torch.ops.mel_kernel import (
     stft_log_mel_sharded,
 )
 from efficientat_tpu_torch.ops.melspec import (
+    LibrosaMelConfig,
     MelConfig,
     MelDraws,
     draw_mel_augment,
@@ -14,6 +15,7 @@ from efficientat_tpu_torch.ops.melspec import (
 )
 
 __all__ = [
+    "LibrosaMelConfig",
     "MelConfig",
     "MelDraws",
     "draw_mel_augment",

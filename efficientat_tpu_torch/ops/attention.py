@@ -1,4 +1,5 @@
-"""PaSST's multi-head attention on a hand-written Hopper kernel, in bf16x3.
+"""PaSST's multi-head attention on a hand-written Hopper kernel, in bf16x3;
+HTS-AT's windowed attention on SDPA.
 
 ``attention(q, k, v)`` is softmax(q k^T D^-0.5) v, upstream's scale, for q,
 k and v of shape (B, H, N, 64) (SDPA's layout; any strided view, such as
@@ -19,6 +20,13 @@ product, fp32 softmax, product, in fp32, as upstream wrote it.
 ``attention_bf16x3`` reproduces the kernel's arithmetic in PyTorch, and
 ``attention_one_pass_bf16`` is the control that must miss it, for the tests
 alone.
+
+``window_attention(q, k, v, bias)`` is HTS-AT's windowed attention, another
+function that the kernel does not take: heads of 24 over windows of 64
+tokens, with an additive bias a window and head (the relative-position
+bias, plus the shift mask in a shifted block). On the card it runs
+``torch.nn.functional.scaled_dot_product_attention`` with the bias as its
+``attn_mask``; on the CPU ``window_attention_plain``.
 
 The kernel takes float32 q, k and v on one card (``attention`` casts bf16 and
 fp16 ones, as a bf16 Tagger's autocast gives them, to float32 first), a head
@@ -213,6 +221,42 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor
            lib, "forward")
     count("attn.launch.kernel")
     return out
+
+
+def window_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           bias: torch.Tensor) -> torch.Tensor:
+    """``window_attention``'s function in PyTorch, on any device: (q k^T) *
+    D^-0.5 + bias, softmax, times v, in the inputs' dtype, as upstream's
+    ``WindowAttention`` writes it; (B, nW, H, N, D)."""
+    s = (q @ k.transpose(-2, -1)) * q.shape[-1] ** -0.5 + bias
+    return s.softmax(dim=-1) @ v
+
+
+def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     bias: torch.Tensor) -> torch.Tensor:
+    """softmax(q k^T D^-0.5 + bias) v over the windows of B clips: q, k and v
+    (B, nW, H, N, D), nW windows a clip of N tokens, any strides with the
+    last 1; ``bias`` (nW, H, N, N), the same for every clip. Returns (B, nW,
+    H, N, D).
+
+    CUDA inputs: SDPA on (B, nW x H, N, D) with the bias as a (1, nW x H, N,
+    N) ``attn_mask`` that it broadcasts over the clips, so the bias is read
+    once a call and never copied a clip. SDPA's fused kernels take 4-D
+    inputs, and a bias that is the same for every clip broadcasts over a
+    leading clip axis only, so a clip's windows go with the heads; that
+    merge is a view where the windows of a token position lie one after the
+    other (HTS-AT's blocks lay their tokens out so, ``models/htsat.py``),
+    else a copy. CPU inputs: ``window_attention_plain``."""
+    if tuple(bias.shape) != (q.shape[1], q.shape[2], q.shape[3], k.shape[3]):
+        raise ValueError(f"window_attention takes a bias of (nW, H, N, N) = "
+                         f"{(q.shape[1], q.shape[2], q.shape[3], k.shape[3])}, "
+                         f"got {tuple(bias.shape)}")
+    if not (q.is_cuda or k.is_cuda or v.is_cuda):
+        return window_attention_plain(q, k, v, bias)
+    nw, h = q.shape[1], q.shape[2]
+    o = F.scaled_dot_product_attention(q.flatten(1, 2), k.flatten(1, 2), v.flatten(1, 2),
+                                       attn_mask=bias.to(q.dtype).flatten(0, 1)[None])
+    return o.unflatten(1, (nw, h))
 
 
 def flops(batch: int, heads: int, n: int, d: int = HEAD_DIM) -> int:

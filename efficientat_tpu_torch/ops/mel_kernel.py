@@ -118,9 +118,12 @@ def k1_launches(dft_precision: str | None = None) -> int:
     return sum(counter(f"k1.launch.{route}") for route in routes)
 
 
-def kernel_supported(cfg: MelConfig) -> bool:
-    """Configs the JAX kernel computes: n_fft 1024 and hop 320 or 640."""
-    return cfg.n_fft == 1024 and cfg.hopsize in (320, 640)
+def kernel_supported(cfg) -> bool:
+    """Configs the JAX kernel computes: EfficientAT's front end
+    (``MelConfig``) at n_fft 1024 and hop 320 or 640. torchlibrosa's
+    (``LibrosaMelConfig``, HTS-AT's) is another function of the wave: no
+    pre-emphasis, another window, a Slaney bank and decibels."""
+    return isinstance(cfg, MelConfig) and cfg.n_fft == 1024 and cfg.hopsize in (320, 640)
 
 
 def launch_mels(n_mels: int) -> int:
@@ -638,7 +641,7 @@ def log_mel_spectrogram_fused(waveform: torch.Tensor,
     on CPU), ``"plain"`` (the melspec path), or ``"auto"``
     (``auto_takes_kernel``: K1 when the wave is on CUDA, the config is one
     K1 computes and the clip has at least 4096 samples, the melspec path
-    otherwise).
+    otherwise, which also takes HTS-AT's ``LibrosaMelConfig``).
 
     ``training=True`` needs ``draws`` (this call's rows of them): K1 gets the
     jittered fp32 banks as its runtime input and its output is masked with
@@ -654,6 +657,8 @@ def log_mel_spectrogram_fused(waveform: torch.Tensor,
         raise ValueError("training=True requires draws (see draw_mel_augment)")
     if backend not in ("auto", "kernel", "plain"):
         raise ValueError(f"backend must be auto, kernel or plain, got {backend!r}")
+    if backend == "kernel" and not isinstance(cfg, MelConfig):
+        raise ValueError(f"K1 computes EfficientAT's front end (a MelConfig), not {cfg}")
     use_kernel = backend == "kernel" or (backend == "auto" and auto_takes_kernel(
         cfg, waveform.device.type, waveform.shape[-1]))
     if not use_kernel:

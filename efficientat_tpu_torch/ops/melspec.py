@@ -9,6 +9,10 @@ eval mode:
 3. Kaldi mel bank (``ops.filterbank``), fp32 mel GEMM, ``log(mel + 1e-5)``;
 4. fixed normalisation ``(x + 4.5) / 5``.
 
+HTS-AT's front end is another one, torchlibrosa's (``LibrosaMelConfig``,
+``librosa_log_mel``): no pre-emphasis, a periodic Hann window of n_fft, a
+Slaney mel bank and decibels. ``log_mel_spectrogram`` takes either config.
+
 As in the JAX package, the STFT is a GEMM against a windowed rDFT basis built
 in float64, and clips of at least ``2 * n_fft`` samples multiply frames of the
 RAW wave by a basis with the pre-emphasis folded in (``stft_power_folded``),
@@ -28,7 +32,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 from functools import lru_cache
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -38,6 +42,8 @@ from efficientat_tpu_torch.ops.filterbank import kaldi_mel_banks
 from efficientat_tpu_torch.utils.profiling import count
 
 PREEMPH = 0.97
+# torchlibrosa's floor of the mel power before its decibels
+AMIN = 1e-10
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,6 +82,97 @@ class MelConfig:
         """Frames for ``num_samples`` samples: pre-emphasis shortens by 1 and
         the centered STFT yields ``1 + L // hop`` frames."""
         return (num_samples - 1) // self.hopsize + 1
+
+
+@dataclasses.dataclass(frozen=True)
+class LibrosaMelConfig:
+    """torchlibrosa's front end, ``Spectrogram`` then ``LogmelFilterBank``,
+    as HTS-AT builds it (github.com/RetroCirce/HTS-Audio-Transformer,
+    model/htsat.py and config.py): a centred STFT of ``n_fft`` with reflect
+    pad and a periodic Hann window of ``n_fft``, power 2; a Slaney-scale,
+    Slaney-normalised mel bank from ``fmin`` to ``fmax`` (librosa's
+    ``filters.mel`` default); ``10 log10(max(x, AMIN))``, HTS-AT's
+    ``LogmelFilterBank`` at ref 1 and no ``top_db``. No pre-emphasis, no
+    normalisation, no training augmentation. K1 does not compute it
+    (``mel_kernel.kernel_supported``)."""
+
+    n_mels: int = 64
+    sr: int = 32000
+    n_fft: int = 1024
+    hopsize: int = 320
+    fmin: float = 50.0
+    fmax: float = 14000.0
+
+    @property
+    def n_freqs(self) -> int:
+        return self.n_fft // 2 + 1
+
+    def num_frames(self, num_samples: int) -> int:
+        """Frames of the centred STFT: ``1 + L // hop``."""
+        return num_samples // self.hopsize + 1
+
+
+def hz_to_mel_slaney(f: np.ndarray) -> np.ndarray:
+    """Slaney's mel scale (librosa's ``hz_to_mel``, htk=False), float64:
+    linear at 3 mels a 200 Hz below 1 kHz (15 mels at 1 kHz), logarithmic
+    above at 27 mels a factor of 6.4."""
+    f = np.asarray(f, dtype=np.float64)
+    lin = 3.0 * f / 200.0
+    log = 15.0 + np.log(np.maximum(f, 1000.0) / 1000.0) * (27.0 / np.log(6.4))
+    return np.where(f >= 1000.0, log, lin)
+
+
+def mel_to_hz_slaney(m: np.ndarray) -> np.ndarray:
+    """The inverse of ``hz_to_mel_slaney``, float64."""
+    m = np.asarray(m, dtype=np.float64)
+    lin = 200.0 * m / 3.0
+    log = 1000.0 * np.exp((np.log(6.4) / 27.0) * (np.maximum(m, 15.0) - 15.0))
+    return np.where(m >= 15.0, log, lin)
+
+
+@lru_cache(maxsize=8)
+def slaney_mel_banks(n_mels: int, n_fft: int, sr: int, fmin: float,
+                     fmax: float) -> np.ndarray:
+    """(n_mels, n_fft // 2 + 1) float64 Slaney bank (librosa's
+    ``filters.mel``, htk=False, norm="slaney"): triangles between
+    ``n_mels + 2`` edges equally spaced on the Slaney scale from ``fmin`` to
+    ``fmax``, on the bins' frequencies ``k sr / n_fft``, each scaled by
+    2 / (f[i+2] - f[i]) to unit area in Hz."""
+    bins = np.linspace(0.0, sr / 2.0, n_fft // 2 + 1)
+    edges = mel_to_hz_slaney(np.linspace(hz_to_mel_slaney(fmin), hz_to_mel_slaney(fmax),
+                                         n_mels + 2))
+    width = np.diff(edges)
+    ramps = edges[:, None] - bins[None, :]
+    up = -ramps[:-2] / width[:-1, None]
+    down = ramps[2:] / width[1:, None]
+    weights = np.maximum(0.0, np.minimum(up, down))
+    return weights * (2.0 / (edges[2:] - edges[:-2]))[:, None]
+
+
+@lru_cache(maxsize=8)
+def _librosa_consts(cfg: LibrosaMelConfig, device: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The periodic Hann window and the transposed Slaney bank (n_freqs,
+    n_mels), float32 on ``device``, made once a config and device."""
+    window = torch.hann_window(cfg.n_fft, periodic=True, dtype=torch.float64)
+    banks = slaney_mel_banks(cfg.n_mels, cfg.n_fft, cfg.sr, cfg.fmin, cfg.fmax)
+    return (window.to(device=device, dtype=torch.float32),
+            torch.from_numpy(np.ascontiguousarray(banks.T)).to(device=device,
+                                                                dtype=torch.float32))
+
+
+def librosa_log_mel(waveform: torch.Tensor, cfg: LibrosaMelConfig) -> torch.Tensor:
+    """torchlibrosa's log-mel in float32: (B, num_samples) -> (B, n_frames,
+    n_mels), torchlibrosa's layout (time before mels). The STFT is
+    ``torch.stft`` (cuFFT on the card), the mel product an IEEE fp32 GEMM
+    (``true_fp32``)."""
+    x = waveform.to(torch.float32)
+    window, banks = _librosa_consts(cfg, str(x.device))
+    spec = torch.stft(x, cfg.n_fft, cfg.hopsize, window=window, center=True,
+                      pad_mode="reflect", return_complex=True)
+    power = torch.view_as_real(spec).square().sum(-1)  # (B, n_freqs, frames)
+    with true_fp32():
+        mel = power.transpose(1, 2) @ banks
+    return 10.0 * torch.log10(torch.clamp(mel, min=AMIN))
 
 
 @contextlib.contextmanager
@@ -318,13 +415,21 @@ def apply_masks(mel: torch.Tensor, cfg: MelConfig, draws: MelDraws,
     return mel
 
 
-def log_mel_spectrogram(waveform: torch.Tensor, cfg: MelConfig = MelConfig(),
+def log_mel_spectrogram(waveform: torch.Tensor,
+                        cfg: Union[MelConfig, LibrosaMelConfig] = MelConfig(),
                         *, training: bool = False,
                         draws: Optional[MelDraws] = None) -> torch.Tensor:
-    """Waveform (B, num_samples) -> normalized log-mel (B, n_mels, n_frames).
+    """Waveform (B, num_samples) -> normalized log-mel (B, n_mels, n_frames);
+    for a ``LibrosaMelConfig``, torchlibrosa's log-mel in decibels, (B,
+    n_frames, n_mels) (``librosa_log_mel``; serving only).
 
     ``training=True`` jitters fmin/fmax and applies SpecAugment with
     ``draws`` (required)."""
+    if isinstance(cfg, LibrosaMelConfig):
+        if training:
+            raise ValueError("torchlibrosa's front end is served only: training=True "
+                             "takes a MelConfig")
+        return librosa_log_mel(waveform, cfg)
     if training and draws is None:
         raise ValueError("training=True requires draws (see draw_mel_augment)")
     x32 = waveform.to(torch.float32)

@@ -5,10 +5,16 @@ from __future__ import annotations
 
 import torch
 
+from efficientat_tpu_torch.models.htsat import HTSATConfig
 from efficientat_tpu_torch.models.mn import MNConfig
 from efficientat_tpu_torch.models.passt import PaSSTConfig
 from efficientat_tpu_torch.models.registry import build_model, get_model_config
-from efficientat_tpu_torch.tools.macs import TransformerSpec, count_macs, count_macs_transformer
+from efficientat_tpu_torch.tools.macs import (
+    TransformerSpec,
+    count_macs,
+    count_macs_htsat,
+    count_macs_transformer,
+)
 from efficientat_tpu_torch.tools.peak_memory import peak_memory_cnn, peak_memory_mnv3
 
 
@@ -35,6 +41,9 @@ def report_complexity(model_name: str, measure: str = "macs", bits: int = 16,
             # a longer input is cut to the time embedding's patches
             spec_t = TransformerSpec.from_config(cfg, min(input_t, cfg.input_tdim))
             total = count_macs_transformer(spec_t, verbose=True)
+        elif isinstance(cfg, HTSATConfig):
+            # a clip of up to 1,024 frames is stretched to them
+            total = count_macs_htsat(cfg, verbose=True)
         else:
             total = count_macs(cfg, input_f, input_t, verbose=True)
         n_params = count_module_params(model_name)
@@ -42,9 +51,9 @@ def report_complexity(model_name: str, measure: str = "macs", bits: int = 16,
               f"and inference of a single {clip_seconds:.0f}-seconds audio clip "
               f"requires {total / 1e9:.2f} billion multiply-accumulate operations.")
         return total
-    if measure == "memory" and isinstance(cfg, PaSSTConfig):
+    if measure == "memory" and isinstance(cfg, (PaSSTConfig, HTSATConfig)):
         raise ValueError(f"{model_name}: the analytic peak memory covers MN and DyMN, "
-                         "not the PaSST family")
+                         "not the transformer families")
     if measure == "memory":
         if memory_efficient and isinstance(cfg, MNConfig):
             peak = peak_memory_mnv3(cfg, input_f, input_t, bits, verbose=True)

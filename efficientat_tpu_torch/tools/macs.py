@@ -12,6 +12,7 @@ import dataclasses
 from typing import Optional, Union
 
 from efficientat_tpu_torch.models.dymn import DyMNConfig
+from efficientat_tpu_torch.models.htsat import MLP_RATIO, HTSATConfig
 from efficientat_tpu_torch.models.mn import MNConfig
 from efficientat_tpu_torch.models.passt import PaSSTConfig
 from efficientat_tpu_torch.tools.layer_plan import layer_plan
@@ -129,6 +130,49 @@ def count_macs_transformer(spec: TransformerSpec, verbose: bool = False) -> int:
         linear.append(lin(e, hidden, n))      # mlp fc2
     linear.append(lin(spec.num_classes, e, 1))  # pooled head
 
+    total = sum(conv) + sum(linear) + sum(att)
+    if verbose:
+        print("*************Computational Complexity (multiply-adds) **************")
+        print("Number of Convolutional Layers: ", len(conv))
+        print("Number of Linear Layers: ", len(linear))
+        print("Number of Attention Layers: ", len(att))
+        print("Relative Share of Convolutional Layers: {:.2f}".format(sum(conv) / total))
+        print("Relative Share of Linear Layers: {:.2f}".format(sum(linear) / total))
+        print("Relative Share of Attention Layers: {:.2f}".format(sum(att) / total))
+        print("Total MACs (multiply-accumulate operations in Billions): {:.2f}".format(total / 10 ** 9))
+        print("********************************************************************")
+    return total
+
+
+# ---------------------------------------------------------------- HTS-AT
+
+
+def count_macs_htsat(cfg: HTSATConfig = HTSATConfig(), verbose: bool = False) -> int:
+    """HTS-AT's MACs a clip, model only (the front end and ``bn0`` left out,
+    as for the other families), with ``count_macs_transformer``'s
+    accounting: the patch conv and ``tscam_conv`` as convs with their bias,
+    every position-wise Linear (weights + bias) x its tokens, a patch
+    merge's reduction without bias, attention 2 x C x tokens x keys a block
+    (q k^T and p v inside windows of window^2 keys). A clip of up to
+    ``target_frames`` frames is stretched to them, so one 10 s clip and any
+    shorter one cost the same. The unused ``head`` is not counted."""
+    conv = [(cfg.patch_size ** 2 + 1) * cfg.embed_dim * cfg.grid ** 2]
+    linear, att = [], []
+    stages = cfg.stages
+    for i, st in enumerate(stages):
+        c, n = st.dim, st.tokens
+        hidden = MLP_RATIO * c
+        for _ in range(st.depth):
+            linear.append((3 * c * c + 3 * c) * n)      # qkv
+            att.append(2 * c * n * st.window ** 2)      # q k^T + p v
+            linear.append((c * c + c) * n)              # proj
+            linear.append((hidden * c + hidden) * n)    # fc1
+            linear.append((c * hidden + c) * n)         # fc2
+        if i < len(stages) - 1:
+            linear.append(4 * c * 2 * c * n // 4)       # merge's reduction
+    top = stages[-1]
+    width = cfg.freq_ratio * top.resolution
+    conv.append((cfg.c_freq_bin * 3 * cfg.num_features + 1) * cfg.num_classes * width)
     total = sum(conv) + sum(linear) + sum(att)
     if verbose:
         print("*************Computational Complexity (multiply-adds) **************")

@@ -15,18 +15,21 @@ event of the port is made here.
 
 Spans mark the port's layer boundaries (``Tagger.predict``'s staging, copy,
 mel, members and read-back, and inside ``tag.members`` one
-``tag.member.mn``, ``tag.member.dymn`` or ``tag.member.passt`` a member, on
-the device's clock too; inside a PaSST forward, ``models/passt.py``,
-``passt.attn`` around each block's attention call and ``passt.mlp`` around
-its MLP, both on the device's clock; ``train_step``'s forward, backward and
-optimizer):
+``tag.member.mn``, ``tag.member.dymn``, ``tag.member.passt`` or
+``tag.member.htsat`` a member, on the device's clock too; inside a PaSST
+forward, ``models/passt.py``, ``passt.attn`` around each block's attention
+call and ``passt.mlp`` around its MLP; inside an HTS-AT forward,
+``models/htsat.py``, ``htsat.attn`` around each block's windowed-attention
+call and ``htsat.window`` around its roll and window partition and again
+around its window reverse and roll back; all of these on the device's clock
+too; ``train_step``'s forward, backward and optimizer):
 
     with span("tag.members", device=True):
         ...
 
 They are off by default, and then a span costs one check of a flag.
-``set_spans(True)`` turns them on: each records its name, start and end on
-the host clock (``time.perf_counter_ns``), its parent and a call id (the
+``set_spans(True)`` turns them on (``spans_on`` says whether they are):
+each records its name, start and end on the host clock (``time.perf_counter_ns``), its parent and a call id (the
 sequence number of its root span, shared by every span of one call);
 ``device=True`` adds a pair of CUDA timing events on the current stream,
 resolved only when the spans are taken. While ``torch.profiler`` records,
@@ -42,7 +45,12 @@ card, ``ops/batch_norm.py``, in each direction), ``bn.launch.eval`` (an
 eval-mode BatchNorm layer and its chain as one kernel on the card: 46 a
 ``mn10_as`` forward, 61 a ``dymn10_as`` one), ``passt.launch.attn`` (a
 PaSST block's attention call: 12 a PaSST-S forward) and ``passt.tokens``
-(the tokens of a PaSST forward: B x 1,190 at 10 s), ``probe.launch.p1``-``p3``,
+(the tokens of a PaSST forward: B x 1,190 at 10 s), ``htsat.launch.attn``
+(an HTS-AT block's windowed-attention call: 12 a forward), ``htsat.windows``
+(the windows of an HTS-AT forward: B x 186) and ``htsat.shifted`` (its
+shifted blocks: 5), all three counted again at each replay of an HTS-AT
+forward captured as a CUDA graph, ``tag.graph.capture`` (a member's forward
+captured as one, ``infer/tag.py``), ``probe.launch.p1``-``p3``,
 ``k1.const_miss`` (a device constant built and uploaded), ``tag.pin_alloc``
 (a pinned staging buffer allocated), ``tag.stage.chunks`` (row chunks
 staged on the staging pool) and ``tag.stage.serial`` (batches staged on the
@@ -156,6 +164,11 @@ def span(name: str, device: bool = False):
     where CUDA is in use. Spans nest by the order they open, in one
     thread."""
     return _Span(name, device) if _SPANS_ON else _OFF
+
+
+def spans_on() -> bool:
+    """Whether spans are on (``set_spans``)."""
+    return _SPANS_ON
 
 
 def set_spans(on: bool) -> bool:

@@ -12,20 +12,23 @@ from torch_manifest import MANIFEST, assert_digest_close, manifest_wave, synth_s
 from torch_threads import one_torch_thread  # noqa: F401
 
 from efficientat_tpu_torch.models.dymn import DyMN
+from efficientat_tpu_torch.models.htsat import HTSATConfig
 from efficientat_tpu_torch.models.passt import PaSSTConfig
 from efficientat_tpu_torch.models.registry import REGISTRY, build_model
 from efficientat_tpu_torch.ops.melspec import log_mel_spectrogram
 
 ROWS = {row["name"]: row for row in MANIFEST["models"]}
 # the EfficientAT zoo's names, which the JAX package and the manifest hold;
-# the port's PaSST-S has no JAX counterpart and is held against its plain
-# reference instead (tests/test_torch_passt.py)
-ZOO = sorted(n for n, s in REGISTRY.items() if not isinstance(s.model_cfg, PaSSTConfig))
+# the port's PaSST-S and HTS-AT have no JAX counterpart and are held against
+# their plain references instead (tests/test_torch_passt.py,
+# tests/test_torch_htsat.py)
+PORT_ONLY = (PaSSTConfig, HTSATConfig)
+ZOO = sorted(n for n, s in REGISTRY.items() if not isinstance(s.model_cfg, PORT_ONLY))
 
 
 def test_manifest_covers_the_registry():
     assert sorted(ROWS) == ZOO and len(ROWS) == MANIFEST["n_names"] == 46
-    assert set(REGISTRY) - set(ZOO) == {"passt_s_swa_p16_128_ap476"}
+    assert set(REGISTRY) - set(ZOO) == {"passt_s_swa_p16_128_ap476", "htsat_tiny_as"}
 
 
 @pytest.mark.parametrize("name", ZOO)

@@ -2,14 +2,19 @@
 buffer: row chunks on the staging pool above ``STAGE_MIN_BYTES``, one piece
 on the calling thread below it, each range of rows handed on in row order
 once it has landed, and the bytes those of ``np.ascontiguousarray`` in the
-transport dtype."""
+transport dtype. The parts a batch is served in where its members run as
+CUDA graphs (``Tagger._parts``), and a predict in parts against one of the
+whole batch."""
 
 import os
 import sys
 import threading
 
+import warnings
+
 import numpy as np
 import pytest
+import torch
 
 from efficientat_tpu_torch.infer import tag
 from efficientat_tpu_torch.infer.tag import _stage_pool, _transport_dtype, stage_rows
@@ -127,3 +132,38 @@ def test_stage_rows_from_many_callers_at_once(monkeypatch):
         sys.setswitchinterval(interval)
     assert not any(t.is_alive() for t in threads)
     assert errors == []
+
+
+def _mn_tagger():
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        return tag.Tagger("mn10_as", pretrained=False, device="cpu")
+
+
+@pytest.mark.parametrize("rows, want", [
+    (64, [(0, 32), (32, 64)]), (33, [(0, 16), (16, 33)]), (32, [(0, 16), (16, 32)]),
+    (31, [(0, 31)]), (2, [(0, 2)]), (1, [(0, 1)])])
+def test_a_graphed_batch_goes_in_parts_of_at_least_part_min_rows(rows, want):
+    tagger = _mn_tagger()
+    assert tagger._parts(rows) == [(0, rows)]  # no graphs on the CPU
+    tagger._graphed = lambda: True
+    assert tag.GRAPH_PARTS == 2 and tag.PART_MIN_ROWS == 16
+    assert tagger._parts(rows) == want
+
+
+def test_a_predict_in_parts_gives_the_whole_batchs_probs():
+    """The part path staged and run part by part (forced on the CPU, where
+    a batch otherwise goes whole) gives the probs of the whole batch, each
+    part's rows staged from its own rows of the batch."""
+    tagger = _mn_tagger()
+    rng = np.random.default_rng(3)
+    waves = (rng.normal(size=(3, 32000)) * 0.1).astype(np.float32)
+    whole = tagger.predict(waves)
+    staged = []
+    stage = tagger._stage
+    tagger._stage = lambda w, rows=None: (staged.append(rows), stage(w, rows))[1]
+    tagger._parts = lambda rows: [(0, 1), (1, rows)]
+    parts = tagger.predict(waves)
+    assert staged == [(0, 1), (1, 3)]
+    np.testing.assert_allclose(parts, whole, rtol=0, atol=1e-6)
+    assert torch.equal(tagger._stage(waves, (1, 3)), torch.from_numpy(waves[1:3]))

@@ -21,6 +21,7 @@ from efficientat_tpu.tools import macs as jax_macs
 from efficientat_tpu.tools import peak_memory as jax_peak
 from efficientat_tpu_torch import cli
 from efficientat_tpu_torch.models.dymn import DyMNConfig
+from efficientat_tpu_torch.models.htsat import HTSATConfig
 from efficientat_tpu_torch.models.mn import MNConfig
 from efficientat_tpu_torch.models.passt import PaSSTConfig
 from efficientat_tpu_torch.models.registry import REGISTRY, build_model
@@ -43,8 +44,10 @@ from efficientat_tpu_torch.tools.receptive_field import (
 # the module, which the package's ``receptive_field`` function shadows
 jax_rf = importlib.import_module("efficientat_tpu.tools.receptive_field")
 # the EfficientAT zoo's names, which the JAX registry holds too (the port's
-# PaSST-S is counted in tests/test_torch_passt.py)
-NAMES = sorted(n for n, s in REGISTRY.items() if not isinstance(s.model_cfg, PaSSTConfig))
+# PaSST-S and HTS-AT are counted in tests/test_torch_passt.py and
+# tests/test_torch_htsat.py)
+NAMES = sorted(n for n, s in REGISTRY.items()
+               if not isinstance(s.model_cfg, (PaSSTConfig, HTSATConfig)))
 # the peak-memory estimates: the same float arithmetic in one order, so
 # equal but for the last bit
 RTOL_PEAK = 1e-12
@@ -61,7 +64,7 @@ def _configs(name):
 
 def test_registries_hold_the_same_names():
     assert len(NAMES) == 46 and set(NAMES) == set(JAX_REGISTRY)
-    assert set(REGISTRY) - set(NAMES) == {"passt_s_swa_p16_128_ap476"}
+    assert set(REGISTRY) - set(NAMES) == {"passt_s_swa_p16_128_ap476", "htsat_tiny_as"}
 
 
 # ------------------------------------------------------- against the JAX tools
